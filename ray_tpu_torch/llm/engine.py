@@ -1,0 +1,1083 @@
+"""Continuous-batching LLM inference engine over a paged KV pool.
+
+Counterpart of `ray_tpu/llm/engine.py` (paged layout). The scheduling is
+the JAX engine's, line for line where it can be: slot-based continuous
+batching, a page pool with an LRU of reusable prefix pages, prefix-cache
+hits, chunked prefill, recompute preemption, and decode windows that read
+tokens back once per window. What changes is the execution model:
+
+- PyTorch runs eagerly, so there are no compile buckets to share; the
+  prompt, page-table and window buckets stay because they shape the
+  schedule (and the bounded page tables bound the decode kernel's work).
+- The KV pool is updated in place (index_put_), which takes the place of
+  the JAX engine's buffer donation.
+- A decode window is a Python loop of decode+sample steps whose tokens,
+  lengths and `active` flags stay on the device; the host reads back one
+  [n_steps, B] block per window, as the `lax.scan` version does.
+- Decode attention is the hand-written paged-decode CUDA kernel
+  (`ops/paged_attention.py`); prefill attention stays the plain dense
+  masked softmax of the JAX code (matrix products left to the library, as
+  the JAX package leaves them to XLA).
+
+Pool layout: [L, hkv, num_pages, page, hd] (each token's head row
+contiguous; see `ops/csrc/paged_decode.cu`).
+
+Not in this slice (each raises NotImplementedError when asked for): the
+dense `kv_layout`, speculative decoding, guided decoding, KV handoff
+(`import_kv`, `PrefillEngine`, resume tokens) and tensor-parallel meshes.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import threading
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models.transformer import (ModelConfig, _mlp, _moe,
+                                              init_params, layer_params,
+                                              lm_head)
+from ray_tpu_torch.ops.layers import apply_rope, rmsnorm, rope
+from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_slots: int = 8             # concurrent decoding sequences
+    max_len: int = 2048            # per-sequence context bound (prompt + gen)
+    prompt_buckets: tuple = (64, 256, 1024)  # prefill length buckets
+    eos_token: int = 2
+    default_max_new_tokens: int = 128
+    default_temperature: float = 0.0  # 0 = greedy
+    kv_layout: str = "paged"       # only "paged" in this port
+    page_size: int = 128           # tokens per KV page
+    num_pages: int | None = None   # pool size; None = slots*ceil(max_len/
+    #                                page)+1
+    prefix_cache: bool = True      # reuse full prompt pages across requests
+    speculation: str | None = None  # None only in this port
+    spec_k: int = 4
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt: list
+    max_new_tokens: int
+    temperature: float
+    top_p: float = 1.0     # 1.0 = no nucleus truncation
+    top_k: int = 0         # 0 = no top-k truncation
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    # Set when the request was preempted mid-decode: the token that was
+    # sampled but never fed back. Re-admission resumes from it instead of
+    # re-sampling the position.
+    resume_token: int | None = None
+    # OpenAI logprobs: log p(token) for each generated token.
+    logprobs: bool = False
+    token_logprobs: list = dataclasses.field(default_factory=list)
+
+
+def _not_in_slice(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to ray_tpu_torch yet (a later slice of the "
+        f"PyTorch port; see ROADMAP.md)")
+
+
+# ---------------- pure model steps ----------------
+
+
+def _qkv(x, lp, c: ModelConfig):
+    b, s, _ = x.shape
+    h, hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    q = torch.einsum("bsd,dq->bsq", x, lp["wq"]).reshape(b, s, h, hd)
+    k = torch.einsum("bsd,dk->bsk", x, lp["wk"]).reshape(b, s, hkv, hd)
+    v = torch.einsum("bsd,dk->bsk", x, lp["wv"]).reshape(b, s, hkv, hd)
+    return q, k, v
+
+
+def _mlp_block(x, lp, c: ModelConfig):
+    normed = rmsnorm(x, lp["mlp_norm"], c.norm_eps)
+    return x + (_moe(normed, lp, c) if c.moe_experts else _mlp(normed, lp))
+
+
+def _dense_attend(q, kk, vv, mask, c: ModelConfig, dtype):
+    """Masked softmax attention of the prefill paths. q [n, S, h, hd],
+    kk/vv [n, T, hkv, hd], mask broadcastable to [n, h, S, T]. The
+    probabilities are cast to the activation dtype before the PV product,
+    as in the JAX engine."""
+    n_rep = c.n_heads // c.n_kv_heads
+    if n_rep > 1:
+        kk = kk.repeat_interleave(n_rep, dim=2)
+        vv = vv.repeat_interleave(n_rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(c.head_dim)
+    scores = torch.where(mask, scores.float(), float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    attn = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    return attn.reshape(q.shape[0], q.shape[1], c.n_heads * c.head_dim)
+
+
+def prefill_batch(params, tokens, config: ModelConfig):
+    """tokens [n, S] (right-padded) -> (logits [n, S, vocab] fp32,
+    k,v caches [L, n, S, hkv, hd]). Causal; padding contributes garbage
+    KV beyond each true length, which insert never reads (length mask)."""
+    c = config
+    x = params["embed"][tokens]
+    n, s = tokens.shape
+    sin, cos = rope(torch.arange(s, device=tokens.device), c.head_dim,
+                    c.rope_theta)
+    causal = torch.ones(s, s, dtype=torch.bool, device=tokens.device).tril()
+    ks, vs = [], []
+    for li in range(c.n_layers):
+        lp = layer_params(params, li)
+        normed = rmsnorm(x, lp["attn_norm"], c.norm_eps)
+        q, k, v = _qkv(normed, lp, c)
+        q = apply_rope(q, sin[None], cos[None])
+        k = apply_rope(k, sin[None], cos[None])
+        attn = _dense_attend(q, k, v, causal[None, None], c, x.dtype)
+        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        x = _mlp_block(h, lp, c)
+        ks.append(k)
+        vs.append(v)
+    x = rmsnorm(x, params["final_norm"], c.norm_eps)
+    logits = torch.matmul(x.float(), lm_head(params, c).float())
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
+def prefill(params, tokens, config: ModelConfig):
+    """tokens [1, S] -> (logits [S, vocab], k/v [L, S, hkv, hd])."""
+    logits, ks, vs = prefill_batch(params, tokens, config)
+    return logits[0], ks[:, 0], vs[:, 0]
+
+
+def prefill_with_prefix_batch(params, tokens, pool_k, pool_v,
+                              prefix_pages, prefix_len,
+                              config: ModelConfig):
+    """Prefill only the SUFFIX of prompts whose prefix pages are already
+    cached. tokens [n, S] = suffixes (right-padded); prefix_pages [n, Pp]
+    page ids into the pool (0-padded); prefix_len [n] true prefix token
+    counts. Cached K is stored post-RoPE at absolute positions, so it is
+    reused as-is; suffix positions offset by prefix_len. Returns (suffix
+    logits [n, S, vocab] fp32, suffix k/v caches [L, n, S, hkv, hd])."""
+    c = config
+    dev = tokens.device
+    x = params["embed"][tokens]
+    n, s = tokens.shape
+    page = pool_k.shape[3]
+    pre_t = prefix_pages.shape[1] * page
+    positions = prefix_len[:, None] + torch.arange(s, device=dev)[None]
+    sin, cos = rope(positions, c.head_dim, c.rope_theta)
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    pre_mask = (torch.arange(pre_t, device=dev)[None, None]
+                < prefix_len[:, None, None]).expand(n, s, pre_t)
+    full_mask = torch.cat([pre_mask, causal[None].expand(n, s, s)], dim=2)
+    idx = prefix_pages.long()
+    ks, vs = [], []
+    for li in range(c.n_layers):
+        lp = layer_params(params, li)
+        normed = rmsnorm(x, lp["attn_norm"], c.norm_eps)
+        q, k, v = _qkv(normed, lp, c)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+        # [hkv, n, Pp, page, hd] -> [n, Pp, page, hkv, hd] -> [n, preT, ...]
+        prek = pool_k[li][:, idx].permute(1, 2, 3, 0, 4).reshape(
+            n, pre_t, c.n_kv_heads, c.head_dim)
+        prev = pool_v[li][:, idx].permute(1, 2, 3, 0, 4).reshape(
+            n, pre_t, c.n_kv_heads, c.head_dim)
+        kk = torch.cat([prek.to(k.dtype), k], dim=1)
+        vv = torch.cat([prev.to(v.dtype), v], dim=1)
+        attn = _dense_attend(q, kk, vv, full_mask[:, None], c, x.dtype)
+        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        x = _mlp_block(h, lp, c)
+        ks.append(k)
+        vs.append(v)
+    x = rmsnorm(x, params["final_norm"], c.norm_eps)
+    logits = torch.matmul(x.float(), lm_head(params, c).float())
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
+def insert_pages_batch(pool_k, pool_v, ks, vs, page_ids, lengths):
+    """Write a whole admission burst's prefill KV into its pages, in place.
+    ks/vs [L, n, S, hkv, hd]; page_ids [n, n_tab] (0 = scratch, where
+    duplicate writes may race — scratch holds garbage by contract);
+    lengths [n]."""
+    L, n, S, hkv, hd = ks.shape
+    page = pool_k.shape[3]
+    n_tab = page_ids.shape[1]
+    s_pad = n_tab * page
+    if s_pad != S:
+        ks = F.pad(ks, (0, 0, 0, 0, 0, s_pad - S))
+        vs = F.pad(vs, (0, 0, 0, 0, 0, s_pad - S))
+    pos = torch.arange(s_pad, device=ks.device)
+    mask = (pos[None] < lengths[:, None])[None, :, :, None, None]
+    ks = torch.where(mask, ks, 0).permute(0, 3, 1, 2, 4).reshape(
+        L, hkv, n * n_tab, page, hd)
+    vs = torch.where(mask, vs, 0).permute(0, 3, 1, 2, 4).reshape(
+        L, hkv, n * n_tab, page, hd)
+    flat = page_ids.reshape(-1).long()
+    pool_k[:, :, flat] = ks.to(pool_k.dtype)
+    pool_v[:, :, flat] = vs.to(pool_v.dtype)
+
+
+def decode_weights(params, config: ModelConfig) -> dict:
+    """Loop-invariant weights of the decode step, built once per engine:
+    fused [d, (h+2hkv)*hd] QKV and [d, 2*d_ff] gate+up matrices (one
+    product each instead of three and two; the JAX engine concatenates
+    inside the jit, where XLA hoists it) and the fp32 logits head."""
+    lay = params["layers"]
+    out = {"wqkv": torch.cat([lay["wq"], lay["wk"], lay["wv"]], dim=2),
+           "head": lm_head(params, config).float()}
+    if not config.moe_experts:
+        out["wgu"] = torch.cat([lay["wg"], lay["wu"]], dim=2)
+    return out
+
+
+def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
+                 page_tables, config: ModelConfig, fused=None):
+    """One token for every slot against the paged pool, updating the pools
+    in place. tokens/lengths [B] int32 (lengths = position of the new
+    token), active [B] bool, page_tables [B, P] int32 (0 = unused ->
+    scratch page, whose garbage the position mask hides). The new token's
+    KV scatters into (write_page, lengths % page); inactive and
+    overshooting slots write the scratch page. `fused` is
+    `decode_weights(params, config)`, built here when not given.
+    Returns logits [B, vocab] fp32."""
+    c = config
+    if fused is None:
+        fused = decode_weights(params, c)
+    B, P = page_tables.shape
+    page = pool_k.shape[3]
+    x = params["embed"][tokens.long()][:, None, :]          # [B, 1, d]
+    sin, cos = rope(lengths[:, None], c.head_dim, c.rope_theta)
+    w_idx = torch.clamp(lengths // page, 0, P - 1)
+    w_page = page_tables.gather(1, w_idx[:, None].long())[:, 0]
+    w_page = torch.where(lengths // page >= P, 0, w_page)
+    w_page = torch.where(active, w_page, 0).long()
+    w_off = (lengths % page).long()
+    attend = (lengths + 1).to(torch.int32)   # inclusive of the new token
+
+    h_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    for li in range(c.n_layers):
+        lp = layer_params(params, li)
+        normed = rmsnorm(x, lp["attn_norm"], c.norm_eps)
+        qkv = torch.einsum("bsd,dq->bsq", normed, fused["wqkv"][li])
+        q = qkv[..., :h_dim].reshape(B, 1, c.n_heads, c.head_dim)
+        k = qkv[..., h_dim:h_dim + kv_dim].reshape(
+            B, 1, c.n_kv_heads, c.head_dim)
+        v = qkv[..., h_dim + kv_dim:].reshape(B, 1, c.n_kv_heads, c.head_dim)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+        pk, pv = pool_k[li], pool_v[li]      # views: writes land in the pool
+        pk[:, w_page, w_off] = k[:, 0].transpose(0, 1).to(pk.dtype)
+        pv[:, w_page, w_off] = v[:, 0].transpose(0, 1).to(pv.dtype)
+        attn = paged_decode_attention(q[:, 0].contiguous(), pk, pv, attend,
+                                      page_tables)
+        attn = attn.reshape(B, 1, h_dim).to(x.dtype)
+        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        if c.moe_experts:
+            x = _mlp_block(h, lp, c)
+        else:
+            normed2 = rmsnorm(h, lp["mlp_norm"], c.norm_eps)
+            gu = torch.einsum("bsd,df->bsf", normed2, fused["wgu"][li])
+            f = gu.shape[-1] // 2
+            act = F.silu(gu[..., :f]) * gu[..., f:]
+            x = h + torch.einsum("bsf,fd->bsd", act, lp["wd"])
+
+    x = rmsnorm(x, params["final_norm"], c.norm_eps)
+    logits = torch.matmul(x[:, 0].float(), fused["head"])
+    neg = torch.full_like(logits, -1e30)
+    neg[:, 0] = 0.0
+    return torch.where(active[:, None], logits, neg)
+
+
+def decode_window(params, pool_k, pool_v, tokens, lengths, active,
+                  page_tables, temps, top_ps, top_ks, generator,
+                  config: ModelConfig, eos_token: int, n_steps: int,
+                  trunc: bool, want_logp: bool = False, fused=None):
+    """`n_steps` decode+sample steps with the sampled tokens, lengths and
+    `active` flags staying on the device: nothing here waits for the
+    device or copies to the host. EOS flips `active` on the device; the
+    caller reads the [n_steps, B] token block back once and discards any
+    overshoot. `want_logp` also returns log p(sampled token) per step.
+    Returns (tokens, lengths, active, out [n_steps, B], logps or None)."""
+    outs, logps = [], []
+    toks, lens, act = tokens, lengths, active
+    for _ in range(n_steps):
+        logits = decode_paged(params, pool_k, pool_v, toks, lens, act,
+                              page_tables, config, fused)
+        if trunc:
+            nxt = sample(logits, temps, generator, top_p=top_ps, top_k=top_ks)
+        else:
+            nxt = sample(logits, temps, generator)
+        nxt = torch.where(act, nxt.to(torch.int32), 0)
+        outs.append(torch.where(act, nxt, -1))  # -1 = slot emitted nothing
+        if want_logp:
+            lp = torch.log_softmax(logits, dim=-1).gather(
+                1, nxt[:, None].long())[:, 0]
+            logps.append(torch.where(act, lp, 0.0))
+        lens = torch.where(act, lens + 1, lens)
+        if eos_token >= 0:
+            act = act & (nxt != eos_token)
+        toks = nxt
+    return (toks, lens, act, torch.stack(outs),
+            torch.stack(logps) if want_logp else None)
+
+
+def sample(logits, temperature, generator, top_p=None, top_k=None):
+    """Per-row temperature (0 = greedy) with optional nucleus (top_p) and
+    top_k truncation, branch-free (no host sync).
+
+    top_p/top_k are per-row tensors; top_p=1.0 / top_k=0 disable the
+    respective filter for that row. Sampling is Gumbel-max over the
+    truncated logits with uniforms drawn from `generator`."""
+    greedy = torch.argmax(logits, dim=-1)
+    temp = torch.clamp_min(temperature, 1e-6)[:, None]
+    scaled = logits / temp
+    neg = torch.finfo(scaled.dtype).min
+    if top_k is not None:
+        V = scaled.shape[-1]
+        # rank of each logit within its row (0 = largest)
+        order = torch.argsort(scaled, dim=-1, descending=True)
+        ranks = torch.empty_like(order).scatter_(
+            1, order, torch.arange(V, device=scaled.device).expand_as(order))
+        k = torch.where(top_k > 0, top_k, V)[:, None]
+        scaled = torch.where(ranks < k, scaled, neg)
+    if top_p is not None:
+        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep the smallest prefix with cumulative mass >= top_p; <= (not
+        # <) so the argmax survives even top_p == 0
+        keep_sorted = (cum - probs) <= top_p[:, None]
+        cutoff = torch.where(keep_sorted, sorted_logits,
+                             float("inf")).min(dim=-1, keepdim=True).values
+        scaled = torch.where(scaled >= cutoff, scaled, neg)
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    sampled = torch.argmax(scaled + gumbel, dim=-1)
+    return torch.where(temperature > 0, sampled, greedy)
+
+
+# ---------------- the engine ----------------
+
+
+def _prompt_bucket(e: EngineConfig, n: int) -> int:
+    """The prefill bucket for an n-token prompt. Buckets above max_len are
+    unusable: their prefill KV could not fit a sequence."""
+    usable = [b for b in e.prompt_buckets if b <= e.max_len]
+    limit = min(max(usable, default=0), e.max_len - 1)
+    if n > limit:
+        raise ValueError(
+            f"prompt of {n} tokens exceeds the engine limit {limit} "
+            f"(buckets={e.prompt_buckets}, max_len={e.max_len})")
+    for b in usable:
+        if n <= b:
+            return b
+    raise ValueError(f"no prompt bucket fits {n} tokens")
+
+
+class InferenceEngine:
+    """Slot-based continuous batching over the steps above.
+
+    Thread-compatible: callers serialize through `step()`/`step_window()`.
+    """
+
+    def __init__(self, model_config: ModelConfig,
+                 engine_config: EngineConfig | None = None, *,
+                 params=None, mesh=None, seed: int = 0, device="cuda"):
+        e = engine_config or EngineConfig()
+        if mesh is not None:
+            raise _not_in_slice("a tensor-parallel mesh")
+        if e.kv_layout != "paged":
+            raise _not_in_slice(f"kv_layout={e.kv_layout!r}")
+        if e.speculation is not None:
+            raise _not_in_slice(f"speculation={e.speculation!r}")
+        self.device = resolve_device(device)
+        self.c = c = model_config
+        self.e = e
+        if params is None:
+            params = init_params(c, torch.Generator().manual_seed(seed),
+                                 self.device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.params = params
+        self._fused = decode_weights(params, c)
+        dev = self.device
+
+        # Paged pool: HBM tracks the pool size, not slots x max_len;
+        # sequences grow page by page and shared prompt prefixes share
+        # pages. Page 0 is reserved scratch (unused table entries).
+        page = e.page_size
+        self.pages_per_slot = -(-e.max_len // page)
+        self.num_pages = (e.num_pages
+                          or e.max_slots * self.pages_per_slot + 1)
+        kv_shape = (c.n_layers, c.n_kv_heads, self.num_pages, page,
+                    c.head_dim)
+        self.cache_k = torch.zeros(kv_shape, dtype=c.torch_dtype, device=dev)
+        self.cache_v = torch.zeros(kv_shape, dtype=c.torch_dtype, device=dev)
+        # page bookkeeping (host side)
+        self.free_pages: list[int] = list(range(1, self.num_pages))
+        self.page_refs: dict[int, int] = {}
+        self.page_hash: dict = {}          # prefix-hash -> page id
+        self.hash_of_page: dict[int, object] = {}
+        self.cached_lru: "collections.OrderedDict[int, object]" = (
+            collections.OrderedDict())     # ref-0 cached pages (LRU)
+        self.slot_pages: list[list[int]] = [[] for _ in range(e.max_slots)]
+        self.prefix_hits = 0
+        self.preemptions = 0
+        self.decode_steps = 0              # decode_paged calls run
+        # page-table buckets: powers of two up to the per-slot page bound
+        pb, b = [], 1
+        while b < self.pages_per_slot:
+            pb.append(b)
+            b *= 2
+        pb.append(self.pages_per_slot)
+        self._page_buckets = pb
+        self._win_buckets = (1, 2, 4, 8, 16, 32, 64)
+        # Device-resident decode state, uploaded only when the host view
+        # changed.
+        self._dev = None           # (tokens, lengths, active) on device
+        self._dev_dirty = True
+        self._dev_sampling = None  # (temps, top_ps, top_ks) on device
+        self._dev_sampling_fp = None
+        self._gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+        # host-side slot state
+        B = e.max_slots
+        self.lengths = np.zeros(B, np.int32)
+        self.active = np.zeros(B, bool)
+        self.last_tokens = np.zeros(B, np.int32)
+        self.slot_req: list[Request | None] = [None] * B
+        self.queue: collections.deque[Request] = collections.deque()
+        self.finished: dict[int, Request] = {}
+        self._next_id = 0
+        self._lock = threading.Lock()
+        self._cancel_rids: set[int] = set()
+
+    def _upload(self, arr, dtype=None):
+        # torch.tensor always copies: an aliasing upload (from_numpy /
+        # as_tensor on the CPU) would let device-side updates scribble
+        # over the host mirrors.
+        return torch.tensor(arr, dtype=dtype, device=self.device)
+
+    # ---- request API ----
+
+    def add_request(self, prompt_tokens, max_new_tokens=None,
+                    temperature=None, top_p: float = 1.0,
+                    top_k: int = 0, guide=None, logprobs: bool = False,
+                    resume_token: int | None = None,
+                    kv_handoff: tuple | None = None) -> int:
+        if guide is not None:
+            raise _not_in_slice("guided decoding")
+        if resume_token is not None or kv_handoff is not None:
+            raise _not_in_slice("decode-state resume / KV handoff")
+        # Validate at submission, in the caller's thread: an invalid prompt
+        # must fail its own request, not the shared engine pump.
+        if not (self._chunk_size() and len(prompt_tokens) < self.e.max_len):
+            self._bucket(len(prompt_tokens))
+        with self._lock:
+            rid = self._next_id
+            self._next_id += 1
+        req = Request(
+            rid, list(map(int, prompt_tokens)),
+            max_new_tokens or self.e.default_max_new_tokens,
+            self.e.default_temperature if temperature is None
+            else temperature, top_p=float(top_p), top_k=int(top_k),
+            logprobs=bool(logprobs))
+        self.queue.append(req)
+        return rid
+
+    def cancel(self, request_id: int):
+        """Abort a request from any thread: applied at the next admission
+        pass (a queued request drops; an active slot finishes immediately
+        with generated-so-far, its pages released)."""
+        self._cancel_rids.add(request_id)
+
+    def _apply_cancels(self):
+        if not self._cancel_rids:
+            return
+        rids: set[int] = set()
+        while True:
+            try:
+                rids.add(self._cancel_rids.pop())
+            except KeyError:
+                break
+        kept: collections.deque[Request] = collections.deque()
+        for req in self.queue:
+            if req.request_id in rids:
+                req.done = True
+                self.finished[req.request_id] = req
+            else:
+                kept.append(req)
+        self.queue = kept
+        for i in range(self.e.max_slots):
+            req = self.slot_req[i]
+            if req is None or req.request_id not in rids:
+                continue
+            req.done = True
+            self.finished[req.request_id] = req
+            self.active[i] = False
+            self.slot_req[i] = None
+            self._release_slot(i)
+            self._dev_dirty = True
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or bool(self.active.any())
+
+    def import_kv(self, prompt_tokens, ks, vs) -> int:
+        raise _not_in_slice("import_kv (disaggregated KV handoff)")
+
+    # ---- scheduling ----
+
+    def _chunk_size(self) -> int:
+        """Page-aligned chunk for chunked prefill (0 = unavailable):
+        prompts longer than every bucket prefill one chunk per engine
+        step, registering each chunk's pages in the prefix cache so the
+        next admission resumes where this one stopped."""
+        if not self.e.prefix_cache:
+            return 0
+        page = self.e.page_size
+        usable = [b for b in self.e.prompt_buckets if b <= self.e.max_len]
+        if not usable:
+            return 0
+        return (max(usable) // page) * page
+
+    def _bucket(self, n: int) -> int:
+        return _prompt_bucket(self.e, n)
+
+    # ---- page pool ----
+
+    def _alloc_page(self) -> int | None:
+        """A free page, else evict the LRU ref-0 cached page, else None."""
+        if self.free_pages:
+            return self.free_pages.pop()
+        if self.cached_lru:
+            pid, h = self.cached_lru.popitem(last=False)
+            self.page_hash.pop(h, None)
+            self.hash_of_page.pop(pid, None)
+            self.page_refs.pop(pid, None)
+            return pid
+        return None
+
+    def _incref_page(self, pid: int):
+        self.page_refs[pid] = self.page_refs.get(pid, 0) + 1
+        self.cached_lru.pop(pid, None)  # in use: not evictable
+
+    def _decref_page(self, pid: int):
+        n = self.page_refs.get(pid, 0) - 1
+        if n > 0:
+            self.page_refs[pid] = n
+            return
+        self.page_refs.pop(pid, None)
+        h = self.hash_of_page.get(pid)
+        if h is not None:
+            # Keep the content cached for future prefix hits; evictable.
+            self.cached_lru[pid] = h
+        else:
+            self.free_pages.append(pid)
+
+    def _release_slot(self, slot: int):
+        for pid in self.slot_pages[slot]:
+            self._decref_page(pid)
+        self.slot_pages[slot] = []
+
+    @staticmethod
+    def _prefix_hash(tokens: list) -> bytes:
+        """Exact key (the token bytes themselves): a hash collision would
+        silently serve another prompt's KV."""
+        return np.asarray(tokens, np.int32).tobytes()
+
+    def _find_prefix(self, prompt: list) -> list[int]:
+        """Longest run of already-cached full prompt pages (at least one
+        token is always left to prefill — its logits seed sampling)."""
+        if not self.e.prefix_cache:
+            return []
+        page = self.e.page_size
+        full = len(prompt) // page
+        if full * page == len(prompt):
+            full -= 1
+        pages = []
+        for i in range(full):
+            pid = self.page_hash.get(
+                self._prefix_hash(prompt[:(i + 1) * page]))
+            if pid is None:
+                break
+            pages.append(pid)
+        return pages
+
+    def _preempt_victim(self) -> bool:
+        """Pool exhausted mid-decode: requeue the youngest re-prefillable
+        active slot (recompute preemption); its generated tokens become
+        prompt tail on re-admission. Returns True if a page was freed."""
+        candidates = []
+        for i in range(self.e.max_slots):
+            req = self.slot_req[i]
+            if not self.active[i] or req is None:
+                continue
+            total = len(req.prompt) + len(req.generated)
+            usable = [b for b in self.e.prompt_buckets
+                      if b <= self.e.max_len]
+            if total <= min(max(usable, default=0), self.e.max_len - 1):
+                candidates.append((len(req.generated), i))
+        if not candidates:
+            return False
+        _, victim = min(candidates)
+        req = self.slot_req[victim]
+        self._release_slot(victim)
+        self.active[victim] = False
+        self.slot_req[victim] = None
+        # Re-prefill everything the model has seen (prompt + all fed-back
+        # tokens); the final sampled-but-never-fed token resumes decoding
+        # exactly where it stopped, without re-sampling its position.
+        req.prompt = req.prompt + req.generated[:-1]
+        req.resume_token = req.generated[-1]
+        self.queue.appendleft(req)
+        self.preemptions += 1
+        return True
+
+    def _admit(self) -> dict[int, int]:
+        self._apply_cancels()
+        return self._admit_paged()
+
+    def _admit_paged(self) -> dict[int, int]:
+        admitted: dict[int, int] = {}
+        pending: list[tuple] = []  # (slot, req, last-logits row) to sample
+        e = self.e
+        page = e.page_size
+        free = [i for i in range(e.max_slots) if not self.active[i]]
+        # Phase 1 — host-side planning: pop requests, match prefixes,
+        # allocate pages. No device work yet, so a whole admission burst
+        # shares one batched prefill below.
+        planned: list[dict] = []
+        while free and self.queue:
+            req = self.queue.popleft()
+            slot = free[0]
+            n = len(req.prompt)
+            pre_pages = self._find_prefix(req.prompt)
+            hit = len(pre_pages)
+            suffix = req.prompt[hit * page:]
+            ns = len(suffix)
+            chunk = self._chunk_size()
+            is_partial = bool(chunk) and ns > max(
+                b for b in self.e.prompt_buckets if b <= self.e.max_len)
+            if is_partial:
+                # Chunked prefill: admit only the next page-aligned chunk;
+                # phase 3 registers its pages and requeues the request.
+                suffix = suffix[:chunk]
+                ns = chunk
+                n = hit * page + chunk
+            bucket = self._bucket(ns)
+            # Pin the matched prefix pages FIRST: they may sit ref-0 in
+            # the eviction LRU, and the suffix allocation below must not
+            # be able to evict and reuse them.
+            for pid in pre_pages:
+                self._incref_page(pid)
+            need = -(-n // page) - hit
+            new_pages = []
+            for _ in range(need):
+                pid = self._alloc_page()
+                if pid is None:
+                    break
+                new_pages.append(pid)
+            if len(new_pages) < need:
+                # Pool exhausted: put everything back and stop admitting.
+                self.free_pages.extend(new_pages)
+                for pid in pre_pages:
+                    self._decref_page(pid)
+                self.queue.appendleft(req)
+                break
+            for pid in new_pages:
+                self.page_refs[pid] = 1
+            if hit:
+                self.prefix_hits += 1
+            if is_partial:
+                # A partial chunk never occupies the slot (and must not
+                # reuse its id: a later full admission takes free[0]).
+                slot = None
+            else:
+                free.pop(0)
+            planned.append(dict(slot=slot, req=req, n=n, ns=ns,
+                                bucket=bucket, hit=hit, partial=is_partial,
+                                suffix=suffix, pre_pages=pre_pages,
+                                new_pages=new_pages))
+
+        # Phase 2 — device work, grouped: prefix-hit prompts batch by
+        # (suffix bucket, prefix-page bucket), the rest by suffix bucket;
+        # each group runs one prefill and one page insert.
+        logits_of: dict[int, object] = {}  # slot -> last-logits row
+        nohit_by_bucket: dict[int, list[dict]] = {}
+        hit_by_key: dict[tuple, list[dict]] = {}
+        for p in planned:
+            if p["hit"]:
+                pre_bucket = 1
+                while pre_bucket < p["hit"]:
+                    pre_bucket *= 2
+                hit_by_key.setdefault(
+                    (p["bucket"], pre_bucket), []).append(p)
+            else:
+                nohit_by_bucket.setdefault(p["bucket"], []).append(p)
+        groups = [(b, pb, g) for (b, pb), g in hit_by_key.items()]
+        groups += [(b, 0, g) for b, g in nohit_by_bucket.items()]
+        for bucket, pre_bucket, group in groups:
+            # Pad the batch to a power of two (bounded batch shapes).
+            n_pad = 1
+            while n_pad < len(group):
+                n_pad *= 2
+            n_tab = -(-bucket // page)
+            toks = np.zeros((n_pad, bucket), np.int64)
+            lens = np.zeros((n_pad,), np.int64)
+            tabs = np.zeros((n_pad, n_tab), np.int64)
+            pres = np.zeros((n_pad, pre_bucket), np.int64)
+            plens = np.zeros((n_pad,), np.int64)
+            for j, p in enumerate(group):
+                toks[j, :p["ns"]] = p["suffix"]
+                lens[j] = p["ns"]
+                tabs[j, :len(p["new_pages"])] = p["new_pages"]
+                pres[j, :p["hit"]] = p["pre_pages"]
+                plens[j] = p["hit"] * page
+            if pre_bucket:
+                logits, ks, vs = prefill_with_prefix_batch(
+                    self.params, self._upload(toks), self.cache_k,
+                    self.cache_v, self._upload(pres), self._upload(plens),
+                    self.c)
+            else:
+                logits, ks, vs = prefill_batch(self.params,
+                                               self._upload(toks), self.c)
+            insert_pages_batch(self.cache_k, self.cache_v, ks, vs,
+                               self._upload(tabs), self._upload(lens))
+            for j, p in enumerate(group):
+                if p["slot"] is not None:
+                    logits_of[p["slot"]] = logits[j, p["ns"] - 1]
+
+        # Phase 3 — host-side registration.
+        for p in planned:
+            slot, req = p["slot"], p["req"]
+            n, hit, new_pages = p["n"], p["hit"], p["new_pages"]
+            # Register the full suffix pages for future prefix hits.
+            if e.prefix_cache:
+                for i in range(hit, n // page):
+                    pid = new_pages[i - hit]
+                    h = self._prefix_hash(req.prompt[:(i + 1) * page])
+                    if h not in self.page_hash:
+                        self.page_hash[h] = pid
+                        self.hash_of_page[pid] = h
+            if p["partial"]:
+                # Chunk prefilled and registered; hand its pages to the
+                # prefix cache (ref 0 -> protected in the LRU until the
+                # continuation re-pins them) and requeue the request.
+                for pid in p["pre_pages"] + new_pages:
+                    self._decref_page(pid)
+                self.queue.appendleft(req)
+                continue
+            self.slot_pages[slot] = p["pre_pages"] + new_pages
+            self.slot_req[slot] = req
+            self.lengths[slot] = n
+            self.active[slot] = True
+            if req.resume_token is not None:
+                first = req.resume_token  # already in req.generated
+                req.resume_token = None
+                self.last_tokens[slot] = first
+                self._maybe_finish(slot, first)
+            else:
+                # Defer the first-token sampling: one batched readback
+                # for the whole admission burst.
+                pending.append((slot, req, logits_of[slot]))
+            self._dev_dirty = True  # slot state changed by this admission
+        if pending:
+            stacked = torch.stack([row for _s, _r, row in pending])
+            reqs = [r for _s, r, _l in pending]
+            temps = self._upload([r.temperature for r in reqs],
+                                 torch.float32)
+            if all(r.top_k == 0 and r.top_p >= 1.0 for r in reqs):
+                toks_d = sample(stacked, temps, self._gen)
+            else:
+                toks_d = sample(
+                    stacked, temps, self._gen,
+                    top_p=self._upload([r.top_p for r in reqs],
+                                       torch.float32),
+                    top_k=self._upload([r.top_k for r in reqs],
+                                       torch.int64))
+            toks = toks_d.cpu().numpy()  # one readback for the burst
+            p_logps = None
+            if any(r.logprobs for r in reqs):
+                p_logps = torch.log_softmax(stacked, dim=-1).gather(
+                    1, toks_d[:, None])[:, 0].cpu().numpy()
+            for j, ((slot, req, _l), tok) in enumerate(zip(pending, toks)):
+                first = int(tok)
+                if req.logprobs:
+                    req.token_logprobs.append(float(p_logps[j]))
+                req.generated.append(first)
+                admitted[req.request_id] = first
+                self.last_tokens[slot] = first
+                self._maybe_finish(slot, first)
+        return admitted
+
+    def kv_stats(self) -> dict:
+        """Pool accounting for tests and the smoke run."""
+        return {
+            "layout": "paged", "num_pages": self.num_pages,
+            "free_pages": len(self.free_pages),
+            "cached_pages": len(self.cached_lru),
+            "pages_in_use": self.num_pages - 1 - len(self.free_pages)
+            - len(self.cached_lru),
+            "prefix_hits": self.prefix_hits,
+            "preemptions": self.preemptions,
+            "decode_steps": self.decode_steps,
+        }
+
+    def _maybe_finish(self, slot: int, token: int):
+        req = self.slot_req[slot]
+        total = self.lengths[slot] + 1  # +1: the just-sampled token
+        if (token == self.e.eos_token
+                or len(req.generated) >= req.max_new_tokens
+                or total >= self.e.max_len):
+            req.done = True
+            self.finished[req.request_id] = req
+            self.active[slot] = False
+            self.slot_req[slot] = None
+            self._release_slot(slot)
+
+    def _sampling_arrays(self):
+        e = self.e
+        temps = np.array(
+            [self.slot_req[i].temperature if self.slot_req[i] else 0.0
+             for i in range(e.max_slots)], np.float32)
+        top_ps = np.array(
+            [self.slot_req[i].top_p if self.slot_req[i] else 1.0
+             for i in range(e.max_slots)], np.float32)
+        top_ks = np.array(
+            [self.slot_req[i].top_k if self.slot_req[i] else 0
+             for i in range(e.max_slots)], np.int64)
+        return temps, top_ps, top_ks
+
+    def step(self) -> dict[int, int]:
+        """Admit queued prompts, run one decode step; returns
+        {request_id: token} for tokens emitted this step (prefill's first
+        token included)."""
+        emitted = self._admit()
+        if not self.active.any():
+            return emitted
+        temps, top_ps, top_ks = self._sampling_arrays()
+        logits = self._decode_paged_step()
+        if logits is None:  # every active slot was preempted
+            return emitted
+        temps_d = self._upload(temps)
+        if (top_ks == 0).all() and (top_ps >= 1.0).all():
+            tokens_d = sample(logits, temps_d, self._gen)
+        else:
+            tokens_d = sample(logits, temps_d, self._gen,
+                              top_p=self._upload(top_ps),
+                              top_k=self._upload(top_ks))
+        tokens = tokens_d.cpu().numpy()
+        logps = None
+        if any(r is not None and r.logprobs for r in self.slot_req):
+            logps = torch.log_softmax(logits, dim=-1).gather(
+                1, tokens_d[:, None])[:, 0].cpu().numpy()
+        for i in range(self.e.max_slots):
+            if not self.active[i]:
+                continue
+            tok = int(tokens[i])
+            req = self.slot_req[i]
+            if req.logprobs:
+                req.token_logprobs.append(float(logps[i]))
+            req.generated.append(tok)
+            emitted[req.request_id] = tok
+            self.lengths[i] += 1
+            self.last_tokens[i] = tok
+            self._maybe_finish(i, tok)
+        self._dev_dirty = True  # single-step path mutates host-side state
+        return emitted
+
+    def _grow_pages(self, horizon: int = 1) -> bool:
+        """Ensure every active slot has pages for its next `horizon`
+        tokens, preempting when the pool is dry. Returns False if nothing
+        is left active."""
+        e = self.e
+        page = e.page_size
+        changed = False
+        for i in range(e.max_slots):
+            if not self.active[i]:
+                continue
+            req = self.slot_req[i]
+            rem = min(horizon, req.max_new_tokens - len(req.generated) + 1)
+            last_pos = int(self.lengths[i]) + max(rem, 1) - 1
+            pi = min(last_pos, e.max_len - 1) // page
+            while pi >= len(self.slot_pages[i]):
+                changed = True
+                pid = self._alloc_page()
+                if pid is None:
+                    if not self._preempt_victim():
+                        # Nothing preemptable: finish this request early
+                        # rather than deadlock the pump (pool too small
+                        # for even one sequence — a config error).
+                        req = self.slot_req[i]
+                        req.done = True
+                        self.finished[req.request_id] = req
+                        self.active[i] = False
+                        self.slot_req[i] = None
+                        self._release_slot(i)
+                        break
+                    if not self.active[i]:  # self-preempted
+                        break
+                    continue
+                self.page_refs[pid] = 1
+                self.slot_pages[i].append(pid)
+        if changed:
+            # A preemption inside the growth loop changed slot state.
+            self._dev_dirty = True
+        return bool(self.active.any())
+
+    def _decode_paged_step(self):
+        """Grow pages for slots whose next token starts a fresh page
+        (preempting if the pool is dry), build the bucketed page tables,
+        and run one decode step. Returns logits or None if preemption
+        drained every active slot."""
+        if not self._grow_pages(1):
+            return None
+        tables = self._build_tables()
+        self.decode_steps += 1
+        return decode_paged(
+            self.params, self.cache_k, self.cache_v,
+            self._upload(self.last_tokens), self._upload(self.lengths),
+            self._upload(self.active), self._upload(tables), self.c,
+            self._fused)
+
+    def _build_tables(self) -> np.ndarray:
+        e = self.e
+        p_need = max(
+            (len(self.slot_pages[i]) for i in range(e.max_slots)
+             if self.active[i]), default=1)
+        p_bucket = next(b for b in self._page_buckets if b >= p_need)
+        tables = np.zeros((e.max_slots, p_bucket), np.int32)
+        for i in range(e.max_slots):
+            if self.active[i]:
+                row = self.slot_pages[i][:p_bucket]
+                tables[i, :len(row)] = row
+        return tables
+
+    def _sync_device_state(self):
+        if self._dev_dirty or self._dev is None:
+            self._dev = (self._upload(self.last_tokens),
+                         self._upload(self.lengths),
+                         self._upload(self.active))
+            self._dev_dirty = False
+
+    def _sync_sampling(self) -> bool:
+        temps, top_ps, top_ks = self._sampling_arrays()
+        fp = (temps.tobytes(), top_ps.tobytes(), top_ks.tobytes())
+        if fp != self._dev_sampling_fp:
+            self._dev_sampling = (self._upload(temps), self._upload(top_ps),
+                                  self._upload(top_ks))
+            self._dev_sampling_fp = fp
+        return bool((top_ks != 0).any() or (top_ps < 1.0).any())
+
+    def _run_window(self) -> dict[int, int]:
+        """Decode up to a bucketed number of tokens per slot with one host
+        readback (see decode_window)."""
+        e = self.e
+        page = e.page_size
+        # Window size: the max remaining work across slots — slots that
+        # finish earlier keep "decoding" into scratch and the host
+        # discards their overshoot, which is cheaper than another fence.
+        # Only a pool-starved slot binds the window down to its room.
+        rems = [self.slot_req[i].max_new_tokens
+                - len(self.slot_req[i].generated)
+                for i in range(e.max_slots)
+                if self.active[i] and self.slot_req[i] is not None]
+        horizon = max(1, min(self._win_buckets[-1], max(rems, default=1)))
+        if self.queue:
+            # Requests are waiting to admit: keep windows short so
+            # admission interleaves with decode.
+            horizon = min(horizon, 8)
+        if not self._grow_pages(horizon):
+            return {}
+        limit = horizon
+        for i in range(e.max_slots):
+            if not self.active[i]:
+                continue
+            room = len(self.slot_pages[i]) * page - int(self.lengths[i])
+            rem = (self.slot_req[i].max_new_tokens
+                   - len(self.slot_req[i].generated))
+            if room < min(horizon, rem):
+                limit = min(limit, max(room, 1))
+        if limit == horizon:
+            # Round UP to one window: overshoot is discarded.
+            k_bucket = min(b for b in self._win_buckets if b >= limit)
+        else:
+            # Pool-starved slot: its room is a hard bound — round DOWN.
+            k_bucket = max(b for b in self._win_buckets if b <= limit)
+        trunc = self._sync_sampling()
+        want_logp = any(
+            self.slot_req[i] is not None and self.slot_req[i].logprobs
+            for i in range(e.max_slots) if self.active[i])
+        self._sync_device_state()
+        tables = self._upload(self._build_tables())
+        toks_d, lens_d, act_d = self._dev
+        temps_d, tps_d, tks_d = self._dev_sampling
+        toks_d, lens_d, act_d, out_d, logp_d = decode_window(
+            self.params, self.cache_k, self.cache_v, toks_d, lens_d, act_d,
+            tables, temps_d, tps_d, tks_d, self._gen, self.c,
+            eos_token=int(e.eos_token), n_steps=k_bucket, trunc=trunc,
+            want_logp=want_logp, fused=self._fused)
+        self.decode_steps += k_bucket
+        self._dev = (toks_d, lens_d, act_d)
+        out = out_d.cpu().numpy()  # one readback per window
+        logps = logp_d.cpu().numpy() if want_logp else None
+        emitted: dict[int, int] = {}
+        for k in range(out.shape[0]):
+            for i in range(e.max_slots):
+                tok = int(out[k, i])
+                if tok < 0 or not self.active[i]:
+                    continue
+                req = self.slot_req[i]
+                if req.logprobs:
+                    req.token_logprobs.append(float(logps[k, i]))
+                req.generated.append(tok)
+                emitted[req.request_id] = tok
+                self.lengths[i] += 1
+                self.last_tokens[i] = tok
+                self._maybe_finish(i, tok)
+                if not self.active[i] and tok != e.eos_token:
+                    # Finished by max_new/max_len: the device still thinks
+                    # this slot is live — resync before the next window.
+                    self._dev_dirty = True
+        return emitted
+
+    def step_window(self) -> dict[int, int]:
+        """Admit queued prompts, then decode a whole window."""
+        emitted = self._admit()
+        if self.active.any():
+            emitted.update(self._run_window())
+        return emitted
+
+    # ---- conveniences ----
+
+    def generate(self, prompts: list, max_new_tokens=None,
+                 temperature=None) -> list[list[int]]:
+        """Blocking batch generate; returns generated token ids per prompt
+        (continuous batching underneath — more prompts than max_slots
+        stream through)."""
+        ids = [self.add_request(p, max_new_tokens, temperature)
+               for p in prompts]
+        while self.has_work():
+            self.step_window()
+        out = []
+        for rid in ids:
+            gen = self.finished.pop(rid).generated
+            if gen and gen[-1] == self.e.eos_token:
+                gen = gen[:-1]
+            out.append(gen)
+        return out
+
+
+class PrefillEngine:
+    """The disaggregated serving plane's prefill-only engine; not in this
+    slice of the port."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_in_slice("PrefillEngine (disaggregated serving)")

@@ -1,0 +1,14 @@
+"""Model family: Llama-style decoder transformers, dense and MoE
+(counterpart of `ray_tpu.models`)."""
+
+from ray_tpu_torch.models.transformer import (
+    ModelConfig,
+    forward,
+    hidden_states,
+    init_params,
+)
+from ray_tpu_torch.models import configs
+from ray_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+
+__all__ = ["ModelConfig", "init_params", "forward", "hidden_states",
+           "configs", "params_from_numpy", "params_to_numpy"]

@@ -1,0 +1,274 @@
+"""PyTorch port, ops layer: the layer ops and the plain versions of the two
+ported kernels held against the JAX package on the same numpy inputs.
+
+The JAX side runs on the CPU as the JAX package's own tests run it: the
+paged-decode Pallas kernel and the flash forward in interpret mode. The
+CUDA kernels themselves run only on a card (`python3 chip_smoke.py`
+compares each with its plain version there)."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import apply_rope as j_apply_rope
+from ray_tpu.ops import flash_attention as j_flash_attention
+from ray_tpu.ops import rmsnorm as j_rmsnorm
+from ray_tpu.ops import rope as j_rope
+from ray_tpu.ops import swiglu as j_swiglu
+from ray_tpu.ops.paged_attention import (
+    paged_decode_attention as j_paged_decode,
+    paged_decode_attention_reference as j_paged_reference)
+from ray_tpu_torch.ops import (apply_rope, flash_attention,
+                               paged_decode_attention, rmsnorm, rope, swiglu)
+from ray_tpu_torch.ops import attention as t_attention
+from ray_tpu_torch.ops import paged_attention as t_paged
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Two intra-op threads: the port's CPU tests run beside other test
+    files in parallel workers and must not take every core from them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+_DT = {"float32": (jnp.float32, torch.float32),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# fp32: both sides do the same fp32 arithmetic in another order. bf16:
+# both round their fp32 result to bf16 (eps 2^-8); allow a couple of ulps
+# of the output's scale.
+_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(a, dtype):
+    """One numpy array as a JAX array and a torch tensor of `dtype`."""
+    jdt, tdt = _DT[dtype]
+    return jnp.asarray(a, jdt), torch.tensor(a).to(tdt)
+
+
+def _close(got, want, dtype, scale=1.0):
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=_TOL[dtype],
+                               atol=_TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    w = rng.normal(size=(32,)).astype(np.float32)
+    (jx, tx), (jw, tw) = _pair(x, dtype), _pair(w, dtype)
+    got = rmsnorm(tx, tw, 1e-6)
+    assert got.dtype == tx.dtype
+    _close(got, j_rmsnorm(jx, jw, 1e-6), dtype, scale=4.0)
+
+
+def test_rope_tables_match_jax():
+    pos = np.arange(37, dtype=np.int32)
+    s_t, c_t = rope(torch.tensor(pos), 16, 10000.0)
+    s_j, c_j = j_rope(jnp.asarray(pos), 16, 10000.0)
+    assert s_t.dtype == torch.float32
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=1e-5)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_rope_matches_jax(dtype):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 6, 3, 16)).astype(np.float32)
+    pos = (np.arange(6)[None] + np.array([[0], [9]])).astype(np.int32)
+    jx, tx = _pair(x, dtype)
+    sj, cj = j_rope(jnp.asarray(pos), 16)
+    st, ct = rope(torch.tensor(pos), 16)
+    got = apply_rope(tx, st, ct)
+    assert got.dtype == tx.dtype
+    _close(got, j_apply_rope(jx, sj, cj), dtype, scale=4.0)
+    # unbatched [seq, half] tables broadcast over the batch
+    got1 = apply_rope(tx, st[0], ct[0])
+    _close(got1, j_apply_rope(jx, sj[0], cj[0]), dtype, scale=4.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_matches_jax(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 4, 16)).astype(np.float32)
+    wg, wu = (rng.normal(size=(16, 24)).astype(np.float32) / 4
+              for _ in range(2))
+    wd = rng.normal(size=(24, 16)).astype(np.float32) / 5
+    args = [_pair(a, dtype) for a in (x, wg, wu, wd)]
+    got = swiglu(*[t for _j, t in args])
+    want = j_swiglu(*[j for j, _t in args])
+    assert got.dtype == args[0][1].dtype
+    _close(got, want, dtype, scale=float(np.abs(np.asarray(
+        jnp.asarray(want, jnp.float32))).max()))
+
+
+# ---- K1: paged decode ----
+
+
+def _paged_case(rng, B=5, h=4, hkv=2, hd=16, page=8, N=12, P=4):
+    """q, JAX-layout pools [hkv, N, hd, page], lengths at page edges, and
+    random page tables whose unused entries point at scratch page 0."""
+    q = rng.normal(size=(B, h, hd)).astype(np.float32)
+    kp = rng.normal(size=(hkv, N, hd, page)).astype(np.float32)
+    vp = rng.normal(size=(hkv, N, hd, page)).astype(np.float32)
+    lengths = np.array([0, 1, page, page + 1, P * page], np.int32)[:B]
+    tables = np.zeros((B, P), np.int32)
+    for b in range(B):
+        used = max(1, -(-int(lengths[b]) // page))
+        tables[b, :used] = rng.choice(np.arange(1, N), used, replace=False)
+    return q, kp, vp, lengths, tables
+
+
+def _to_port_layout(pages_jax_layout):
+    """[hkv, N, hd, page] -> the port's [hkv, N, page, hd]."""
+    return np.ascontiguousarray(np.swapaxes(pages_jax_layout, 2, 3))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_plain_matches_jax_kernel_and_reference(dtype):
+    rng = np.random.default_rng(3)
+    q, kp, vp, lengths, tables = _paged_case(rng)
+    jq, tq = _pair(q, dtype)
+    jk, _ = _pair(kp, dtype)
+    jv, _ = _pair(vp, dtype)
+    _, tk = _pair(_to_port_layout(kp), dtype)
+    _, tv = _pair(_to_port_layout(vp), dtype)
+    before = dict(t_paged.launches)
+    got = paged_decode_attention(tq, tk, tv, torch.tensor(lengths),
+                                 torch.tensor(tables))
+    assert t_paged.launches["plain"] == before["plain"] + 1
+    assert t_paged.launches["cuda"] == before["cuda"]
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    # The Pallas kernel (interpret mode): every slot, length 0 included
+    # (the kernel returns zeros there).
+    want = j_paged_decode(jq, jk, jv, jnp.asarray(lengths),
+                          jnp.asarray(tables), interpret=True)
+    _close(got, want, dtype)
+    assert not got[0].float().abs().any()
+    # The dense JAX reference: lengths >= 1 only (NaN at length 0).
+    ref = j_paged_reference(jq, jk, jv, jnp.asarray(lengths),
+                            jnp.asarray(tables))
+    _close(got[1:], ref[1:], dtype)
+
+
+def test_paged_decode_caps_at_table_width():
+    """Lengths beyond P pages attend exactly the P pages (the kernel's
+    page cap), like the JAX kernel."""
+    rng = np.random.default_rng(4)
+    q, kp, vp, _lengths, tables = _paged_case(rng, B=2)
+    lengths = np.array([40, 100], np.int32)     # P * page = 32
+    got = paged_decode_attention(
+        torch.tensor(q), torch.tensor(_to_port_layout(kp)),
+        torch.tensor(_to_port_layout(vp)), torch.tensor(lengths),
+        torch.tensor(tables))
+    want = j_paged_decode(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                          jnp.asarray(lengths), jnp.asarray(tables),
+                          interpret=True)
+    _close(got, want, "float32")
+
+
+# ---- K2: flash forward ----
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,h,hkv", [(128, 2, 2), (100, 4, 2)])
+def test_flash_attention_plain_matches_jax_interpret(causal, s, h, hkv):
+    """Causal and full, a ragged S (the JAX kernel pads to 128 and masks)
+    and GQA (head i reads kv head i // (h / hkv))."""
+    rng = np.random.default_rng(5)
+    d = 32
+    q = rng.normal(size=(2, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(2, s, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(2, s, hkv, d)).astype(np.float32)
+    want = j_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, impl="interpret")
+    before = t_attention.launches["plain"]
+    for impl in ("auto", "reference", "interpret"):
+        got = flash_attention(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=causal, impl=impl)
+        assert got.shape == (2, s, h, d)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+    assert t_attention.launches["plain"] == before + 3
+    assert t_attention.launches["cuda"] == 0
+
+
+def test_flash_attention_impl_contract():
+    x = torch.zeros(1, 8, 2, 64)
+    for impl in ("ring", "ulysses"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            flash_attention(x, x, x, impl=impl)
+    with pytest.raises(ValueError, match="unknown"):
+        flash_attention(x, x, x, impl="mosaic")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(x, x, x, impl="pallas")   # kernel path, CPU tensors
+    g = torch.zeros(1, 8, 2, 64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(g, g, g, impl="pallas")
+
+
+def test_kernel_wrappers_validate_before_launch():
+    """The CUDA wrappers refuse what the kernels do not take, before any
+    build or launch (checked here on meta tensors: no card needed)."""
+    q = torch.empty(2, 4, 32, device="meta")
+    pages = torch.empty(2, 3, 8, 32, device="meta")
+    with pytest.raises((TypeError, ValueError)):
+        t_paged._paged_decode_cuda(
+            q, pages, pages, torch.empty(2, dtype=torch.int32, device="meta"),
+            torch.empty(2, 1, dtype=torch.int32, device="meta"))
+    x = torch.empty(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError):
+        t_attention.flash_attention_fwd(x, x, x, True, 1.0)
+
+
+def test_port_imports_neither_jax_nor_ray_tpu():
+    """Every ray_tpu_torch module imports cleanly in a fresh interpreter
+    without pulling in jax or the JAX package."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "before = set(sys.modules)\n"
+        "import ray_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ray_tpu_torch.__path__,"
+        " 'ray_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'ray_tpu'))\n"
+        "bad += sorted(m for m in sys.modules if m == 'ray_tpu'"
+        " or m.startswith('ray_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in new if m.startswith('ray_tpu_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 14
+
+
+def test_kernel_build_is_keyed_and_fails_loudly(monkeypatch, tmp_path):
+    """Builds are keyed by a hash of the sources and flags; without nvcc a
+    build raises (no silent fallback to the plain version)."""
+    from ray_tpu_torch.ops import _build
+    so, log = _build._paths("paged_decode")
+    assert so.parent == _build._BUILD_DIR and so.suffix == ".so"
+    assert so.stem.startswith("paged_decode-") and log.suffix == ".log"
+    assert _build._paths("flash_fwd")[0] != so
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "b")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("flash_fwd")
+    assert not (tmp_path / "b").exists()
