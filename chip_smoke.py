@@ -6,15 +6,17 @@
 Phases (each raises on failure, so the script exits non-zero and prints
 no result line):
  1. device  — name, power limit, torch and CUDA versions;
- 2. build   — both hand-written kernels from the checkout's sources (one
-              nvcc per source, in parallel), with ptxas's register,
-              shared-memory and spill report;
+ 2. build   — every hand-written kernel source from the checkout (one
+              nvcc per source, all started together), with ptxas's
+              register, shared-memory and spill report;
  3. kernels — each kernel against its plain PyTorch version on the card
-              (bf16 and fp32, stated tolerances), then its time (CUDA
-              events, warmed, launches queued behind a device sleep so the
-              host's launch cost is not timed), the plain version's time,
-              the least time the card could take (bound) and, where one
-              PyTorch call computes the same function, that call's time;
+              (bf16 and fp32, stated tolerances; the backward kernels also
+              against autograd of the plain forward in fp32), then its
+              time (CUDA events, warmed, launches queued behind a device
+              sleep so the host's launch cost is not timed), the plain
+              version's time, the least time the card could take (bound)
+              and, where one PyTorch call computes the same function, that
+              call's time;
  4. serve   — the engine at full Llama-125M width (bf16, seeded random
               weights): 32 requests of 127 tokens plus 4 sharing a
               128-token prefix, 64 greedy tokens each; the paged-decode
@@ -25,7 +27,19 @@ no result line):
               time by kernel);
  5. exact   — the same width in fp32: the engine's greedy tokens must
               equal an argmax loop over the port's `forward`, which runs
-              the flash-forward kernel.
+              the flash-forward kernel;
+ 6. train   — the train step (`make_train_step` + `loss_fn` + `adamw`)
+              at full Llama-125M width and depth in bf16 on a fixed
+              16 x 1024 batch: 3 warm-up and 10 timed steps; the forward
+              (with lse), dQ and dK/dV kernels must each run 12 times per
+              step and their plain versions never, every loss must be
+              finite and the last below the first; step time, tokens/s,
+              MFU, peak memory, the loss head's time, a torch.profiler
+              trace of one step and the synchronizing calls of one step;
+ 7. train-exact — the same width in fp32 at 2 x 256: loss and every
+              gradient leaf of the kernel path against the plain path
+              (dense attention differentiated by autograd), and a 3-step
+              AdamW trajectory of both, within stated tolerances.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -42,12 +56,14 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core bf16
               "float32": 67e12}     # fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3.2e-2}
+TRAIN_BATCH, TRAIN_SEQ = 16, 1024   # the JAX train bench's shape
 
 
 def log(*a):
@@ -84,6 +100,68 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flops_per_token(c, seq: int) -> float:
+    """Analytic train FLOPs/token (a copy of bench_tpu.py's): 3x forward
+    (fwd + 2x bwd), causal attention at average context S/2."""
+    d, ff, L = c.d_model, c.d_ff, c.n_layers
+    attn_proj = (d * (c.n_heads * c.head_dim)
+                 + 2 * d * (c.n_kv_heads * c.head_dim)
+                 + (c.n_heads * c.head_dim) * d)
+    if c.moe_experts:
+        mlp = 3 * d * ff * c.moe_top_k
+    else:
+        mlp = 3 * d * ff
+    per_fwd = (2 * (attn_proj + mlp) * L
+               + 2 * d * c.vocab                       # lm head
+               + 2 * 2 * (seq / 2) * d * L)            # causal attention
+    return 3 * per_fwd
+
+
+def trace_summary(torch, prof, wall_us: float, label: str, smi: str,
+                  top: int = 12, groups=()) -> dict:
+    """Device busy time (union of device activity spans), idle share of
+    the wall time and the device time by kernel, from a torch.profiler
+    run; with `groups` ((label, name substrings), ...), also the device
+    time of each group of kernels, a kernel counting in the first group
+    one of whose substrings its name holds, the rest in "other"."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    log(f"  profiled {label}: wall {wall_us / 1e3:.2f} ms (profiler on), "
+        f"device busy {busy / 1e3:.2f} ms, idle share "
+        f"{1 - busy / wall_us:.3f}, {len(spans)} device activities [{smi}]")
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [r for r in prof.key_averages()
+            if getattr(r, "device_type", None) == cuda
+            and getattr(r, "self_device_time_total", 0) > 0]
+    rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
+    for r in rows[:top]:
+        log(f"    {r.self_device_time_total / 1e3:9.3f} ms  {r.count:6d}x  "
+            f"{r.key[:90]}")
+    sums = {}
+    for r in rows:
+        name = next((g for g, subs in groups
+                     if any(x in r.key for x in subs)), "other")
+        ms, n = sums.get(name, (0.0, 0))
+        sums[name] = (ms + r.self_device_time_total / 1e3, n + r.count)
+    if groups:
+        log("  device time by group: " + "; ".join(
+            f"{g} {ms:.3f} ms ({n} launches, {100e3 * ms / busy:.1f} % of "
+            f"busy)" for g, (ms, n) in sums.items()))
+    return dict(busy_us=busy, wall_us=wall_us, activities=len(spans),
+                groups=sums)
 
 
 # ---------------- phase 3: kernels ----------------
@@ -230,12 +308,145 @@ def check_k2(torch, results):
         bound_by=b_by, library_ms=lib_ms)
 
 
+def attn_case(torch, g, B, S, H, Hkv, D, dtype, grad_scale=1.0):
+    q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(dtype)
+    do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+          * grad_scale).to(dtype)
+    return q, k, v, do
+
+
+def scaled_err(got, want, abs_errs: list) -> float:
+    """max |got - want| over max(1, max |want|): the error relative to
+    the reference's scale. Appends the absolute error to `abs_errs`."""
+    want = want.float()
+    err = (got.float() - want).abs().max().item()
+    abs_errs.append(err)
+    return err / max(1.0, want.abs().max().item())
+
+
+def check_k3_k4(torch, results):
+    """The dQ (K3) and dK/dV (K4) kernels against the plain backward on
+    the same (o, lse) from the forward kernel, over causal/full, bf16/fp32,
+    the 125M shape, a ragged S with GQA 12/4, head_dim 128 with GQA 16/8
+    and S = 1 (one key per row: no row may come out NaN); in fp32 also
+    against autograd of the plain forward. Then the times at
+    the train shape."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(6)
+    errs = {"dq": [], "dk": [], "dv": []}     # absolute, for the JSON line
+    for B, S, H, Hkv, D in ((8, 1024, 12, 12, 64), (2, 1000, 12, 4, 64),
+                            (2, 1000, 16, 8, 128), (2, 1, 4, 2, 64)):
+        for causal in (True, False):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[1]
+                scale = D ** -0.5
+                q, k, v, do = attn_case(torch, g, B, S, H, Hkv, D, dtype)
+                o, lse = A.flash_attention_fwd(q, k, v, causal, scale,
+                                               with_lse=True)
+                dq, dk, dv = A.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal, scale)
+                want = A.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                       causal, scale)
+                torch.cuda.synchronize()
+                e = [scaled_err(a, b, errs[n]) for a, b, n in
+                     zip((dq, dk, dv), want, errs)]
+                line = (f"dq {e[0]:.3e}, dk {e[1]:.3e}, dv {e[2]:.3e}")
+                if dtype == torch.float32:
+                    # independent: autograd of the plain dense forward
+                    leaves = [x.detach().requires_grad_(True)
+                              for x in (q, k, v)]
+                    out = A.flash_attention(*leaves, causal=causal,
+                                            scale=scale, impl="reference")
+                    auto = torch.autograd.grad(out, leaves, do)
+                    ea = [scaled_err(a, b, errs[n]) for a, b, n in
+                          zip((dq, dk, dv), auto, errs)]
+                    e += ea
+                    line += f"; vs autograd {max(ea):.3e}"
+                    del leaves, out, auto
+                ok = all(math.isfinite(x) and x <= TOL[dn] for x in e)
+                log(f"  K3/K4 flash_bwd [{B},{S},{H}/{Hkv},{D}] "
+                    f"{'causal' if causal else 'full'} {dn}: {line} "
+                    f"(tol {TOL[dn]} of the reference's scale) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"K3/K4 case disagrees: {e}")
+                del q, k, v, do, o, lse, dq, dk, dv, want
+
+    # times at the train shape, causal bf16
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 12, 64
+    scale = D ** -0.5
+    q, k, v, do = attn_case(torch, g, B, S, H, H, D, torch.bfloat16)
+    o, lse = A.flash_attention_fwd(q, k, v, True, scale, with_lse=True)
+    delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
+             .reshape(B * H, S).contiguous())
+    fwd_ms = device_ms(torch, lambda i: A.flash_attention_fwd(
+        q, k, v, True, scale, with_lse=True), 10)
+    dq_ms = device_ms(torch, lambda i: A.flash_bwd_dq(
+        q, k, v, do, lse, delta, True, scale), 10)
+    dkv_ms = device_ms(torch, lambda i: A.flash_bwd_dkv(
+        q, k, v, do, lse, delta, True, scale), 10)
+    plain_ms = device_ms(torch, lambda i: A.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, True, scale), 3)
+    # The library yardstick: scaled_dot_product_attention's backward
+    # (dQ, dK and dV in one call), timed as forward + backward minus
+    # forward.
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    sdpa_fwd = device_ms(torch, lambda i: sdpa(), 20)
+    sdpa_fb = device_ms(torch, lambda i: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot), 20)
+    lib_ms = sdpa_fb - sdpa_fwd
+    pairs = B * H * S * (S + 1) // 2
+    isz, row_bytes = 2, 2 * B * H * S * 4           # lse + delta, fp32
+    tensor = B * S * H * D * isz
+    fwd_b = bound_ms(4 * tensor + B * H * S * 4, 2 * 2 * D * pairs,
+                     "bfloat16")
+    dq_b = bound_ms(5 * tensor + row_bytes, 3 * 2 * D * pairs, "bfloat16")
+    dkv_b = bound_ms(6 * tensor + row_bytes, 4 * 2 * D * pairs, "bfloat16")
+    log(f"  K2 with lse at [{B},{S},{H},{D}] causal bf16: kernel "
+        f"{fwd_ms:.4f} ms, bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); "
+        f"sdpa forward {sdpa_fwd:.4f} ms")
+    log(f"  K3 dq at [{B},{S},{H},{D}] causal bf16: kernel {dq_ms:.4f} ms, "
+        f"bound {dq_b[0]:.4f} ms ({dq_b[1]}; "
+        f"{3 * 2 * D * pairs / 1e9:.2f} GFLOP, "
+        f"{(5 * tensor + row_bytes) / 1e6:.1f} MB)")
+    log(f"  K4 dkv at [{B},{S},{H},{D}] causal bf16: kernel {dkv_ms:.4f} ms, "
+        f"bound {dkv_b[0]:.4f} ms ({dkv_b[1]}; "
+        f"{4 * 2 * D * pairs / 1e9:.2f} GFLOP, "
+        f"{(6 * tensor + row_bytes) / 1e6:.1f} MB)")
+    log(f"  plain backward (dq, dk, dv together) {plain_ms:.4f} ms; sdpa "
+        f"backward {lib_ms:.4f} ms (forward+backward {sdpa_fb:.4f} ms minus "
+        f"forward {sdpa_fwd:.4f} ms; one call for dq, dk and dv)")
+    results["flash_fwd_lse_train"] = dict(ms=fwd_ms, bound_ms=fwd_b[0],
+                                          library_ms=sdpa_fwd)
+    for name, src_line, ms, (b_ms, b_by), key in (
+            ("flash_bwd_dq", "ray_tpu/ops/attention.py:139", dq_ms, dq_b,
+             "dq"),
+            ("flash_bwd_dkv", "ray_tpu/ops/attention.py:177", dkv_ms, dkv_b,
+             "dkv")):
+        results[name] = dict(
+            name=name, route="cuda",
+            source="ray_tpu_torch/ops/csrc/flash_bwd.cu", replaces=src_line,
+            launches=None,
+            max_abs_err=max(errs["dq"] if key == "dq"
+                            else errs["dk"] + errs["dv"]), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms)
+
+
 # ---------------- phases 4-5: the main path ----------------
 
 
 def reset_counts():
     from ray_tpu_torch.ops import attention, paged_attention
-    for d in (attention.launches, paged_attention.launches):
+    for d in (attention.launches, attention.bwd_dq_launches,
+              attention.bwd_dkv_launches, paged_attention.launches):
         for key in d:
             d[key] = 0
 
@@ -332,30 +543,7 @@ def profile_phase(torch, eng, prompts, smi):
             eng.step_window()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    log(f"  profiled 32 x 17 tokens: wall {wall_us / 1e3:.2f} ms (profiler "
-        f"on), device busy {busy / 1e3:.2f} ms, idle share "
-        f"{1 - busy / wall_us:.3f}, {len(spans)} device activities [{smi}]")
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [r for r in prof.key_averages()
-            if getattr(r, "device_type", None) == cuda
-            and getattr(r, "self_device_time_total", 0) > 0]
-    rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
-    for r in rows[:12]:
-        log(f"    {r.self_device_time_total / 1e3:9.3f} ms  {r.count:6d}x  "
-            f"{r.key[:90]}")
+    trace_summary(torch, prof, wall_us, "32 x 17 tokens", smi)
 
 
 def no_sync_check(torch, eng):
@@ -430,6 +618,200 @@ def exact_phase(torch, results):
     results["flash_fwd"]["launches"] = launches["cuda"]
 
 
+# ---------------- phases 6-7: the train path ----------------
+
+
+def bwd_counts():
+    from ray_tpu_torch.ops import attention as A
+    return {"fwd": dict(A.launches), "dq": dict(A.bwd_dq_launches),
+            "dkv": dict(A.bwd_dkv_launches)}
+
+
+def train_phase(torch, results, smi):
+    """The train step at full llama-125m width and depth, bf16, on the JAX
+    bench's 16 x 1024 batch, through the entry points a user calls."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.models.transformer import lm_head, log_likelihood
+    from ray_tpu_torch.train import adamw, make_train_step
+    cfg = configs.bench_125m()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    n_params = sum(x.numel() for x in params["layers"].values())
+    n_params += params["embed"].numel() + params["final_norm"].numel()
+    init_fn, _step, compile_for, _ = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), adamw(3e-4), device="cuda")
+    state = init_fn(params)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (B, S + 1)),
+                                    dtype=torch.int32, device="cuda")}
+    step = compile_for(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, first = step(state, batch)
+    first = first.item()
+    log(f"  {n_params / 1e6:.1f} M params; first step "
+        f"{time.perf_counter() - t0:.3f} s (library handles, allocator), "
+        f"loss {first:.4f}")
+    for _ in range(2):
+        state, _loss = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    n = 10
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()     # the one readback: a fence
+    wall = time.perf_counter() - t0
+    counts = bwd_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / n * 1e3
+    tps = B * S / (wall / n)
+    fpt = flops_per_token(cfg, S)
+    mfu = fpt * tps / PEAK_FLOPS["bfloat16"]
+    log(f"  {n} steps of {B} x {S} tokens: {step_ms:.2f} ms/step, "
+        f"{tps:.1f} tokens/s, MFU {100 * mfu:.2f} % ({fpt / 1e9:.3f} "
+        f"GFLOP/token over 989 TFLOP/s dense bf16); peak device memory "
+        f"{peak / 2**30:.3f} GiB [{smi}]")
+    log(f"  losses: first {first:.4f}, timed " +
+        ", ".join(f"{x:.4f}" for x in losses))
+    log(f"  launches over the {n} steps: K2 {counts['fwd']}, K3 "
+        f"{counts['dq']}, K4 {counts['dkv']}")
+    want = cfg.n_layers * n
+    for key in ("fwd", "dq", "dkv"):
+        if counts[key] != {"cuda": want, "plain": 0}:
+            raise AssertionError(f"train step ran {key} {counts[key]}, "
+                                 f"want {want} kernel launches, 0 plain")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < first:
+        raise AssertionError(f"loss did not fall: {first} -> {losses[-1]}")
+    results["flash_fwd"]["launches"] = counts["fwd"]["cuda"]
+    results["flash_bwd_dq"]["launches"] = counts["dq"]["cuda"]
+    results["flash_bwd_dkv"]["launches"] = counts["dkv"]["cuda"]
+
+    # the fp32 loss head alone: chunked logits, logsumexp and their
+    # backward (with the chunk recompute), as one step runs it
+    x = torch.randn(B, S, cfg.d_model, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    head = lm_head(state.params, cfg)
+    tgt = batch["tokens"][:, 1:].long()
+    head_ms = device_ms(torch, lambda i: torch.autograd.grad(
+        -log_likelihood(x, head, tgt).mean(), (x, head)), 3)
+    log(f"  loss head (fp32 logits product, chunked, forward + backward): "
+        f"{head_ms:.2f} ms = {100 * head_ms / step_ms:.1f} % of the step")
+    del x
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # In a bf16 step the only fp32 matrix products are the loss head's.
+    trace = trace_summary(torch, prof, wall_us, "one train step", smi,
+                          top=16, groups=(
+                              ("fp32 products (loss head)",
+                               ("sgemm", "f32f32")),
+                              ("flash kernels K2-K4", ("flash_",)),
+                              ("bf16 products", ("gemm", "nvjet"))))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, loss = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    log(f"  one step under CUDA sync debug mode 'warn': {len(syncs)} "
+        f"synchronizing calls" + (f" ({syncs[0][:100]})" if syncs else ""))
+    if not math.isfinite(loss.item()):
+        raise AssertionError("non-finite loss after the profiled steps")
+    return dict(step_ms=step_ms, tokens_per_s=tps, mfu=mfu, peak_bytes=peak,
+                head_ms=head_ms, syncs=len(syncs), **trace)
+
+
+def train_exact_phase(torch):
+    """fp32 llama-125m at 2 x 256: loss and gradients through the kernels
+    against the plain path, then 3 AdamW steps of each."""
+    import numpy as np
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import adamw, make_train_step
+    from ray_tpu_torch.train.optim import tree_leaves
+    cfg = dataclasses.replace(configs.bench_125m(), dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (2, 257)),
+                                    dtype=torch.int32, device="cuda")}
+
+    def weights():
+        return init_params(cfg, torch.Generator().manual_seed(1), "cuda")
+
+    def value_and_grad(c):
+        params = weights()
+        leaves = tree_leaves(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        reset_counts()
+        loss = loss_fn(params, batch, c)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.item(), grads, bwd_counts()
+
+    lk, gk, ck = value_and_grad(cfg)
+    lp, gp, cp = value_and_grad(plain_cfg)
+    # fp32 both ways, attention summed in another order: loss to 1e-5
+    # relative, each gradient leaf to 2e-4 of its largest entry
+    worst = max((a - b).abs().max().item()
+                / max(b.abs().max().item(), 1e-12) for a, b in zip(gk, gp))
+    log(f"  loss kernel {lk:.6f} vs plain {lp:.6f}; gradients: worst leaf "
+        f"max|diff|/max|plain| {worst:.3e} (tol 2e-4); launches kernel "
+        f"path {ck}, plain path {cp}")
+    if not abs(lk - lp) <= 1e-5 * abs(lp) or not worst <= 2e-4:
+        raise AssertionError("train-exact: kernel path disagrees")
+    want = cfg.n_layers
+    kernels = {"cuda": want, "plain": 0}
+    if (ck != {"fwd": kernels, "dq": kernels, "dkv": kernels}
+            or cp != {"fwd": {"cuda": 0, "plain": want},
+                      "dq": {"cuda": 0, "plain": 0},
+                      "dkv": {"cuda": 0, "plain": 0}}):
+        raise AssertionError("train-exact: the paths did not run as meant")
+
+    lr, steps = 3e-4, 3
+    runs = []
+    for c in (cfg, plain_cfg):
+        init_fn, step, _, _ = make_train_step(
+            lambda p, b, c=c: loss_fn(p, b, c), adamw(lr), device="cuda")
+        state = init_fn(weights())
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, batch)
+            losses.append(loss)
+        runs.append((torch.stack(losses).tolist(), tree_leaves(state.params)))
+    (lk, pk), (lp, pp) = runs
+    # Losses to 1e-5 relative. Params: all but 0.1 % of each leaf's
+    # entries to 1e-6. AdamW divides each gradient by its own RMS, so an
+    # entry whose gradient sits at the fp32 noise level moves in a
+    # direction the rounding decides; the largest difference is printed,
+    # not held to a bound.
+    frac = max(((a - b).abs() > 1e-6).float().mean().item()
+               for a, b in zip(pk, pp))
+    far = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    log(f"  {steps} AdamW steps: losses kernel {lk}, plain {lp}; params: "
+        f"largest share of a leaf's entries off by > 1e-6 {frac:.2e} "
+        f"(tol 1e-3), largest difference {far:.3e}")
+    if (any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(lk, lp))
+            or frac > 1e-3 or not all(math.isfinite(x) for x in lk)):
+        raise AssertionError("train-exact: trajectories disagree")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -445,13 +827,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/5] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/7] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/5] build: {len(build_logs)} kernels in "
+    log(f"[2/7] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -470,13 +852,14 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/5] kernels against their plain versions")
+    log("[3/7] kernels against their plain versions")
     check_k1(torch, results)
     check_k2(torch, results)
+    check_k3_k4(torch, results)
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/5] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/7] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -490,14 +873,30 @@ def main() -> int:
     del eng
 
     t0 = time.perf_counter()
-    log("[5/5] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[5/7] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
-    log(f"  exact phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"  exact phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log(f"[6/7] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"adamw(3e-4)")
+    torch.cuda.empty_cache()
+    train = train_phase(torch, results, smi)
+    log(f"  train phase {time.perf_counter() - t0:.1f} s; "
+        f"{train['step_ms']:.2f} ms/step, {train['tokens_per_s']:.1f} "
+        f"tokens/s, MFU {100 * train['mfu']:.2f} %")
+
+    t0 = time.perf_counter()
+    log("[7/7] train-exact: llama-125m fp32, kernels vs plain attention")
+    torch.cuda.empty_cache()
+    train_exact_phase(torch)
+    log(f"  train-exact phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [results["paged_decode"],
-                                  results["flash_fwd"]]}), flush=True)
+    print(json.dumps({"kernels": [
+        results[k] for k in ("paged_decode", "flash_fwd", "flash_bwd_dq",
+                             "flash_bwd_dkv")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,8 @@
-"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's model, kernel and
-LLM-serving stack, for one NVIDIA H100.
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's model, kernel,
+LLM-serving and training stack, for one NVIDIA H100.
 
 Module names mirror the JAX package (`ray_tpu.ops`, `ray_tpu.models`,
-`ray_tpu.llm`) so each counterpart is easy to find. The package imports
+`ray_tpu.llm`, `ray_tpu.train`) so each counterpart is easy to find. The package imports
 torch and numpy only: never jax, never anything of `ray_tpu` (it keeps its
 own copies of the pure-data modules it needs).
 

@@ -3,11 +3,14 @@
 Counterpart of `ray_tpu/models/transformer.py`: the same config fields,
 the same parameter tree (plain dict, layers stacked on a leading axis) and
 the same math, with a Python loop over layers in place of `lax.scan`.
-Attention goes through `ops.flash_attention` (the CUDA forward kernel on
-a card). bf16 params/activations, fp32 logits.
+Attention goes through `ops.flash_attention` (the CUDA forward and
+backward kernels on a card). bf16 params/activations, fp32 logits.
+`loss_fn` is the training objective (chunked, rematerialized cross
+entropy); `remat` recomputes each layer in the backward with
+`torch.utils.checkpoint` where the JAX package uses `jax.checkpoint`.
 
-The mesh argument and the one-hot embedding, `loss_fn` and
-`param_logical_axes` belong to later slices of the port.
+A mesh of more than one device (and with it the one-hot embedding the
+JAX package uses under sharding) belongs to the sharded slice of the port.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
@@ -111,6 +115,53 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     return params
 
 
+def param_logical_axes(config: ModelConfig) -> dict:
+    """Logical sharding axes per param (leading stacked axis = "layer"); a
+    copy of the JAX package's table, which is pure data, for the sharded
+    slice of the port."""
+    c = config
+    layer = {
+        "attn_norm": ("layer", None),
+        "wq": ("layer", "embed", "heads"),
+        "wk": ("layer", "embed", "kv_heads"),
+        "wv": ("layer", "embed", "kv_heads"),
+        "wo": ("layer", "heads", "embed"),
+        "mlp_norm": ("layer", None),
+    }
+    if c.moe_experts:
+        layer.update({
+            "router": ("layer", "embed", None),
+            "wg": ("layer", "expert", "embed", "mlp"),
+            "wu": ("layer", "expert", "embed", "mlp"),
+            "wd": ("layer", "expert", "mlp", "embed"),
+        })
+    else:
+        layer.update({
+            "wg": ("layer", "embed", "mlp"),
+            "wu": ("layer", "embed", "mlp"),
+            "wd": ("layer", "mlp", "embed"),
+        })
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": (None,),
+    }
+    if not c.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def check_single_device(mesh, what: str) -> None:
+    """`mesh` (None, or a mesh whose `devices` array the JAX package's
+    Mesh shape gives) must hold one device in this slice."""
+    n = 1 if mesh is None else mesh.devices.size
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} over a mesh of {n} devices is the sharded slice of the "
+            f"PyTorch port (parallel/mesh.py, parallel/sharding.py); this "
+            f"slice runs on one device")
+
+
 def layer_params(params: dict, li: int) -> dict:
     """Layer `li`'s slice of the stacked layer tree (views, no copies)."""
     return {k: v[li] for k, v in params["layers"].items()}
@@ -150,9 +201,10 @@ def _mlp(x, lp):
     return swiglu(x, lp["wg"], lp["wu"], lp["wd"])
 
 
-def hidden_states(params, tokens, config: ModelConfig):
+def hidden_states(params, tokens, config: ModelConfig, mesh=None):
     """tokens [batch, seq] -> final-norm hidden states [batch, seq, d]."""
     c = config
+    check_single_device(mesh, "hidden_states")
     if c.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={c.attn_impl!r} (sequence parallelism over a mesh) "
@@ -160,20 +212,87 @@ def hidden_states(params, tokens, config: ModelConfig):
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     sin, cos = rope(positions, c.head_dim, c.rope_theta)
-    for li in range(c.n_layers):
-        lp = layer_params(params, li)
+
+    def layer_body(x, lp):
         h = x + _attention(rmsnorm(x, lp["attn_norm"], c.norm_eps), lp, c,
                            sin, cos)
         normed = rmsnorm(h, lp["mlp_norm"], c.norm_eps)
-        x = h + (_moe(normed, lp, c) if c.moe_experts else _mlp(normed, lp))
+        mlp = _moe(normed, lp, c) if c.moe_experts else _mlp(normed, lp)
+        return h + mlp
+
+    for li in range(c.n_layers):
+        lp = layer_params(params, li)
+        if c.remat and torch.is_grad_enabled():
+            x = checkpoint(layer_body, x, lp, use_reentrant=False)
+        else:
+            x = layer_body(x, lp)
     return rmsnorm(x, params["final_norm"], c.norm_eps)
 
 
-def forward(params, tokens, config: ModelConfig):
+def forward(params, tokens, config: ModelConfig, mesh=None):
     """tokens [batch, seq] -> logits [batch, seq, vocab] (fp32).
 
     The head product takes the activations and head in their own dtype
     upcast to fp32 (exact for bf16) with an fp32 sum, as the JAX
     package's `preferred_element_type=float32` does."""
-    x = hidden_states(params, tokens, config)
+    x = hidden_states(params, tokens, config, mesh)
     return torch.matmul(x.float(), lm_head(params, config).float())
+
+
+# loss_fn chunks the head + softmax when the full fp32 logits tensor would
+# pass this many bytes (the JAX package's threshold).
+CHUNK_MIN_BYTES = 1 << 30
+
+
+def _xent(x, head, targets):
+    """Log-likelihood of `targets` under one chunk's logits [b, s]: the
+    target logit minus the row logsumexp, without materializing the full
+    log-softmax. Logits never leave this function."""
+    logits = torch.matmul(x.float(), head.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+    return tgt - lse
+
+
+def uses_loss_chunks(b: int, s: int, vocab: int, loss_chunk: int) -> bool:
+    """Whether `loss_fn` runs the head in rematerialized sequence chunks:
+    only when the fp32 logits would be large enough to matter."""
+    return (s % loss_chunk == 0 and s > loss_chunk
+            and 4 * b * s * vocab > CHUNK_MIN_BYTES)
+
+
+def log_likelihood(x, head, targets, loss_chunk: int = 512):
+    """Per-position log-likelihood [b, s] of `targets` under the logits
+    x @ head, in rematerialized chunks of `loss_chunk` positions when
+    `uses_loss_chunks` says the fp32 logits are large."""
+    b, s, _d = x.shape
+    if not uses_loss_chunks(b, s, head.shape[-1], loss_chunk):
+        return _xent(x, head, targets)
+    return torch.cat([
+        checkpoint(_xent, x[:, i:i + loss_chunk], head,
+                   targets[:, i:i + loss_chunk], use_reentrant=False)
+        for i in range(0, s, loss_chunk)], dim=1)
+
+
+def loss_fn(params, batch, config: ModelConfig, mesh=None,
+            loss_chunk: int = 512):
+    """Next-token cross entropy (fp32 scalar); batch = {"tokens": [b, s+1]}
+    or {"inputs": [b, s], "targets": [b, s]}, with an optional "mask"
+    [b, s] weighting the positions.
+
+    The [b, s, vocab] fp32 logits tensor dominates training memory, so the
+    head + softmax runs in sequence chunks of `loss_chunk` that the
+    backward recomputes: peak logits memory is b * loss_chunk * vocab."""
+    if "tokens" in batch:
+        inputs = batch["tokens"][:, :-1]
+        targets = batch["tokens"][:, 1:]
+    else:
+        inputs, targets = batch["inputs"], batch["targets"]
+    x = hidden_states(params, inputs, config, mesh)
+    ll = log_likelihood(x, lm_head(params, config), targets.long(),
+                        loss_chunk)
+    mask = batch.get("mask")
+    if mask is None:
+        return -ll.mean()
+    mask = mask.to(ll.dtype)
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,0 +1,413 @@
+// Flash-attention backward for Hopper: dQ (K3) and dK/dV (K4).
+//
+// Replaces the TPU kernels ray_tpu/ops/attention.py::_bwd_dq_kernel and
+// ::_bwd_dkv_kernel (both launched by _flash_bwd). Both recompute the
+// attention probabilities from the forward's per-row logsumexp instead of
+// storing them:
+//   P  = exp(Q K^T * scale - lse)      (0 where masked: causal, key >= S)
+//   dP = dO V^T
+//   dS = P * (dP - delta) * scale      delta = rowsum(dO * O), computed
+//                                      outside (as the JAX package does)
+//   K3: dQ = dS K                      K4: dV = P^T dO,  dK = dS^T Q
+// P is rounded to the input dtype before the dV product and dS before the
+// dQ and dK products, as the TPU kernels do; accumulators are fp32 and the
+// outputs are written in the input dtype.
+//
+// Layout: q/dO/dQ [B, S, H, D], k/v/dK/dV [B, S, Hkv, D], lse/delta flat
+// [B*H, S] fp32 (row b*H + h). GQA: query head h reads kv head
+// h / (H / Hkv) through strides (no repeat, no transpose). K4's block owns
+// one k tile of one kv head and loops over the g = H / Hkv query heads of
+// its group itself, so the GQA sum of dK/dV happens in registers: no
+// atomics, deterministic. A ragged S is masked in the kernel (padded query
+// rows load as zero, give P = 0 and write nothing).
+//
+// What bounds it: at the training shape [16, 1024, 12, 64] causal bf16,
+// K3 does 3 and K4 4 products of 2*D FLOPs per (q, k) pair over
+// S(S+1)/2 pairs per head (38.7 and 51.6 GFLOP) against 127 and 153 MB of
+// inputs and outputs; on the tensor cores each would take about as long
+// for its bytes as for its products (~40-50 us). This first version, like
+// the forward kernel, does the products with fp32 FMAs on the CUDA cores
+// (no mma/wgmma yet), so it is bound by operations. Every tile sits
+// row-major in shared memory as fp32; in the score products a thread owns
+// 4 consecutive rows of one operand and 4 rows 16 apart of the other, so
+// each float4 read along D is either a warp broadcast or lands on distinct
+// banks (row pitch D + 4 floats). Tensor-core products, TMA staging and
+// double buffering are left for a later change.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BQ = 64;  // query rows per tile
+constexpr int BK = 64;  // keys per tile
+constexpr int kThreads = 256;
+
+template <int D>
+struct Tiles {
+  static constexpr int LD = D + 4;    // row pitch of a [64][D] tile
+  static constexpr int LDT = 64 + 4;  // row pitch of a [64][64] tile
+  static constexpr int tile = 64 * LD;
+  // K3: Q, dO, K, V tiles + dS^T [BK][BQ]
+  static constexpr int dq_bytes = (4 * tile + BK * LDT) * 4;
+  // K4: K, V, Q, dO tiles + P and dS [BQ][BK] + lse and delta [BQ]
+  static constexpr int dkv_bytes = (4 * tile + 2 * BQ * LDT + 2 * BQ) * 4;
+};
+
+// rows [r0, r0 + 64) of a [S, stride] tensor, D columns from `src`, as
+// fp32 into dst[64][LD]; rows at or beyond S are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          size_t stride, int r0, int S) {
+  constexpr int LD = D + 4;
+  constexpr int C4 = D / 4;
+  for (int idx = threadIdx.x; idx < 64 * C4; idx += kThreads) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    const int s = r0 + r;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (s < S) rt::VecLoad<T, 4>::run(src + (size_t)s * stride + c, x);
+    *reinterpret_cast<float4*>(&dst[r * LD + c]) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// s[i][j] = A[a0 + i] . B[b0 + 16 j] and t[i][j] = C[a0 + i] . E[b0 + 16 j]
+// over D columns: the two score products of a tile, sharing the loop.
+template <int D>
+__device__ __forceinline__ void two_products(const float* A, const float* C,
+                                             const float* Bt, const float* E,
+                                             int a0, int b0, float s[4][4],
+                                             float t[4][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 b[4], e[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = *reinterpret_cast<const float4*>(&Bt[(b0 + 16 * j) * LD + d]);
+      e[j] = *reinterpret_cast<const float4*>(&E[(b0 + 16 * j) * LD + d]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(&A[(a0 + i) * LD + d]);
+      const float4 c = *reinterpret_cast<const float4*>(&C[(a0 + i) * LD + d]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += dot4(a, b[j]);
+        t[i][j] += dot4(c, e[j]);
+      }
+    }
+  }
+}
+
+// acc[i][c] += sum_r W[r][w0 + i] * X[r][x0 + c] over the 64 rows r of a
+// [64][LDT] weight tile and a [64][LD] operand tile.
+template <int D>
+__device__ __forceinline__ void accumulate(const float* W, const float* X,
+                                           int w0, int x0,
+                                           float acc[4][D / 16]) {
+  constexpr int LD = D + 4;
+  constexpr int LDT = 64 + 4;
+  constexpr int CW = D / 16;
+#pragma unroll 4
+  for (int r = 0; r < 64; ++r) {
+    const float4 wa = *reinterpret_cast<const float4*>(&W[r * LDT + w0]);
+    const float w[4] = {wa.x, wa.y, wa.z, wa.w};
+    float x[CW];
+#pragma unroll
+    for (int c4 = 0; c4 < CW / 4; ++c4) {
+      const float4 xa =
+          *reinterpret_cast<const float4*>(&X[r * LD + x0 + 4 * c4]);
+      x[4 * c4 + 0] = xa.x;
+      x[4 * c4 + 1] = xa.y;
+      x[4 * c4 + 2] = xa.z;
+      x[4 * c4 + 3] = xa.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[i][c] += w[i] * x[c];
+  }
+}
+
+// K3: one block per (q tile, b * H + h); walks the k tiles up to the
+// causal diagonal.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int S, int H, int Hkv, int causal, float scale) {
+  using L = Tiles<D>;
+  constexpr int CW = D / 16;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + L::tile;
+  float* Ks = dOs + L::tile;
+  float* Vs = Ks + L::tile;
+  float* dSt = Vs + L::tile;  // [BK][LDT]: dS transposed, rounded to T
+
+  const int tid = threadIdx.x;
+  const int rg = tid / 16;  // rows 4*rg .. 4*rg+3 of the q tile
+  const int kc = tid % 16;  // keys kc + 16*j of a k tile (score phase)
+  const int cg = tid % 16;  // columns cg*CW .. of dQ (accumulate phase)
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / Hkv);
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * D;
+
+  load_tile<T, D>(Qs, q + q_off, q_stride, q0, S);
+  load_tile<T, D>(dOs, dout + q_off, q_stride, q0, S);
+  float row_lse[4], row_delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + 4 * rg + i;
+    row_lse[i] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
+    row_delta[i] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+  }
+  float acc[4][CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+
+  int nk = (S + BK - 1) / BK;
+  if (causal) {
+    const int last = (q0 + BQ - 1) / BK + 1;
+    nk = nk < last ? nk : last;
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, S);
+    load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, S);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    two_products<D>(Qs, dOs, Ks, Vs, 4 * rg, kc, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + 4 * rg + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + kc + 16 * j;
+        const bool keep = qi < S && kj < S && !(causal && kj > qi);
+        const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
+        dSt[(kc + 16 * j) * L::LDT + 4 * rg + i] =
+            rt::round_to<T>(p * (dp[i][j] - row_delta[i]) * scale);
+      }
+    }
+    __syncthreads();
+    accumulate<D>(dSt, Ks, 4 * rg, cg * CW, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + 4 * rg + i;
+    if (qi >= S) continue;
+    T* o = dq + q_off + (size_t)qi * q_stride + cg * CW;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) o[c] = rt::from_float<T>(acc[i][c]);
+  }
+}
+
+// K4: one block per (k tile, b * Hkv + kv head); loops over the g query
+// heads of the group and over the q tiles from the causal diagonal on.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int S, int H, int Hkv, int causal,
+                     float scale) {
+  using L = Tiles<D>;
+  constexpr int CW = D / 16;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + L::tile;
+  float* Qs = Vs + L::tile;
+  float* dOs = Qs + L::tile;
+  float* Ps = dOs + L::tile;     // [BQ][LDT]: P, rounded to T
+  float* dSs = Ps + BQ * L::LDT;  // [BQ][LDT]: dS, rounded to T
+  float* lse_s = dSs + BQ * L::LDT;
+  float* delta_s = lse_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int kr = tid / 16;  // keys 4*kr .. 4*kr+3 of the k tile
+  const int qc = tid % 16;  // queries qc + 16*i of a q tile (score phase)
+  const int cg = tid % 16;  // columns cg*CW .. of dK/dV
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  const int g = H / Hkv;
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * D;
+
+  load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, S);
+  load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, S);
+  float acc_k[4][CW], acc_v[4][CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int first = causal ? k0 / BQ : 0;
+  for (int hh = 0; hh < g; ++hh) {
+    const int h = kvh * g + hh;
+    const size_t bh = (size_t)b * H + h;
+    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
+    for (int qt = first; qt < nq; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, D>(Qs, q + q_off, q_stride, q0, S);
+      load_tile<T, D>(dOs, dout + q_off, q_stride, q0, S);
+      if (tid < BQ) {
+        const int qi = q0 + tid;
+        lse_s[tid] = qi < S ? lse[bh * S + qi] : 0.f;
+        delta_s[tid] = qi < S ? delta[bh * S + qi] : 0.f;
+      }
+      __syncthreads();
+
+      float st[4][4], dpt[4][4];  // [key i][query j], transposed scores
+      two_products<D>(Ks, Vs, Qs, dOs, 4 * kr, qc, st, dpt);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ql = qc + 16 * j;
+        const int qi = q0 + ql;
+        const float l = lse_s[ql], dl = delta_s[ql];
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kj = k0 + 4 * kr + i;
+          const bool keep = qi < S && kj < S && !(causal && kj > qi);
+          const float pf = keep ? expf(st[i][j] * scale - l) : 0.f;
+          p[i] = rt::round_to<T>(pf);
+          ds[i] = rt::round_to<T>(pf * (dpt[i][j] - dl) * scale);
+        }
+        *reinterpret_cast<float4*>(&Ps[ql * L::LDT + 4 * kr]) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(&dSs[ql * L::LDT + 4 * kr]) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+      __syncthreads();
+      accumulate<D>(Ps, dOs, 4 * kr, cg * CW, acc_v);
+      accumulate<D>(dSs, Qs, 4 * kr, cg * CW, acc_k);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + 4 * kr + i;
+    if (kj >= S) continue;
+    const size_t off = kv_off + (size_t)kj * kv_stride + cg * CW;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      dk[off + c] = rt::from_float<T>(acc_k[i][c]);
+      dv[off + c] = rt::from_float<T>(acc_v[i][c]);
+    }
+  }
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool* done) {
+  if (*done) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *done = true;
+  return 0;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *out0, *out1;  // dq; or dk, dv
+  int B, S, H, Hkv, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_dq(const Args& a) {
+  static bool attr = false;
+  const int bytes = Tiles<D>::dq_bytes;
+  if (int e = allow_smem(flash_bwd_dq_kernel<T, D>, bytes, &attr)) return e;
+  dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.out0), a.S, a.H, a.Hkv, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a) {
+  static bool attr = false;
+  const int bytes = Tiles<D>::dkv_bytes;
+  if (int e = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes, &attr)) return e;
+  dim3 grid((a.S + BK - 1) / BK, a.B * a.Hkv);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.H,
+      a.Hkv, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DKV, typename T, int D>
+int run(const Args& a) {
+  if constexpr (DKV) {
+    return launch_dkv<T, D>(a);
+  } else {
+    return launch_dq<T, D>(a);
+  }
+}
+
+template <bool DKV>
+int dispatch(int D, int dtype, const Args& a) {
+  if (dtype == 0 && D == 64) return run<DKV, float, 64>(a);
+  if (dtype == 0 && D == 128) return run<DKV, float, 128>(a);
+  if (dtype == 1 && D == 64) return run<DKV, __nv_bfloat16, 64>(a);
+  if (dtype == 1 && D == 128) return run<DKV, __nv_bfloat16, 128>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q/dout/dq [B, S, H, D]; k/v [B, S, Hkv, D]; lse/delta [B*H, S] fp32.
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int B, int S,
+                               int H, int Hkv, int D, int causal, float scale,
+                               int dtype, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dq, nullptr, B, S, H, Hkv,
+               causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(D, dtype, a);
+}
+
+// As above; writes dk and dv [B, S, Hkv, D].
+extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv, int B,
+                                int S, int H, int Hkv, int D, int causal,
+                                float scale, int dtype, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dk, dv, B, S, H, Hkv,
+               causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(D, dtype, a);
+}

@@ -1,15 +1,17 @@
-"""PyTorch port, ops layer: the layer ops and the plain versions of the two
-ported kernels held against the JAX package on the same numpy inputs.
+"""PyTorch port, ops layer: the layer ops (values and VJPs) and the plain
+versions of the ported kernels held against the JAX package on the same
+numpy inputs.
 
 The JAX side runs on the CPU as the JAX package's own tests run it: the
-paged-decode Pallas kernel and the flash forward in interpret mode. The
-CUDA kernels themselves run only on a card (`python3 chip_smoke.py`
-compares each with its plain version there)."""
+paged-decode Pallas kernel and the flash forward and backward kernels in
+interpret mode. The CUDA kernels themselves run only on a card
+(`python3 chip_smoke.py` compares each with its plain version there)."""
 
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from ray_tpu.ops import flash_attention as j_flash_attention
 from ray_tpu.ops import rmsnorm as j_rmsnorm
 from ray_tpu.ops import rope as j_rope
 from ray_tpu.ops import swiglu as j_swiglu
+from ray_tpu.ops import attention as j_attention
 from ray_tpu.ops.paged_attention import (
     paged_decode_attention as j_paged_decode,
     paged_decode_attention_reference as j_paged_reference)
@@ -212,8 +215,9 @@ def test_flash_attention_impl_contract():
         flash_attention(x, x, x, impl="mosaic")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(x, x, x, impl="pallas")   # kernel path, CPU tensors
+    # with a gradient too: the kernel path takes CUDA tensors only
     g = torch.zeros(1, 8, 2, 64, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention(g, g, g, impl="pallas")
 
 
@@ -229,6 +233,12 @@ def test_kernel_wrappers_validate_before_launch():
     x = torch.empty(1, 8, 2, 32, device="meta")
     with pytest.raises(ValueError):
         t_attention.flash_attention_fwd(x, x, x, True, 1.0)
+    rows = torch.empty(2, 8, device="meta")
+    with pytest.raises(ValueError):
+        t_attention.flash_attention_bwd(x, x, x, x, rows, x, True, 1.0)
+    for fn in (t_attention.flash_bwd_dq, t_attention.flash_bwd_dkv):
+        with pytest.raises(ValueError):
+            fn(x, x, x, x, rows, rows, True, 1.0)
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
@@ -264,6 +274,7 @@ def test_kernel_build_is_keyed_and_fails_loudly(monkeypatch, tmp_path):
     assert so.parent == _build._BUILD_DIR and so.suffix == ".so"
     assert so.stem.startswith("paged_decode-") and log.suffix == ".log"
     assert _build._paths("flash_fwd")[0] != so
+    assert set(_build.SOURCES) == {"paged_decode", "flash_fwd", "flash_bwd"}
     monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "b")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -272,3 +283,190 @@ def test_kernel_build_is_keyed_and_fails_loudly(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("flash_fwd")
     assert not (tmp_path / "b").exists()
+
+
+# ---- layer VJPs ----
+
+
+def _vjp_pair(j_fn, t_fn, arrays, cot):
+    """Cotangent-weighted gradients of one op in both packages, fp32."""
+    _, vjp = jax.vjp(j_fn, *[jnp.asarray(a) for a in arrays])
+    want = vjp(jnp.asarray(cot))
+    ts = [torch.tensor(a, requires_grad=True) for a in arrays]
+    got = torch.autograd.grad(t_fn(*ts), ts, torch.tensor(cot))
+    return got, want
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "apply_rope", "swiglu"])
+def test_layer_vjps_match_jax(op):
+    """fp32 gradients of each layer op against `jax.vjp` (same math in
+    another order: 2e-5 of the gradient's scale)."""
+    rng = np.random.default_rng(9)
+    if op == "rmsnorm":
+        arrays = [rng.normal(size=(2, 5, 32)), rng.normal(size=(32,))]
+        j_fn = lambda x, w: j_rmsnorm(x, w, 1e-6)  # noqa: E731
+        t_fn = lambda x, w: rmsnorm(x, w, 1e-6)  # noqa: E731
+        out_shape = (2, 5, 32)
+    elif op == "apply_rope":
+        pos = np.arange(6, dtype=np.int32)
+        sj, cj = j_rope(jnp.asarray(pos), 16)
+        st, ct = rope(torch.tensor(pos), 16)
+        arrays = [rng.normal(size=(2, 6, 3, 16))]
+        j_fn = lambda x: j_apply_rope(x, sj, cj)  # noqa: E731
+        t_fn = lambda x: apply_rope(x, st, ct)  # noqa: E731
+        out_shape = (2, 6, 3, 16)
+    else:
+        arrays = [rng.normal(size=(2, 4, 16)),
+                  rng.normal(size=(16, 24)) / 4, rng.normal(size=(16, 24)) / 4,
+                  rng.normal(size=(24, 16)) / 5]
+        j_fn, t_fn = j_swiglu, swiglu
+        out_shape = (2, 4, 16)
+    arrays = [a.astype(np.float32) for a in arrays]
+    cot = rng.normal(size=out_shape).astype(np.float32)
+    got, want = _vjp_pair(j_fn, t_fn, arrays, cot)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=2e-5 * max(1.0, np.abs(w).max()))
+
+
+# ---- K3/K4: flash backward ----
+
+
+def _bwd_case(rng, s, h, hkv, d=32, b=2):
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    do = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _heads_first(x, h, s_pad=None):
+    """[B, S, Hx, D] numpy -> JAX [B*H, S_pad, D], kv heads repeated to h
+    as the JAX package's flash_attention does, zero rows past S."""
+    b, s, hx, d = x.shape
+    x = np.repeat(x, h // hx, axis=2)
+    if s_pad and s_pad > s:
+        x = np.pad(x, [(0, 0), (0, s_pad - s), (0, 0), (0, 0)])
+    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, -1, d))
+
+
+def _from_heads_first(x, b, s, h, hkv):
+    """JAX [B*H, S_pad, D] -> [B, S, Hkv, D], summed over each group."""
+    x = np.asarray(x)[:, :s].reshape(b, hkv, h // hkv, s, -1).sum(2)
+    return x.transpose(0, 2, 1, 3)
+
+
+def _bwd_close(got, want):
+    """fp32: the same recompute in another summation order; 2e-5 of the
+    reference's scale."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-5 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,h,hkv", [(64, 2, 2), (100, 4, 2)])
+def test_flash_bwd_plain_matches_jax_kernels(causal, s, h, hkv):
+    """The plain backward against the JAX dq/dkv Pallas kernels (interpret
+    mode, 16-row tiles), both fed the same (o, lse) from the JAX forward
+    kernel: the port's backward takes an (o, lse) it did not produce. A
+    ragged S goes to the JAX kernels padded to the tile with kv_len set,
+    as its flash_attention does; the port takes it unpadded."""
+    rng = np.random.default_rng(10)
+    q, k, v, do = _bwd_case(rng, s, h, hkv)
+    b, d = q.shape[0], q.shape[-1]
+    scale = d ** -0.5
+    s_pad = -(-s // 16) * 16
+    kv_len = s if s_pad != s else None
+    jq, jk, jv, jdo = (_heads_first(x, h, s_pad) for x in (q, k, v, do))
+    jo, jlse = j_attention._flash_fwd(jq, jk, jv, scale, causal, 16, 16,
+                                      True, kv_len=kv_len)
+    jlse = jlse[:, :, 0]
+    jdq, jdk, jdv = j_attention._flash_bwd(jq, jk, jv, jo, jlse, jdo, scale,
+                                           causal, 16, 16, True,
+                                           kv_len=kv_len)
+    o = np.asarray(jo)[:, :s].reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    lse = np.asarray(jlse)[:, :s]
+    before = dict(t_attention.bwd_dq_launches), dict(
+        t_attention.bwd_dkv_launches)
+    dq, dk, dv = t_attention.flash_attention_bwd(
+        *(torch.tensor(x) for x in (q, k, v, o, lse, do)), causal, scale)
+    assert t_attention.bwd_dq_launches["plain"] == before[0]["plain"] + 1
+    assert t_attention.bwd_dkv_launches["plain"] == before[1]["plain"] + 1
+    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
+    _bwd_close(dq, _from_heads_first(jdq, b, s, h, h))
+    _bwd_close(dk, _from_heads_first(jdk, b, s, h, hkv))
+    _bwd_close(dv, _from_heads_first(jdv, b, s, h, hkv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [37, 1])
+def test_flash_bwd_plain_matches_jax_vjp_of_reference(causal, s):
+    """The plain backward, on the plain forward's own (o, lse), against
+    `jax.vjp` of the JAX dense reference (GQA 4/2, a ragged S, and S = 1
+    where each row sees one key)."""
+    rng = np.random.default_rng(11)
+    h, hkv = 4, 2
+    q, k, v, do = _bwd_case(rng, s, h, hkv)
+    b, d = q.shape[0], q.shape[-1]
+    scale = d ** -0.5
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    o, lse = t_attention._plain_fwd(tq, tk, tv, causal, scale, with_lse=True)
+    assert lse.shape == (b * h, s) and lse.dtype == torch.float32
+    dq, dk, dv = t_attention.flash_attention_bwd_reference(
+        tq, tk, tv, o, lse, tdo, causal, scale)
+    jq, jk, jv, jdo = (_heads_first(x, h) for x in (q, k, v, do))
+    _, vjp = jax.vjp(
+        lambda a, b_, c: j_attention._reference(a, b_, c, scale, causal),
+        jq, jk, jv)
+    jdq, jdk, jdv = vjp(jdo)
+    _bwd_close(dq, _from_heads_first(jdq, b, s, h, h))
+    _bwd_close(dk, _from_heads_first(jdk, b, s, h, hkv))
+    _bwd_close(dv, _from_heads_first(jdv, b, s, h, hkv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,h,hkv", [(32, 2, 2), (40, 4, 2)])
+def test_flash_attention_grad_matches_jax_interpret(causal, s, h, hkv):
+    """torch.autograd.grad through `flash_attention` (the autograd
+    Function: plain forward with lse, then the plain backward) against
+    jax.grad of the JAX `flash_attention` on its interpret-mode kernels."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = _bwd_case(rng, s, h, hkv)
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    before = [dict(c) for c in (t_attention.launches,
+                                t_attention.bwd_dq_launches,
+                                t_attention.bwd_dkv_launches)]
+    out = flash_attention(*ts, causal=causal)
+    got = torch.autograd.grad(out, ts, torch.tensor(do))
+    after = (t_attention.launches, t_attention.bwd_dq_launches,
+             t_attention.bwd_dkv_launches)
+    for b4, now in zip(before, after):
+        assert now == {"cuda": 0, "plain": b4["plain"] + 1}
+    _, vjp = jax.vjp(lambda a, b_, c: j_flash_attention(
+        a, b_, c, causal=causal, impl="interpret"),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        _bwd_close(g, w)
+
+
+def test_flash_attention_lse_only_when_grad_is_needed(monkeypatch):
+    """Like the JAX primal-only path, the forward computes the lse only
+    when some input needs a gradient and grad mode is on."""
+    asked = []
+    real = t_attention._reference
+
+    def spy(*a, **kw):
+        asked.append(kw.get("with_lse", a[5] if len(a) > 5 else False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(t_attention, "_reference", spy)
+    x = torch.randn(1, 8, 2, 32)
+    xg = x.clone().requires_grad_(True)
+    flash_attention(x, x, x)
+    with torch.no_grad():
+        flash_attention(xg, xg, xg)
+    flash_attention(xg, x, x).sum().backward()
+    assert asked == [False, False, True]
+    assert xg.grad is not None and xg.grad.shape == x.shape
