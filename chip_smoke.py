@@ -11,12 +11,13 @@ no result line):
               register, shared-memory and spill report;
  3. kernels — each kernel against its plain PyTorch version on the card
               (bf16 and fp32, stated tolerances; the backward kernels also
-              against autograd of the plain forward in fp32), then its
-              time (CUDA events, warmed, launches queued behind a device
-              sleep so the host's launch cost is not timed), the plain
-              version's time, the least time the card could take (bound)
-              and, where one PyTorch call computes the same function, that
-              call's time;
+              against autograd of the plain forward in fp32; the fused
+              verify-insert kernel also by the pool bytes it writes), then
+              its time (CUDA events, warmed, launches queued behind a
+              device sleep so the host's launch cost is not timed), the
+              plain version's time, the least time the card could take
+              (bound) and, where one PyTorch call computes the same
+              function, that call's time;
  4. serve   — the engine at full Llama-125M width (bf16, seeded random
               weights): 32 requests of 127 tokens plus 4 sharing a
               128-token prefix, 64 greedy tokens each; the paged-decode
@@ -25,10 +26,21 @@ no result line):
               clock of admission and of one decode window, and a
               torch.profiler trace: device busy time, idle share, device
               time by kernel);
- 5. exact   — the same width in fp32: the engine's greedy tokens must
+ 5. spec-serve — the same requests through the speculative engine
+              (`speculation="ngram"`, spec_k 4): every request must finish
+              with 64 tokens and the fused verify-insert kernel must have
+              run 12 times per verify step and its plain version never;
+              tokens/s beside the serve phase's, the acceptance rate, the
+              token agreement with the serve phase (bf16, printed only),
+              and a torch.profiler trace;
+ 6. exact   — the same width in fp32: the engine's greedy tokens must
               equal an argmax loop over the port's `forward`, which runs
               the flash-forward kernel;
- 6. train   — the train step (`make_train_step` + `loss_fn` + `adamw`)
+ 7. spec-exact — fp32 again: the speculative engine's greedy tokens must
+              equal the plain engine's and the argmax loop's, with drafts
+              accepted; then a 2-iteration speculative window with mixed
+              temperatures under CUDA sync debug mode "error";
+ 8. train   — the train step (`make_train_step` + `loss_fn` + `adamw`)
               at full Llama-125M width and depth in bf16 on a fixed
               16 x 1024 batch: 3 warm-up and 10 timed steps; the forward
               (with lse), dQ and dK/dV kernels must each run 12 times per
@@ -36,7 +48,7 @@ no result line):
               finite and the last below the first; step time, tokens/s,
               MFU, peak memory, the loss head's time, a torch.profiler
               trace of one step and the synchronizing calls of one step;
- 7. train-exact — the same width in fp32 at 2 x 256: loss and every
+ 9. train-exact — the same width in fp32 at 2 x 256: loss and every
               gradient leaf of the kernel path against the plain path
               (dense attention differentiated by autograd), and a 3-step
               AdamW trajectory of both, within stated tolerances.
@@ -235,6 +247,157 @@ def check_k1(torch, results):
         replaces="ray_tpu/ops/paged_attention.py:78", launches=None,
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
+
+
+def verify_case(torch, B, S, h, hkv, hd, page, P, lengths, dtype, seed,
+                layers=1, scratch_entries=True, zero_rows=()):
+    """q [B, S, h, hd], pools [layers, hkv, N, page, hd], the new tokens'
+    K/V [B, S, hkv, hd] and page tables covering every position a slot
+    reads or writes (< lengths + S - 1, capped at P pages)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    N = B * P + 1
+    shape = (layers, hkv, N, page, hd)
+    pk = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    pv = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    q = torch.randn(B, S, h, hd, generator=g, device="cuda").to(dtype)
+    kn = torch.randn(B, S, hkv, hd, generator=g, device="cuda").to(dtype)
+    vn = torch.randn(B, S, hkv, hd, generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(N - 1, generator=g, device="cuda") + 1
+    tables = perm.reshape(B, P).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    used = (lens + S - 1 + page - 1) // page
+    cols = torch.arange(P, device="cuda")[None]
+    tables = torch.where(cols < used[:, None], tables, 0)  # scratch
+    if scratch_entries:
+        tables[1::7, 0] = 0      # a few used entries point at scratch too
+    for b in zero_rows:
+        tables[b] = 0            # an inactive slot's row
+    return q, pk, pv, kn, vn, lens, tables.contiguous()
+
+
+def verify_work(lengths, S, page, P, h, hkv, hd, isz, insert):
+    """(bytes, flops) a verify call must move and do: each attended K/V
+    row read once per kv head (K5: rows below lengths-1 from the pool, the
+    S new rows from knew/vnew, and the new rows written where they fall
+    inside the P pages), q in, out written, lengths and tables; 4*hd
+    flops per (query head, position) pair."""
+    cap = P * page
+    row = hkv * hd * 2 * isz                     # one token's K and V
+    nbytes = 2 * len(lengths) * S * h * hd * isz + 4 * len(lengths) * (1 + P)
+    pairs = 0
+    for n in lengths:
+        pairs += sum(min(n + j, cap) for j in range(S))
+        if insert:
+            base = n - 1
+            nbytes += (min(max(base, 0), cap) + S) * row
+            nbytes += sum(0 <= base + j < cap for j in range(S)) * row
+        else:
+            nbytes += min(n + S - 1, cap) * row
+    return nbytes, 4 * hd * h * pairs
+
+
+def check_verify(torch, results):
+    """K1' (paged verify) and K5 (fused verify-insert) against their
+    plain versions at llama-125m (12/12), llama3-1b GQA (32/8) and a
+    head_dim 128 GQA (16/8) shape, S = 5, lengths at page edges and a
+    slot whose queries and writes run past the 8-page table. K5 works on
+    layer 1 of 2 with one all-zero table row (an inactive slot, which
+    writes scratch page 0: its attention reads scratch that other slots'
+    writes race with, so it is left out of the attention comparison); its
+    written pools must equal the plain insert's bit for bit on every page
+    but scratch. Then the times at the serving shape."""
+    from ray_tpu_torch.ops import paged_attention as PA
+    S = 5
+    errs = {"k1p": [], "k5": []}
+    rng_l = [1, 127, 128, 129, 1024, 255, 256, 257]
+    g = torch.Generator().manual_seed(1)
+    rng_l += torch.randint(1, 1025, (24,), generator=g).tolist()
+    for label, h, hkv, hd in (("llama-125m", 12, 12, 64),
+                              ("llama3-1b GQA", 32, 8, 64),
+                              ("hd 128 GQA", 16, 8, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q, pk, pv, _kn, _vn, lens, tables = verify_case(
+                torch, 32, S, h, hkv, hd, 128, 8, rng_l, dtype, seed=2)
+            got = PA.paged_verify_attention(q, pk[0], pv[0], lens, tables)
+            want = PA.paged_verify_attention_reference(q, pk[0], pv[0],
+                                                       lens, tables)
+            torch.cuda.synchronize()
+            e1 = (got.float() - want.float()).abs().max().item()
+            del q, pk, pv, got, want
+
+            q, pk, pv, kn, vn, lens, tables = verify_case(
+                torch, 32, S, h, hkv, hd, 128, 8, rng_l, dtype, seed=3,
+                layers=2, scratch_entries=False, zero_rows=(5,))
+            rk, rv = pk.clone(), pv.clone()
+            got, ok_k, ok_v = PA.paged_verify_insert_attention(
+                q, pk, pv, kn, vn, lens, tables, 1)
+            want, _, _ = PA.paged_verify_insert_reference(
+                q, rk, rv, kn, vn, lens, tables, 1)
+            torch.cuda.synchronize()
+            keep = torch.arange(32, device="cuda") != 5
+            e5 = (got[keep].float() - want[keep].float()).abs().max().item()
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            same = all(torch.equal(a[:, :, 1:].view(bits),
+                                   b[:, :, 1:].view(bits))
+                       for a, b in ((pk, rk), (pv, rv)))
+            aliased = ok_k is pk and ok_v is pv
+            ok = all(math.isfinite(x) and x <= TOL[dn] for x in (e1, e5))
+            log(f"  K1' paged_verify {label} hd {hd} {dn}: max_abs_err "
+                f"{e1:.3e}; K5 paged_verify_insert: max_abs_err {e5:.3e} "
+                f"(tol {TOL[dn]}), pool bytes on pages 1-{pk.shape[2] - 1} "
+                f"of both layers {'equal' if same else 'DIFFER'} to the "
+                f"plain insert's {'ok' if ok and same and aliased else 'FAIL'}")
+            if not (ok and same and aliased):
+                raise AssertionError(f"K1'/K5 {label} {dn} disagree: "
+                                     f"{e1} {e5} bytes equal {same}")
+            errs["k1p"].append(e1)
+            errs["k5"].append(e5)
+            del q, pk, pv, kn, vn, rk, rv, got, want
+
+    # timing at the spec serving path's shape: 32 slots x S = 5 at lengths
+    # 128-191, a 2-page table bucket, 12 layers' pools visited in turn
+    g = torch.Generator().manual_seed(3)
+    lens_l = torch.randint(128, 192, (32,), generator=g).tolist()
+    q, pk, pv, kn, vn, lens, tables = verify_case(
+        torch, 32, S, 12, 12, 64, 128, 2, lens_l, torch.bfloat16, seed=4,
+        layers=12, scratch_entries=False)
+
+    def unfused(i):      # the insert as a scatter, then K1'
+        PA.insert_tokens_reference(pk, pv, kn, vn, lens, tables, i % 12)
+        return PA.paged_verify_attention(q, pk[i % 12], pv[i % 12], lens,
+                                         tables)
+
+    k1p_ms = device_ms(torch, lambda i: PA.paged_verify_attention(
+        q, pk[i % 12], pv[i % 12], lens, tables), 240)
+    k1p_plain = device_ms(torch, lambda i: PA.paged_verify_attention_reference(
+        q, pk[i % 12], pv[i % 12], lens, tables), 24)
+    k5_ms = device_ms(torch, lambda i: PA.paged_verify_insert_attention(
+        q, pk, pv, kn, vn, lens, tables, i % 12), 240)
+    k5_plain = device_ms(torch, lambda i: PA.paged_verify_insert_reference(
+        q, pk, pv, kn, vn, lens, tables, i % 12), 24)
+    pair_ms = device_ms(torch, unfused, 120)
+    for name, src, line, ms, plain_ms, insert, key in (
+            ("paged_verify", "K1'", "ray_tpu/ops/paged_attention.py:504",
+             k1p_ms, k1p_plain, False, "k1p"),
+            ("paged_verify_insert", "K5",
+             "ray_tpu/ops/paged_attention.py:211", k5_ms, k5_plain, True,
+             "k5")):
+        nbytes, flops = verify_work(lens_l, S, 128, 2, 12, 12, 64, 2, insert)
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        log(f"  {src} {name} time at 32 x 5 x 12 x 64 bf16, lengths 128-191:"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="ray_tpu_torch/ops/csrc/paged_verify.cu", replaces=line,
+            launches=None, max_abs_err=max(errs[key]), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+    log(f"  unfused pair (index_put_ insert of the 5 rows, then K1'): "
+        f"{pair_ms:.4f} ms vs K5 {k5_ms:.4f} ms; no single PyTorch call "
+        f"computes either kernel's function")
 
 
 def check_k2(torch, results):
@@ -446,7 +609,9 @@ def check_k3_k4(torch, results):
 def reset_counts():
     from ray_tpu_torch.ops import attention, paged_attention
     for d in (attention.launches, attention.bwd_dq_launches,
-              attention.bwd_dkv_launches, paged_attention.launches):
+              attention.bwd_dkv_launches, paged_attention.launches,
+              paged_attention.verify_launches,
+              paged_attention.verify_insert_launches):
         for key in d:
             d[key] = 0
 
@@ -503,7 +668,8 @@ def serve_phase(torch, results, smi):
         raise AssertionError("the plain paged path ran on the card")
     results["paged_decode"]["launches"] = launches["cuda"]
     return dict(tokens_per_s=n_tok / wall, wall_s=wall, decode_steps=steps,
-                peak_bytes=peak), eng, prompts[:32]
+                peak_bytes=peak, tokens=gen, prompts=prompts), eng, \
+        prompts[:32]
 
 
 def profile_phase(torch, eng, prompts, smi):
@@ -579,6 +745,178 @@ def no_sync_check(torch, eng):
         raise AssertionError("no-sync window returned bad tokens/state")
     log("  decode window: 4 steps with top-k/top-p sampling and logprobs, "
         "no host synchronization (CUDA sync debug mode 'error')")
+
+
+def spec_serve_phase(torch, results, smi, params, serve):
+    """The serve phase's requests and weights through the speculative
+    engine: every request finishes, K5 runs 12 times per verify step (K1
+    12 times per step of any plain fallback window) and no plain version
+    runs; then a torch.profiler trace of the speculative serve path."""
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.ops import paged_attention as PA
+    cfg = configs.bench_125m()
+    ecfg = EngineConfig(max_slots=32, max_len=1024, prompt_buckets=(128,),
+                        eos_token=-1, speculation="ngram", spec_k=4)
+    eng = InferenceEngine(cfg, ecfg, params=params, seed=0, device="cuda")
+    prompts = serve["prompts"]
+    eng.generate(prompts[:2], max_new_tokens=4)    # warm library handles
+    torch.cuda.synchronize()
+    st0 = eng.kv_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=64, temperature=0.0)
+            for p in prompts]
+    while eng.has_work():
+        eng.step_window()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k1p, k5 = (dict(PA.launches), dict(PA.verify_launches),
+                   dict(PA.verify_insert_launches))
+    st = eng.kv_stats()
+    vsteps = st["verify_steps"] - st0["verify_steps"]
+    dsteps = st["decode_steps"] - st0["decode_steps"]
+    drafted = st["spec_drafted"] - st0["spec_drafted"]
+    accepted = st["spec_accepted"] - st0["spec_accepted"]
+    gen = [eng.finished[r].generated for r in rids]
+    n_tok = sum(len(x) for x in gen)
+    same_req = sum(a == b for a, b in zip(gen, serve["tokens"]))
+    same_tok = sum(x == y for a, b in zip(gen, serve["tokens"])
+                   for x, y in zip(a, b))
+    log(f"  served {len(rids)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tokens/s (plain serve phase "
+        f"{serve['tokens_per_s']:.1f}); {vsteps} verify steps, {dsteps} "
+        f"plain decode steps; acceptance {accepted}/{drafted} = "
+        f"{accepted / max(drafted, 1):.3f}; K5 launches {k5['cuda']}, plain "
+        f"{k5['plain']}; K1 {k1}; K1' {k1p} [{smi}]")
+    log(f"  bf16 agreement with the plain serve phase: {same_req}/"
+        f"{len(gen)} requests identical, {same_tok}/{n_tok} tokens equal "
+        f"position by position (printed, not held: bf16 products over "
+        f"[B*5, d] and [B, d] may round differently)")
+    if any(len(x) != 64 for x in gen):
+        raise AssertionError("a speculative request did not finish with 64 "
+                             "tokens")
+    if any(not 0 <= t < cfg.vocab for x in gen for t in x):
+        raise AssertionError("token out of vocabulary range")
+    if vsteps == 0 or k5["cuda"] != cfg.n_layers * vsteps:
+        raise AssertionError(f"K5 launches {k5['cuda']} != {cfg.n_layers} x "
+                             f"{vsteps} verify steps")
+    if k1["cuda"] != cfg.n_layers * dsteps:
+        raise AssertionError(f"K1 launches {k1['cuda']} != {cfg.n_layers} x "
+                             f"{dsteps} decode steps")
+    if k5["plain"] or k1["plain"] or k1p["plain"]:
+        raise AssertionError("a plain paged path ran on the card")
+    results["paged_verify_insert"]["launches"] = k5["cuda"]
+    results["paged_verify"]["launches"] = k1p["cuda"]
+
+    for p in prompts[:32]:
+        eng.add_request(p, max_new_tokens=17, temperature=0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while eng.has_work():
+            eng.step_window()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace = trace_summary(torch, prof, wall_us, "speculative 32 x 17 tokens",
+                          smi, groups=(
+                              ("K5 verify-insert", ("paged_verify_insert",)),
+                              ("K1 decode", ("paged_decode",)),
+                              ("fp32 products (logits heads)",
+                               ("sgemm", "f32f32")),
+                              ("bf16 products", ("gemm", "nvjet"))))
+    return dict(tokens_per_s=n_tok / wall, wall_s=wall, verify_steps=vsteps,
+                acceptance=accepted / max(drafted, 1), **trace)
+
+
+def spec_exact_phase(torch):
+    """fp32 llama-125m: the speculative engine's greedy tokens equal the
+    plain engine's and an argmax loop over `forward`, with drafts
+    accepted; then the speculative window stays free of host syncs."""
+    import numpy as np
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import configs, forward, init_params
+    from ray_tpu_torch.ops import paged_attention as PA
+    cfg = dataclasses.replace(configs.bench_125m(), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cuda")
+    rng = np.random.default_rng(2)
+    pattern = rng.integers(1, cfg.vocab, 6).tolist()
+    prompts = [rng.integers(1, cfg.vocab, 20).tolist(),
+               rng.integers(1, cfg.vocab, 57).tolist(),
+               pattern * 8, pattern[:3] * 10]    # two repeating prompts
+    n_new = 24
+    ecfg = dict(max_slots=4, max_len=256, prompt_buckets=(128,),
+                eos_token=-1)
+    plain = InferenceEngine(cfg, EngineConfig(**ecfg), params=params,
+                            device="cuda").generate(prompts, n_new, 0.0)
+    eng = InferenceEngine(cfg, EngineConfig(**ecfg, speculation="ngram",
+                                            spec_k=4),
+                          params=params, device="cuda")
+    reset_counts()
+    got = eng.generate(prompts, n_new, 0.0)
+    k5 = dict(PA.verify_insert_launches)
+    st = eng.kv_stats()
+    want = []
+    with torch.no_grad():
+        for p in prompts:
+            seq = list(p)
+            for _ in range(n_new):
+                logits = forward(params, torch.tensor([seq], device="cuda"),
+                                 cfg)
+                seq.append(int(logits[0, -1].argmax()))
+            want.append(seq[len(p):])
+    log(f"  fp32 greedy, {len(prompts)} prompts x {n_new} tokens: spec == "
+        f"plain {got == plain}, spec == forward argmax {got == want}; "
+        f"accepted {st['spec_accepted']}/{st['spec_drafted']} drafts over "
+        f"{st['verify_steps']} verify steps; K5 launches {k5}")
+    if got != plain or got != want:
+        raise AssertionError(f"spec {got} != plain {plain} / forward {want}")
+    if st["spec_accepted"] == 0:
+        raise AssertionError("no draft was accepted")
+    if k5 != {"cuda": cfg.n_layers * st["verify_steps"], "plain": 0}:
+        raise AssertionError(f"K5 launches {k5} for {st['verify_steps']} "
+                             f"verify steps")
+    spec_no_sync_check(torch, eng)
+
+
+def spec_no_sync_check(torch, eng):
+    """A speculative window never waits for the device: a 2-iteration
+    `decode_window_spec` over greedy and temperature-0.7 rows under CUDA
+    sync debug mode "error". (Writes pages 1-4 of the engine's pool.)"""
+    from ray_tpu_torch.llm.engine import decode_weights, decode_window_spec
+    dev, B, K = eng.device, eng.e.max_slots, eng.e.spec_k
+    g = torch.Generator(device=dev).manual_seed(0)
+    hist = torch.randint(1, 50, (B, eng.e.max_len), generator=g, device=dev,
+                         dtype=torch.int32)      # a small vocabulary: matches
+    lens = torch.full((B,), 10, dtype=torch.int32, device=dev)
+    args = dict(tokens=hist[:, 10].contiguous(), lengths=lens,
+                active=torch.ones(B, dtype=torch.bool, device=dev),
+                hist=hist,
+                page_tables=torch.arange(1, B + 1, dtype=torch.int32,
+                                         device=dev)[:, None],
+                temps=torch.tensor([0.0, 0.7] * (B // 2), device=dev))
+    fused = decode_weights(eng.params, eng.c)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _t, lens2, _a, _h, out = decode_window_spec(
+            eng.params, eng.cache_k, eng.cache_v, generator=g, config=eng.c,
+            eos_token=-1, n_steps=2, spec_k=K, fused=fused, **args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out, lens2 = out.cpu(), lens2.cpu()
+    emitted = (out >= 0).sum(dim=(0, 2))
+    prefix = ((out >= 0).int().diff(dim=2) <= 0).all()   # no gaps
+    if (out.shape != (2, B, K + 1) or not (out < eng.c.vocab).all()
+            or not prefix or not ((out >= 0).sum(2) >= 1).all()
+            or not torch.equal(lens2 - 10, emitted.int())):
+        raise AssertionError(f"speculative no-sync window returned bad "
+                             f"tokens/state: {out} {lens2}")
+    log(f"  speculative window: 2 iterations, temperatures 0 and 0.7, "
+        f"{emitted.tolist()} tokens per slot, no host synchronization "
+        f"(CUDA sync debug mode 'error')")
 
 
 def exact_phase(torch, results):
@@ -827,13 +1165,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/7] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/9] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/7] build: {len(build_logs)} kernels in "
+    log(f"[2/9] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -852,14 +1190,15 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/7] kernels against their plain versions")
+    log("[3/9] kernels against their plain versions")
     check_k1(torch, results)
+    check_verify(torch, results)
     check_k2(torch, results)
     check_k3_k4(torch, results)
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/7] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/9] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -870,15 +1209,29 @@ def main() -> int:
     profile_phase(torch, eng, prompts, smi)
     no_sync_check(torch, eng)
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[5/9] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+        "speculation, spec_k 4")
+    spec = spec_serve_phase(torch, results, smi, eng.params, serve)
+    log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
+        f"{spec['tokens_per_s']:.1f} tokens/s vs plain "
+        f"{serve['tokens_per_s']:.1f}, acceptance {spec['acceptance']:.3f}")
     del eng
 
     t0 = time.perf_counter()
-    log("[5/7] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/9] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[6/7] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log("[7/9] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+        "forward")
+    spec_exact_phase(torch)
+    log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log(f"[8/9] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -887,7 +1240,7 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[7/7] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/9] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s; total "
@@ -895,8 +1248,9 @@ def main() -> int:
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [
-        results[k] for k in ("paged_decode", "flash_fwd", "flash_bwd_dq",
-                             "flash_bwd_dkv")]}), flush=True)
+        results[k] for k in ("paged_decode", "paged_verify",
+                             "paged_verify_insert", "flash_fwd",
+                             "flash_bwd_dq", "flash_bwd_dkv")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

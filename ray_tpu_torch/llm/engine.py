@@ -18,13 +18,18 @@ tokens back once per window. What changes is the execution model:
   (`ops/paged_attention.py`); prefill attention stays the plain dense
   masked softmax of the JAX code (matrix products left to the library, as
   the JAX package leaves them to XLA).
+- Speculative decoding (`speculation="ngram"`) runs the same way: a
+  speculative window is a Python loop of draft, verify and accept
+  iterations (`decode_window_spec`) whose history, tokens, lengths and
+  generator stay on the device, with one readback per window; the verify
+  forward's attention is the fused verify-insert CUDA kernel.
 
 Pool layout: [L, hkv, num_pages, page, hd] (each token's head row
 contiguous; see `ops/csrc/paged_decode.cu`).
 
 Not in this slice (each raises NotImplementedError when asked for): the
-dense `kv_layout`, speculative decoding, guided decoding, KV handoff
-(`import_kv`, `PrefillEngine`, resume tokens) and tensor-parallel meshes.
+dense `kv_layout`, guided decoding, KV handoff (`import_kv`,
+`PrefillEngine`, resume tokens) and tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from ray_tpu_torch.models.transformer import (ModelConfig, _mlp, _moe,
                                               init_params, layer_params,
                                               lm_head)
 from ray_tpu_torch.ops.layers import apply_rope, rmsnorm, rope
-from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+from ray_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_verify_insert_attention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +65,8 @@ class EngineConfig:
     num_pages: int | None = None   # pool size; None = slots*ceil(max_len/
     #                                page)+1
     prefix_cache: bool = True      # reuse full prompt pages across requests
-    speculation: str | None = None  # None only in this port
-    spec_k: int = 4
+    speculation: str | None = None  # None | "ngram"
+    spec_k: int = 4                 # drafts verified per model pass
 
 
 @dataclasses.dataclass
@@ -236,6 +242,38 @@ def decode_weights(params, config: ModelConfig) -> dict:
     return out
 
 
+def _fused_qkv(x, fused, li, c: ModelConfig):
+    """q [B, S, h, hd] and k, v [B, S, hkv, hd] of normed activations x
+    [B, S, d] through layer li's fused QKV product."""
+    B, S, _ = x.shape
+    h_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    qkv = torch.einsum("bsd,dq->bsq", x, fused["wqkv"][li])
+    q = qkv[..., :h_dim].reshape(B, S, c.n_heads, c.head_dim)
+    k = qkv[..., h_dim:h_dim + kv_dim].reshape(B, S, c.n_kv_heads, c.head_dim)
+    v = qkv[..., h_dim + kv_dim:].reshape(B, S, c.n_kv_heads, c.head_dim)
+    return q, k, v
+
+
+def _fused_mlp_block(h, lp, fused, li, c: ModelConfig):
+    """h + MLP(rmsnorm(h)) with layer li's fused gate+up product (MoE
+    layers take the unfused block)."""
+    if c.moe_experts:
+        return _mlp_block(h, lp, c)
+    normed = rmsnorm(h, lp["mlp_norm"], c.norm_eps)
+    gu = torch.einsum("bsd,df->bsf", normed, fused["wgu"][li])
+    f = gu.shape[-1] // 2
+    act = F.silu(gu[..., :f]) * gu[..., f:]
+    return h + torch.einsum("bsf,fd->bsd", act, lp["wd"])
+
+
+def _mask_inactive(logits, active):
+    """Inactive slots' logits rows -> all mass on token 0."""
+    neg = torch.full_like(logits, -1e30)
+    neg[..., 0] = 0.0
+    return torch.where(active.view(-1, *[1] * (logits.dim() - 1)), logits,
+                       neg)
+
+
 def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
                  page_tables, config: ModelConfig, fused=None):
     """One token for every slot against the paged pool, updating the pools
@@ -260,15 +298,10 @@ def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
     w_off = (lengths % page).long()
     attend = (lengths + 1).to(torch.int32)   # inclusive of the new token
 
-    h_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
     for li in range(c.n_layers):
         lp = layer_params(params, li)
-        normed = rmsnorm(x, lp["attn_norm"], c.norm_eps)
-        qkv = torch.einsum("bsd,dq->bsq", normed, fused["wqkv"][li])
-        q = qkv[..., :h_dim].reshape(B, 1, c.n_heads, c.head_dim)
-        k = qkv[..., h_dim:h_dim + kv_dim].reshape(
-            B, 1, c.n_kv_heads, c.head_dim)
-        v = qkv[..., h_dim + kv_dim:].reshape(B, 1, c.n_kv_heads, c.head_dim)
+        q, k, v = _fused_qkv(rmsnorm(x, lp["attn_norm"], c.norm_eps), fused,
+                             li, c)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
         pk, pv = pool_k[li], pool_v[li]      # views: writes land in the pool
@@ -276,22 +309,13 @@ def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
         pv[:, w_page, w_off] = v[:, 0].transpose(0, 1).to(pv.dtype)
         attn = paged_decode_attention(q[:, 0].contiguous(), pk, pv, attend,
                                       page_tables)
-        attn = attn.reshape(B, 1, h_dim).to(x.dtype)
+        attn = attn.reshape(B, 1, c.n_heads * c.head_dim).to(x.dtype)
         h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
-        if c.moe_experts:
-            x = _mlp_block(h, lp, c)
-        else:
-            normed2 = rmsnorm(h, lp["mlp_norm"], c.norm_eps)
-            gu = torch.einsum("bsd,df->bsf", normed2, fused["wgu"][li])
-            f = gu.shape[-1] // 2
-            act = F.silu(gu[..., :f]) * gu[..., f:]
-            x = h + torch.einsum("bsf,fd->bsd", act, lp["wd"])
+        x = _fused_mlp_block(h, lp, fused, li, c)
 
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    logits = torch.matmul(x[:, 0].float(), fused["head"])
-    neg = torch.full_like(logits, -1e30)
-    neg[:, 0] = 0.0
-    return torch.where(active[:, None], logits, neg)
+    return _mask_inactive(torch.matmul(x[:, 0].float(), fused["head"]),
+                          active)
 
 
 def decode_window(params, pool_k, pool_v, tokens, lengths, active,
@@ -325,6 +349,160 @@ def decode_window(params, pool_k, pool_v, tokens, lengths, active,
         toks = nxt
     return (toks, lens, act, torch.stack(outs),
             torch.stack(logps) if want_logp else None)
+
+
+def verify_paged(params, pool_k, pool_v, tokens, lengths, active,
+                 page_tables, config: ModelConfig, fused=None):
+    """Speculative-verify forward: S tokens per slot (the pending token +
+    S-1 drafts) at positions lengths ... lengths+S-1, in one model pass.
+    Writes all S tokens' KV into the pools in place (rejected positions
+    hold garbage the position masks hide until real tokens overwrite
+    them) through the fused verify-insert kernel, and returns logits
+    [B, S, vocab] fp32: logits[:, j] predicts the token after input j.
+    Same structure as decode_paged (fused QKV and gate+up, fp32 head)."""
+    c = config
+    if fused is None:
+        fused = decode_weights(params, c)
+    B, S = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens.long()]                      # [B, S, d]
+    positions = lengths[:, None] + torch.arange(S, device=dev)[None]
+    sin, cos = rope(positions, c.head_dim, c.rope_theta)
+    attend = (lengths + 1).to(torch.int32)   # query 0's causal limit
+
+    for li in range(c.n_layers):
+        lp = layer_params(params, li)
+        q, k, v = _fused_qkv(rmsnorm(x, lp["attn_norm"], c.norm_eps), fused,
+                             li, c)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+        attn, _, _ = paged_verify_insert_attention(
+            q.contiguous(), pool_k, pool_v,
+            k.to(pool_k.dtype).contiguous(), v.to(pool_v.dtype).contiguous(),
+            attend, page_tables, li)
+        attn = attn.reshape(B, S, c.n_heads * c.head_dim).to(x.dtype)
+        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        x = _fused_mlp_block(h, lp, fused, li, c)
+
+    x = rmsnorm(x, params["final_norm"], c.norm_eps)
+    return _mask_inactive(torch.matmul(x.float(), fused["head"]), active)
+
+
+def ngram_draft(hist, lengths, last_tokens, k: int):
+    """Propose k draft tokens per slot by matching the trailing 2-gram
+    (hist[len-1], pending) against earlier history and copying what
+    followed the most recent match (the vLLM ngram-speculator policy), on
+    the device with no host sync. hist [B, H] holds all known tokens:
+    positions < len are fed, hist[len] is the pending token. No match ->
+    repeat the pending token."""
+    B, H = hist.shape
+    dev = hist.device
+    c0 = hist.gather(1, (lengths - 1).clamp_min(0)[:, None].long())[:, 0]
+    c1 = last_tokens
+    idx = torch.arange(H - 1, device=dev)
+    m = ((hist[:, :-1] == c0[:, None]) & (hist[:, 1:] == c1[:, None])
+         & (idx[None] < (lengths - 1)[:, None]))
+    p = torch.where(m, idx[None], -1).amax(dim=1)           # [B]
+    found = p >= 0
+    start = torch.where(found, p + 2, 0)
+    gat = (start[:, None] + torch.arange(k, device=dev)[None]).clamp(0, H - 1)
+    drafts = hist.gather(1, gat)
+    return torch.where(found[:, None], drafts, c1[:, None])
+
+
+def spec_accept_sample(logits, tin, temps, generator):
+    """Accept/resample step of delta-proposal speculative sampling
+    (Leviathan et al.: a deterministic draft d is accepted with
+    probability p(d); on reject the residual, p with d's mass removed and
+    renormalized, is sampled, so every emitted token is an exact draw from
+    the target distribution). Rows with temperature 0 reduce to accepting
+    iff the draft is the argmax and emitting argmaxes.
+
+    logits [B, K+1, V] (position j predicts the token after input j), tin
+    [B, K+1] (pending token + K drafts), temps [B]. Uniforms come from
+    `generator`; the categorical draw is Gumbel-max. No host sync.
+    Returns (acc [B] accepted-draft count, final [B] the resampled/bonus
+    token at position acc, g_argmax [B, K+1])."""
+    B, K1, V = logits.shape
+    K = K1 - 1
+    dev = logits.device
+    greedy = (temps <= 0.0)[:, None]                        # [B, 1]
+    scaled = logits / torch.clamp_min(temps, 1e-6)[:, None, None]
+    probs = torch.softmax(scaled, dim=-1)                   # [B, K+1, V]
+    g = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, K+1]
+    drafts = tin[:, 1:]                                     # [B, K]
+    p_d = probs[:, :K].gather(-1, drafts[..., None].long())[..., 0]
+    u = torch.rand((B, K), generator=generator, device=dev)
+    ok = torch.where(greedy, g[:, :K] == drafts, u < p_d)
+    acc = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+    # Token at position acc: greedy -> argmax; sampled -> the residual
+    # (reject, acc < K) or the plain target (bonus, acc == K).
+    probs_r = probs.gather(
+        1, acc[:, None, None].long().expand(B, 1, V))[:, 0]  # [B, V]
+    d_r = tin.gather(1, (acc + 1).clamp_max(K)[:, None].long())[:, 0]
+    excl = torch.arange(V, device=dev)[None] == d_r[:, None]
+    resid = torch.where((acc < K)[:, None] & excl, 0.0, probs_r)
+    resid = resid / resid.sum(-1, keepdim=True).clamp_min(1e-30)
+    uc = torch.rand((B, V), generator=generator, device=dev)
+    gumbel = -torch.log(-torch.log(uc.clamp_min(torch.finfo(uc.dtype).tiny)))
+    sampled = torch.argmax(torch.log(resid + 1e-30) + gumbel, dim=-1)
+    bonus_g = g.gather(1, acc[:, None].long())[:, 0]
+    final = torch.where(greedy[:, 0], bonus_g, sampled.to(torch.int32))
+    return acc.to(torch.int32), final, g
+
+
+def decode_window_spec(params, pool_k, pool_v, tokens, lengths, active,
+                       hist, page_tables, temps, generator,
+                       config: ModelConfig, eos_token: int, n_steps: int,
+                       spec_k: int, fused=None):
+    """Speculative decode window: each of `n_steps` iterations drafts
+    spec_k tokens per slot by n-gram lookup (`ngram_draft`), verifies them
+    in one multi-token forward (`verify_paged`) and emits the accepted
+    prefix + 1 final token (`spec_accept_sample`): 1 to spec_k+1 tokens
+    per model pass. Greedy rows give exactly plain greedy decoding's
+    tokens; sampled rows are exact draws from the target distribution.
+    Tokens, lengths, `active`, `hist` and the generator stay on the
+    device: nothing here waits for it. Returns (tokens, lengths, active,
+    hist, out [n_steps, B, spec_k+1]) with -1 where nothing was emitted."""
+    K = spec_k
+    B, H = hist.shape
+    dev = tokens.device
+    jj = torch.arange(K + 1, device=dev)[None]              # [1, K+1]
+    pad = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    outs = []
+    toks, lens, act, hst = tokens, lengths, active, hist
+    for _ in range(n_steps):
+        drafts = ngram_draft(hst, lens, toks, K)            # [B, K]
+        tin = torch.cat([toks[:, None], drafts], dim=1)
+        logits = verify_paged(params, pool_k, pool_v, tin, lens, act,
+                              page_tables, config, fused)
+        acc, bonus, _g = spec_accept_sample(logits, tin, temps, generator)
+        drafts_p = torch.cat([drafts, pad], dim=1)
+        e = torch.where(jj == acc[:, None], bonus[:, None],
+                        torch.where(jj < acc[:, None], drafts_p, -1))
+        if eos_token >= 0:
+            is_eos = (e == eos_token).to(torch.int32)
+            # drop everything after the first emitted EOS
+            after = (torch.cumsum(is_eos, dim=1) - is_eos) > 0
+            e = torch.where(after, -1, e)
+            stop = (e == eos_token).any(dim=1)
+        else:
+            stop = torch.zeros_like(act)
+        e = torch.where(act[:, None], e, -1)
+        stop = stop & act
+        # history update: emitted tokens live at positions lens+1+j
+        s0 = torch.clamp(lens + 1, 0, H - (K + 1))
+        offset = lens + 1 - s0                              # >= 0
+        src_j = (jj - offset[:, None]).clamp(0, K)
+        val = e.gather(1, src_j.long())
+        pos = (s0[:, None] + jj).clamp(0, H - 1).long()
+        write = (jj >= offset[:, None]) & (val >= 0) & act[:, None]
+        hst = hst.scatter(1, pos, torch.where(write, val, hst.gather(1, pos)))
+        toks = torch.where(act, bonus, toks)
+        lens = torch.where(act, lens + acc + 1, lens)
+        act = act & ~stop
+        outs.append(e)
+    return toks, lens, act, hst, torch.stack(outs)
 
 
 def sample(logits, temperature, generator, top_p=None, top_k=None):
@@ -394,8 +572,6 @@ class InferenceEngine:
             raise _not_in_slice("a tensor-parallel mesh")
         if e.kv_layout != "paged":
             raise _not_in_slice(f"kv_layout={e.kv_layout!r}")
-        if e.speculation is not None:
-            raise _not_in_slice(f"speculation={e.speculation!r}")
         self.device = resolve_device(device)
         self.c = c = model_config
         self.e = e
@@ -431,6 +607,7 @@ class InferenceEngine:
         self.prefix_hits = 0
         self.preemptions = 0
         self.decode_steps = 0              # decode_paged calls run
+        self.verify_steps = 0              # verify_paged calls run
         # page-table buckets: powers of two up to the per-slot page bound
         pb, b = [], 1
         while b < self.pages_per_slot:
@@ -452,6 +629,21 @@ class InferenceEngine:
         self.lengths = np.zeros(B, np.int32)
         self.active = np.zeros(B, bool)
         self.last_tokens = np.zeros(B, np.int32)
+
+        # Speculative decoding state. The host history mirror is written
+        # whatever the setting; its device twin lives only between
+        # speculative windows.
+        self._spec = e.speculation == "ngram"
+        if self._spec and e.spec_k + 1 > e.page_size:
+            # a verify step's writes span at most 2 pages per slot
+            raise ValueError(
+                f"spec_k+1 ({e.spec_k + 1}) must not exceed "
+                f"page_size ({e.page_size})")
+        self.hist = np.zeros((B, e.max_len), np.int32)
+        self._dev_hist = None
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self._spec_alpha = 0.0  # acceptance-rate EMA (window sizing)
         self.slot_req: list[Request | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
         self.finished: dict[int, Request] = {}
@@ -778,10 +970,12 @@ class InferenceEngine:
             self.slot_req[slot] = req
             self.lengths[slot] = n
             self.active[slot] = True
+            self.hist[slot, :n] = req.prompt
             if req.resume_token is not None:
                 first = req.resume_token  # already in req.generated
                 req.resume_token = None
                 self.last_tokens[slot] = first
+                self.hist[slot, n] = first
                 self._maybe_finish(slot, first)
             else:
                 # Defer the first-token sampling: one batched readback
@@ -814,6 +1008,7 @@ class InferenceEngine:
                 req.generated.append(first)
                 admitted[req.request_id] = first
                 self.last_tokens[slot] = first
+                self.hist[slot, self.lengths[slot]] = first
                 self._maybe_finish(slot, first)
         return admitted
 
@@ -828,6 +1023,9 @@ class InferenceEngine:
             "prefix_hits": self.prefix_hits,
             "preemptions": self.preemptions,
             "decode_steps": self.decode_steps,
+            "verify_steps": self.verify_steps,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
         }
 
     def _maybe_finish(self, slot: int, token: int):
@@ -889,6 +1087,8 @@ class InferenceEngine:
             emitted[req.request_id] = tok
             self.lengths[i] += 1
             self.last_tokens[i] = tok
+            if self.lengths[i] < self.e.max_len:
+                self.hist[i, self.lengths[i]] = tok
             self._maybe_finish(i, tok)
         self._dev_dirty = True  # single-step path mutates host-side state
         return emitted
@@ -965,6 +1165,8 @@ class InferenceEngine:
             self._dev = (self._upload(self.last_tokens),
                          self._upload(self.lengths),
                          self._upload(self.active))
+            if self._spec:
+                self._dev_hist = self._upload(self.hist)
             self._dev_dirty = False
 
     def _sync_sampling(self) -> bool:
@@ -1041,18 +1243,127 @@ class InferenceEngine:
                 emitted[req.request_id] = tok
                 self.lengths[i] += 1
                 self.last_tokens[i] = tok
+                if self.lengths[i] < e.max_len:
+                    self.hist[i, self.lengths[i]] = tok
                 self._maybe_finish(i, tok)
                 if not self.active[i] and tok != e.eos_token:
                     # Finished by max_new/max_len: the device still thinks
                     # this slot is live — resync before the next window.
                     self._dev_dirty = True
+        # The plain window did not advance the device history: upload it
+        # afresh before the next speculative window.
+        self._dev_hist = None
+        return emitted
+
+    def _spec_applicable(self) -> bool:
+        """Speculation serves greedy and plain-temperature slots (delta-
+        proposal rejection sampling keeps sampled outputs exact); top-k /
+        top-p truncation and logprobs route the window to the plain
+        path."""
+        if not self._spec:
+            return False
+        for i in range(self.e.max_slots):
+            r = self.slot_req[i]
+            if not self.active[i] or r is None:
+                continue
+            if r.top_k != 0 or r.top_p < 1.0 or r.logprobs:
+                return False
+        return True
+
+    def _run_window_spec(self) -> dict[int, int] | None:
+        """Speculative window: `iters` draft+verify iterations, each
+        emitting 1..spec_k+1 tokens per slot, with one host readback.
+        Returns None to fall back to the plain window (a pool-starved slot
+        needs its token-granular room binding)."""
+        e = self.e
+        page = e.page_size
+        K = e.spec_k
+        rems = [self.slot_req[i].max_new_tokens
+                - len(self.slot_req[i].generated)
+                for i in range(e.max_slots)
+                if self.active[i] and self.slot_req[i] is not None]
+        # Size the window by the expected tokens per iteration (acceptance
+        # EMA), not the optimistic K+1: at low acceptance a short window
+        # would finish a fraction of the work and pay the readback again.
+        expected = 1.0 + self._spec_alpha * K
+        iters = max(1, -(-int(max(rems, default=1)) // max(int(expected),
+                                                           1)))
+        if self.queue:
+            iters = min(iters, 2)  # keep admission interleaving
+        iters = min(next((b for b in self._win_buckets if b >= iters),
+                         self._win_buckets[-1]), self._win_buckets[-1])
+        if not self._grow_pages(iters * (K + 1)):
+            return {}
+        for i in range(e.max_slots):
+            if not self.active[i]:
+                continue
+            room = len(self.slot_pages[i]) * page - int(self.lengths[i])
+            rem = (self.slot_req[i].max_new_tokens
+                   - len(self.slot_req[i].generated))
+            if room < min(K + 1, rem):
+                return None  # pool-starved: plain window binds per-token
+        self._sync_device_state()
+        if self._dev_hist is None:
+            self._dev_hist = self._upload(self.hist)
+        tables = self._upload(self._build_tables())
+        self._sync_sampling()
+        temps_d = self._dev_sampling[0]
+        toks_d, lens_d, act_d = self._dev
+        toks_d, lens_d, act_d, self._dev_hist, out_d = decode_window_spec(
+            self.params, self.cache_k, self.cache_v, toks_d, lens_d, act_d,
+            self._dev_hist, tables, temps_d, self._gen, self.c,
+            eos_token=int(e.eos_token), n_steps=iters, spec_k=K,
+            fused=self._fused)
+        self.verify_steps += iters
+        self._dev = (toks_d, lens_d, act_d)
+        out = out_d.cpu().numpy()  # [iters, B, K+1]; one readback
+        w_draft = w_acc = 0
+        emitted: dict[int, int] = {}
+        for it in range(out.shape[0]):
+            for i in range(e.max_slots):
+                if not self.active[i]:
+                    continue
+                row = out[it, i]
+                n_emit = int((row >= 0).sum())
+                if n_emit == 0:
+                    continue
+                self.spec_drafted += K
+                self.spec_accepted += n_emit - 1
+                w_draft += K
+                w_acc += n_emit - 1
+                for j in range(K + 1):
+                    tok = int(row[j])
+                    if tok < 0:
+                        continue
+                    if not self.active[i]:
+                        self._dev_dirty = True  # overshoot past host finish
+                        break
+                    req = self.slot_req[i]
+                    req.generated.append(tok)
+                    emitted[req.request_id] = tok
+                    self.lengths[i] += 1
+                    self.last_tokens[i] = tok
+                    if self.lengths[i] < e.max_len:
+                        self.hist[i, self.lengths[i]] = tok
+                    self._maybe_finish(i, tok)
+                    if not self.active[i] and tok != e.eos_token:
+                        self._dev_dirty = True
+        if w_draft:
+            self._spec_alpha = (0.5 * self._spec_alpha
+                                + 0.5 * (w_acc / w_draft))
         return emitted
 
     def step_window(self) -> dict[int, int]:
-        """Admit queued prompts, then decode a whole window."""
+        """Admit queued prompts, then decode a whole window: speculative
+        when the engine speculates and every active request allows it,
+        else plain."""
         emitted = self._admit()
         if self.active.any():
-            emitted.update(self._run_window())
+            upd = (self._run_window_spec() if self._spec_applicable()
+                   else None)
+            if upd is None:
+                upd = self._run_window()
+            emitted.update(upd)
         return emitted
 
     # ---- conveniences ----

@@ -25,7 +25,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
-SOURCES = ("paged_decode", "flash_fwd", "flash_bwd")
+SOURCES = ("paged_decode", "paged_verify", "flash_fwd", "flash_bwd")
 # The `dtype` argument of every C entry point.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -289,9 +289,9 @@ def test_decode_step_writes_kv_and_matches_prefill(params):
 
 def test_not_in_slice_raises(params):
     _, pt = params
-    for kw in ({"kv_layout": "dense"}, {"speculation": "ngram"}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,), **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,),
+                kv_layout="dense")
     eng = _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,))
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], guide=object())

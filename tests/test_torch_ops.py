@@ -274,7 +274,8 @@ def test_kernel_build_is_keyed_and_fails_loudly(monkeypatch, tmp_path):
     assert so.parent == _build._BUILD_DIR and so.suffix == ".so"
     assert so.stem.startswith("paged_decode-") and log.suffix == ".log"
     assert _build._paths("flash_fwd")[0] != so
-    assert set(_build.SOURCES) == {"paged_decode", "flash_fwd", "flash_bwd"}
+    assert set(_build.SOURCES) == {"paged_decode", "paged_verify",
+                                   "flash_fwd", "flash_bwd"}
     monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "b")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
