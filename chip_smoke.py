@@ -8,7 +8,10 @@ no result line):
  1. device  — name, power limit, torch and CUDA versions;
  2. build   — every hand-written kernel source from the checkout (one
               nvcc per source, all started together), with ptxas's
-              register, shared-memory and spill report;
+              register, shared-memory and spill report, and (where the
+              toolkit has cuobjdump) each flash kernel's count of
+              tensor-core instructions in its SASS: the bf16 K2 and K4
+              bodies must have wgmma (HGMMA) in every instantiation;
  3. kernels — each kernel against its plain PyTorch version on the card
               (bf16 and fp32, stated tolerances; the backward kernels also
               against autograd of the plain forward in fp32; the fused
@@ -16,8 +19,10 @@ no result line):
               its time (CUDA events, warmed, launches queued behind a
               device sleep so the host's launch cost is not timed), the
               plain version's time, the least time the card could take
-              (bound) and, where one PyTorch call computes the same
-              function, that call's time;
+              (bound), the achieved TFLOP/s and share of the bound and,
+              where one PyTorch call computes the same function, that
+              call's time; K2 and K3/K4 also at S = 1, 63, 65, 129 and
+              1000 (the edges of their 64-row tiles) in bf16;
  4. serve   — the engine at full Llama-125M width (bf16, seeded random
               weights): 32 requests of 127 tokens plus 4 sharing a
               128-token prefix, 64 greedy tokens each; the paged-decode
@@ -65,6 +70,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +119,45 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rate(flops: float, ms: float, b_ms: float) -> str:
+    """Achieved TFLOP/s and the share of the bound a kernel time reaches."""
+    return (f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f} % of "
+            f"the bound")
+
+
+def tensor_core_counts(_build) -> dict | None:
+    """{kernel: (HGMMA, HMMA)}: the tensor-core instructions (wgmma,
+    mma.sync) in the SASS of each kernel of the built flash libraries, by
+    `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = next((c for c in (os.path.join(home, "bin", "cuobjdump"),
+                             shutil.which("cuobjdump"))
+                 if c and os.path.exists(c)), None)
+    if tool is None:
+        return None
+    counts = {}
+    for src in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "-sass", str(_build._paths(src)[0])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                mangled = line.split("Function :", 1)[1].strip()
+                name = re.search(r"(flash_[a-z_]+_kernel)I", mangled)
+                width = re.search(r"Li(\d+)E", mangled)
+                fn = (f"{name.group(1) if name else mangled} "
+                      f"{'bf16' if '__nv_bfloat16' in mangled else 'fp32'} "
+                      f"D={width.group(1) if width else '?'}")
+                counts[fn] = [0, 0]
+            elif fn is not None:
+                if "HGMMA" in line:
+                    counts[fn][0] += 1
+                elif "HMMA" in line:
+                    counts[fn][1] += 1
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def flops_per_token(c, seq: int) -> float:
@@ -240,7 +286,7 @@ def check_k1(torch, results):
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     log(f"  K1 time at 32x12x64 bf16, lengths 128-191: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e6:.1f} MB)")
+        f"{nbytes / 1e6:.1f} MB); {rate(flops, ms, b_ms)}")
     results["paged_decode"] = dict(
         name="paged_decode", route="cuda",
         source="ray_tpu_torch/ops/csrc/paged_decode.cu",
@@ -388,7 +434,7 @@ def check_verify(torch, results):
         log(f"  {src} {name} time at 32 x 5 x 12 x 64 bf16, lengths 128-191:"
             f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP)")
+            f"{flops / 1e9:.3f} GFLOP); {rate(flops, ms, b_ms)}")
         results[name] = dict(
             name=name, route="cuda",
             source="ray_tpu_torch/ops/csrc/paged_verify.cu", replaces=line,
@@ -411,6 +457,11 @@ def check_k2(torch, results):
         (2, 1000, 16, 8, 128, True, (torch.bfloat16,)),
         (2, 1000, 16, 8, 128, False, (torch.float32,)),
     ]
+    # the bf16 (tensor-core) body at the edges of its 64-row tiles
+    cases += [(2, S, H, Hkv, D, causal, (torch.bfloat16,))
+              for S in (1, 63, 65, 129, 1000)
+              for H, Hkv, D in ((12, 4, 64), (16, 8, 128))
+              for causal in (True, False)]
     errs = []
     g = torch.Generator(device="cuda").manual_seed(5)
     for B, S, H, Hkv, D, causal, dtypes in cases:
@@ -462,7 +513,7 @@ def check_k2(torch, results):
     log(f"  K2 time at [8,1024,12,64] causal bf16: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, torch sdpa {lib_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB)")
+        f"{nbytes / 1e6:.1f} MB); {rate(flops, ms, b_ms)}")
     results["flash_fwd"] = dict(
         name="flash_fwd", route="cuda",
         source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -494,16 +545,23 @@ def check_k3_k4(torch, results):
     the same (o, lse) from the forward kernel, over causal/full, bf16/fp32,
     the 125M shape, a ragged S with GQA 12/4, head_dim 128 with GQA 16/8
     and S = 1 (one key per row: no row may come out NaN); in fp32 also
-    against autograd of the plain forward. Then the times at
-    the train shape."""
+    against autograd of the plain forward; in bf16 also at S = 1, 63, 65
+    and 129 (the edges of the 64-key tile and of K4's 64- or 32-query
+    tiles) with GQA 12/4 at head_dim 64 and 16/8 at 128. Then the times
+    at the train shape."""
     import torch.nn.functional as F
     from ray_tpu_torch.ops import attention as A
     g = torch.Generator(device="cuda").manual_seed(6)
     errs = {"dq": [], "dk": [], "dv": []}     # absolute, for the JSON line
-    for B, S, H, Hkv, D in ((8, 1024, 12, 12, 64), (2, 1000, 12, 4, 64),
-                            (2, 1000, 16, 8, 128), (2, 1, 4, 2, 64)):
+    cases = [(B, S, H, Hkv, D, (torch.bfloat16, torch.float32))
+             for B, S, H, Hkv, D in ((8, 1024, 12, 12, 64),
+                                     (2, 1000, 12, 4, 64),
+                                     (2, 1000, 16, 8, 128), (2, 1, 4, 2, 64))]
+    cases += [(2, S, H, Hkv, D, (torch.bfloat16,)) for S in (1, 63, 65, 129)
+              for H, Hkv, D in ((12, 4, 64), (16, 8, 128))]
+    for B, S, H, Hkv, D, dtypes in cases:
         for causal in (True, False):
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype in dtypes:
                 dn = str(dtype).split(".")[1]
                 scale = D ** -0.5
                 q, k, v, do = attn_case(torch, g, B, S, H, Hkv, D, dtype)
@@ -574,15 +632,18 @@ def check_k3_k4(torch, results):
     dkv_b = bound_ms(6 * tensor + row_bytes, 4 * 2 * D * pairs, "bfloat16")
     log(f"  K2 with lse at [{B},{S},{H},{D}] causal bf16: kernel "
         f"{fwd_ms:.4f} ms, bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); "
-        f"sdpa forward {sdpa_fwd:.4f} ms")
+        f"sdpa forward {sdpa_fwd:.4f} ms; "
+        f"{rate(2 * 2 * D * pairs, fwd_ms, fwd_b[0])}")
     log(f"  K3 dq at [{B},{S},{H},{D}] causal bf16: kernel {dq_ms:.4f} ms, "
         f"bound {dq_b[0]:.4f} ms ({dq_b[1]}; "
         f"{3 * 2 * D * pairs / 1e9:.2f} GFLOP, "
-        f"{(5 * tensor + row_bytes) / 1e6:.1f} MB)")
+        f"{(5 * tensor + row_bytes) / 1e6:.1f} MB); "
+        f"{rate(3 * 2 * D * pairs, dq_ms, dq_b[0])}")
     log(f"  K4 dkv at [{B},{S},{H},{D}] causal bf16: kernel {dkv_ms:.4f} ms, "
         f"bound {dkv_b[0]:.4f} ms ({dkv_b[1]}; "
         f"{4 * 2 * D * pairs / 1e9:.2f} GFLOP, "
-        f"{(6 * tensor + row_bytes) / 1e6:.1f} MB)")
+        f"{(6 * tensor + row_bytes) / 1e6:.1f} MB); "
+        f"{rate(4 * 2 * D * pairs, dkv_ms, dkv_b[0])}")
     log(f"  plain backward (dq, dk, dv together) {plain_ms:.4f} ms; sdpa "
         f"backward {lib_ms:.4f} ms (forward+backward {sdpa_fb:.4f} ms minus "
         f"forward {sdpa_fwd:.4f} ms; one call for dq, dk and dv)")
@@ -1187,6 +1248,18 @@ def main() -> int:
                     f"{spill}")
             elif "error" in line or "warning" in line:
                 log(f"  {src}: {line.strip()}")
+    tc = tensor_core_counts(_build)
+    if tc is None:
+        log("  no cuobjdump in the toolkit: tensor-core instructions not "
+            "counted")
+    else:
+        for fn, (hg, hm) in tc.items():
+            log(f"  SASS {fn}: {hg} HGMMA (wgmma), {hm} HMMA (mma.sync)")
+        for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+            found = [n for n in tc if n.startswith(kernel + " bf16")]
+            if len(found) != 2 or any(tc[n][0] == 0 for n in found):
+                raise AssertionError(f"{kernel}: bf16 instantiations {found} "
+                                     f"lack wgmma in their SASS")
 
     results: dict = {}
     t0 = time.perf_counter()

@@ -3,8 +3,9 @@
 Each source compiles with nvcc for `sm_90a` into a shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers: a build takes
 seconds, not minutes). Builds happen at first use into `ray_tpu_torch/
-_build/`, keyed by a hash of the source, the shared header and the flags,
-so a checkout builds its own kernels and an edited source rebuilds.
+_build/`, keyed by a hash of the source, every shared header
+(`csrc/*.cuh`) and the flags, so a checkout builds its own kernels and an
+edited source or header rebuilds.
 Nothing here runs at import time: the CPU tests import every module on a
 host without nvcc.
 """
@@ -44,7 +45,7 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[Path, Path]:
     h = hashlib.sha256()
-    for p in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+    for p in (_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))):
         h.update(p.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     tag = h.hexdigest()[:16]

@@ -25,15 +25,33 @@
 // K3 does 3 and K4 4 products of 2*D FLOPs per (q, k) pair over
 // S(S+1)/2 pairs per head (38.7 and 51.6 GFLOP) against 127 and 153 MB of
 // inputs and outputs; on the tensor cores each would take about as long
-// for its bytes as for its products (~40-50 us). This first version, like
-// the forward kernel, does the products with fp32 FMAs on the CUDA cores
-// (no mma/wgmma yet), so it is bound by operations. Every tile sits
-// row-major in shared memory as fp32; in the score products a thread owns
-// 4 consecutive rows of one operand and 4 rows 16 apart of the other, so
-// each float4 read along D is either a warp broadcast or lands on distinct
-// banks (row pitch D + 4 floats). Tensor-core products, TMA staging and
-// double buffering are left for a later change.
+// for its bytes as for its products (~40-50 us).
+//
+// K4's bf16 body (`flash_bwd_dkv_wgmma_kernel`) runs its four products on
+// the tensor cores with wgmma. One warpgroup owns the 64-key tile; K and
+// V sit in swizzled shared memory once, and Q, dO, lse and delta tiles
+// stream through a 2-stage cp.async ring. Per q tile: S^T = K Q^T and
+// dP^T = V dO^T are shared-memory wgmmas (64 keys x BQ queries); P^T and
+// dS^T are formed on the accumulator registers; dV += bf16(P^T) dO and
+// dK += bf16(dS^T) Q take them as the register A operand with dO and Q
+// read MN-major from the same tiles. dK and dV stay in registers over the
+// whole query group. BQ is 64 at D = 64 and 32 at D = 128, where the two
+// [64, D] accumulators take 128 registers a thread. The elementwise work
+// between the products sets the pace (ptxas: ~200 registers, two blocks an
+// SM), so tiles that no mask cuts skip the per-element mask tests, and
+// the exponential is one FMA and one ex2.approx.
+//
+// K3, and K4's fp32 body (`flash_bwd_dkv_kernel`), do the products with
+// fp32 FMAs on the CUDA cores (tensor cores would take fp32 as TF32, and
+// the fp32 path is the one the train-exact checks hold to the plain
+// version). Every tile sits row-major in shared memory as fp32; in the
+// score products a thread owns 4 consecutive rows of one operand and 4
+// rows 16 apart of the other, so each float4 read along D is either a
+// warp broadcast or lands on distinct banks (row pitch D + 4 floats).
 #include "common.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -321,6 +339,161 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- K4's bf16 body: wgmma products, cp.async staging ----
+
+namespace wg {
+
+constexpr int BK = 64;         // keys per block: the wgmma M
+constexpr int kThreads = 128;  // one warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct DkvTiles {
+  static constexpr int BQ = D == 64 ? 64 : 32;  // queries per streamed tile
+  static constexpr int kv = BK * D * 2;         // the K or V tile, bytes
+  static constexpr int qt = BQ * D * 2;         // a Q or dO tile
+  // a stage: Q, dO, then lse and delta [BQ] fp32 in a 1024-byte slot
+  static constexpr int stage = 2 * qt + 1024;
+  static constexpr int bytes = 2 * kv + 2 * stage + 1024;  // + align slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int S, int H, int Hkv, int causal, float scale) {
+  using L = DkvTiles<D>;
+  constexpr int BQ = L::BQ;
+  constexpr int SR = BQ / 2;  // score accumulator registers
+  constexpr int DR = D / 2;   // dK / dV accumulator registers
+  extern __shared__ uint8_t smem[];
+  const uint32_t raw = hop::smem_addr(smem);
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + L::kv;
+  const uint32_t sStage = sV + L::kv;
+  const uint8_t* base = smem + (sK - raw);  // sK as a generic pointer
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  const int g = H / Hkv;
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const int first = causal ? k0 / BQ : 0;
+  const int nqt = (S + BQ - 1) / BQ - first;  // q tiles per head
+  const int n = g * nqt;
+
+  // Stage the q tile of iteration `it` (head kvh * g + it / nqt).
+  auto fetch = [&](int it, uint32_t st) {
+    const int h = kvh * g + it / nqt;
+    const int q0 = (first + it % nqt) * BQ;
+    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
+    hop::load_tile<BQ, D, kThreads>(st, q + q_off, q_stride, q0, S);
+    hop::load_tile<BQ, D, kThreads>(st + L::qt, dout + q_off, q_stride, q0,
+                                    S);
+    const int j = tid % BQ, qi = q0 + j;
+    const float* row = (tid < BQ ? lse : delta) + ((size_t)b * H + h) * S;
+    if (tid < 2 * BQ)
+      hop::cp_async4(st + 2 * L::qt + 4 * tid, row + (qi < S ? qi : 0),
+                     qi < S);
+  };
+  hop::load_tile<BK, D, kThreads>(sK, k + kv_off, kv_stride, k0, S);
+  hop::load_tile<BK, D, kThreads>(sV, v + kv_off, kv_stride, k0, S);
+  fetch(0, sStage);
+  hop::cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float acc_k[DR], acc_v[DR];
+#pragma unroll
+  for (int i = 0; i < DR; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const uint32_t st = sStage + (it & 1) * L::stage;
+    const int q0 = (first + it % nqt) * BQ;
+    hop::cp_async_wait_all();
+    hop::fence_async_smem();
+    __syncthreads();  // tile it landed; every reader of the other stage done
+    if (it + 1 < n) {
+      fetch(it + 1, sStage + ((it + 1) & 1) * L::stage);
+      hop::cp_async_commit();
+    }
+
+    float sc[SR], dp[SR];  // [key][query]: S^T, then P^T; dP^T, then dS^T
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::Mma<BQ>::ss(sc, hop::desc_k<BK>(sK, kk), hop::desc_k<BQ>(st, kk),
+                       kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::Mma<BQ>::ss(dp, hop::desc_k<BK>(sV, kk),
+                       hop::desc_k<BQ>(st + L::qt, kk), kk > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+
+    const float* lse_s =
+        reinterpret_cast<const float*>(base + (st - sK) + 2 * L::qt);
+    const float* delta_s = lse_s + BQ;
+    // the masks (causal, key or query >= S) cut into this tile
+    const bool edge =
+        q0 + BQ > S || k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int ql = hop::acc_col(tid, i);
+      float p = hop::exp2_approx(fmaf(sc[i], sl2, -lse_s[ql] * kLog2e));
+      if (edge) {
+        const int kj = k0 + hop::acc_row(tid, i), qi = q0 + ql;
+        if (qi >= S || kj >= S || (causal && kj > qi)) p = 0.f;
+      }
+      sc[i] = p;
+      dp[i] = p * (dp[i] - delta_s[ql]) * scale;
+    }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // bf16 P^T and dS^T
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hop::to_a(sc, kk, pa[kk]);
+      hop::to_a(dp, kk, da[kk]);
+    }
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hop::Mma<D>::rs(acc_v, pa[kk], hop::desc_mn<BQ>(st + L::qt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hop::Mma<D>::rs(acc_k, da[kk], hop::desc_mn<BQ>(st, kk), 1);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(acc_v);
+    hop::fence_regs(acc_k);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + hop::acc_row(tid, 2 * r);
+    if (kj >= S) continue;
+    const size_t off = kv_off + (size_t)kj * kv_stride + 2 * (tid & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+          __floats2bfloat162_rn(acc_k[i], acc_k[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+    }
+  }
+}
+
+}  // namespace wg
+
 template <typename Kernel>
 int allow_smem(Kernel kernel, int bytes, bool* done) {
   if (*done) return 0;
@@ -367,9 +540,37 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4 in bf16: the tensor-core body.
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  using wg::bf16;
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) |
+       reinterpret_cast<uintptr_t>(a.dout) |
+       reinterpret_cast<uintptr_t>(a.out0) |
+       reinterpret_cast<uintptr_t>(a.out1)) %
+          16 ||
+      reinterpret_cast<uintptr_t>(a.lse) % 4 ||
+      reinterpret_cast<uintptr_t>(a.delta) % 4)
+    return static_cast<int>(cudaErrorMisalignedAddress);  // cp.async
+  static bool attr = false;
+  const int bytes = wg::DkvTiles<D>::bytes;
+  if (int e = allow_smem(wg::flash_bwd_dkv_wgmma_kernel<D>, bytes, &attr))
+    return e;
+  dim3 grid((a.S + wg::BK - 1) / wg::BK, a.B * a.Hkv);
+  wg::flash_bwd_dkv_wgmma_kernel<D><<<grid, wg::kThreads, bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.S,
+      a.H, a.Hkv, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool DKV, typename T, int D>
 int run(const Args& a) {
-  if constexpr (DKV) {
+  if constexpr (DKV && std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dkv_wgmma<D>(a);
+  } else if constexpr (DKV) {
     return launch_dkv<T, D>(a);
   } else {
     return launch_dq<T, D>(a);

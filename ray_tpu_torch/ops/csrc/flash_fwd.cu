@@ -15,16 +15,29 @@
 // What bounds it: at [8, 1024, 12, 64] causal bf16 the work is ~12.9
 // GFLOP against ~50 MB of q/k/v/out; at the H100 data sheet's rates
 // (989 TFLOP/s bf16 tensor cores, 3.35 TB/s) moving the bytes takes
-// slightly longer than the products, so on tensor cores it would be
-// bytes-bound. This first version does the products with fp32 FMAs on
-// the CUDA cores (no mma/wgmma yet), which makes it bound by
-// operations: one block owns a 64-row q tile of one head and streams
-// 64-key K/V tiles through shared memory (Q and K stored transposed so
-// each thread's 4x4 score tile and 4x(D/16) output tile come from float4
-// shared-memory loads: 16 FMAs per two 16-byte loads). Tensor-core
-// products (mma.sync/wgmma), TMA staging and double buffering are left for
-// a later change.
+// slightly longer than the products, so it is bytes-bound on the tensor
+// cores, and the softmax's exponentials (16 a clock per SM) come next.
+//
+// Two bodies. bf16 (`flash_fwd_wgmma_kernel`): both products on the
+// tensor cores with wgmma. One warpgroup owns a 64-row q tile of one head;
+// Q sits in swizzled shared memory once, and 64-key K/V tiles stream
+// through a 2-stage cp.async ring, the next tile in flight while this one
+// computes. S = Q K^T is a shared-memory wgmma; the online softmax runs on
+// the accumulator registers; P is rounded to bf16 in registers and is the
+// register A operand of the PV wgmma (V read MN-major), so P never goes
+// through shared memory. The softmax (exponentials on the SFU, the row
+// max over raw scores, the scale folded into one FMA) is what a tile
+// waits on; five such blocks share an SM (102 registers, 41 KB at D = 64)
+// and hide each other's softmax, products and copies. Fewer, larger
+// blocks measured slower on an H100: two warpgroups sharing a 128-row
+// block, and an in-warpgroup overlap of softmax with the PV product (128
+// registers, four blocks an SM). fp32 (`flash_fwd_kernel`): the products as
+// fp32 FMAs on the CUDA cores (tensor cores would take fp32 as TF32, and
+// the fp32 path is the one the exactness checks hold to the plain
+// version): Q and K stored transposed so each thread's 4x4 score tile and
+// 4x(D/16) output tile come from float4 shared-memory loads.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -213,32 +226,190 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
-               float* lse, int B, int S, int H, int Hkv, int causal,
-               float scale, cudaStream_t s) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, out, lse, B, S, H, Hkv, causal, scale, s);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, out, lse, B, S, H, Hkv, causal, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// ---- bf16 body: wgmma products, cp.async staging ----
+
+namespace wg {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int kThreads = 128;  // one warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct Smem {
+  static constexpr int tile = 64 * D * 2;  // one [64][D] bf16 tile
+  // Q, then two stages of (K, V); slack to align the first tile to 1024
+  static constexpr int bytes = 5 * tile + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       float* __restrict__ lse, int S, int H, int Hkv,
+                       int causal, float scale) {
+  using L = Smem<D>;
+  constexpr int OR = D / 2;  // output accumulator registers
+  extern __shared__ uint8_t smem[];
+  const uint32_t sQ = (hop::smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + L::tile;  // stage st: K, then V
+
+  const int tid = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / Hkv);
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const bf16* qb = q + (size_t)b * S * q_stride + (size_t)h * D;
+  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * D;
+
+  int nk = (S + BK - 1) / BK;
+  if (causal) {
+    const int last = (q0 + BQ - 1) / BK + 1;
+    nk = nk < last ? nk : last;
+  }
+  hop::load_tile<BQ, D, kThreads>(sQ, qb, q_stride, q0, S);
+  hop::load_tile<BK, D, kThreads>(sKV, kb, kv_stride, 0, S);
+  hop::load_tile<BK, D, kThreads>(sKV + L::tile, vb, kv_stride, 0, S);
+  hop::cp_async_commit();
+
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+  float o[OR];
+#pragma unroll
+  for (int i = 0; i < OR; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // this thread's part
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    const uint32_t sK = sKV + (kt & 1) * 2 * L::tile;
+    const uint32_t sV = sK + L::tile;
+    hop::cp_async_wait_all();
+    hop::fence_async_smem();
+    __syncthreads();  // tile kt landed; every reader of the other stage done
+    if (kt + 1 < nk) {
+      const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * L::tile;
+      hop::load_tile<BK, D, kThreads>(nK, kb, kv_stride, k0 + BK, S);
+      hop::load_tile<BK, D, kThreads>(nK + L::tile, vb, kv_stride, k0 + BK,
+                                      S);
+      hop::cp_async_commit();
+    }
+
+    float s[BK / 2];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::Mma<BK>::ss(s, hop::desc_k<BQ>(sQ, kk), hop::desc_k<BK>(sK, kk),
+                       kk > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(s);
+
+    // the row max over raw scores (scale > 0), scaled once per row
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      if (edge) {
+        const int key = k0 + hop::acc_col(tid, i);
+        if (key >= S || (causal && key > q0 + hop::acc_row(tid, i)))
+          s[i] = kNegInf;
+      }
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], hop::quad_max(mx[r]) * sl2);
+      alpha[r] = hop::exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float p = hop::exp2_approx(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += p;
+      s[i] = p;
+    }
+#pragma unroll
+    for (int i = 0; i < OR; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pa[BK / 16][4];  // P in bf16: the A operand of O += P V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hop::to_a(s, kk, pa[kk]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hop::Mma<D>::rs(o, pa[kk], hop::desc_mn<BK>(sV, kk), 1);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(o);
+  }
+
+  bf16* ob = out + (size_t)b * S * q_stride + (size_t)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + hop::acc_row(tid, 2 * r);
+    const float ls = fmaxf(hop::quad_sum(l[r]), 1e-30f);
+    if (qi >= S) continue;
+    const float inv = 1.f / ls;
+    bf16* row = ob + (size_t)qi * q_stride + 2 * (tid & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (lse != nullptr && (tid & 3) == 0)
+      lse[(size_t)bh * S + qi] = m[r] * kLn2 + logf(ls);
+  }
 }
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int S, int H, int Hkv, int causal, float scale,
+           cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return static_cast<int>(cudaErrorMisalignedAddress);  // cp.async: 16 B
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  dim3 grid((S + BQ - 1) / BQ, B * H);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, Smem<D>::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, Hkv,
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 }  // namespace
 
 // q/out [B, S, H, D]; k/v [B, S, Hkv, D]; lse [B*H, S] fp32 or null.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body).
+// Returns a cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int H,
                             int Hkv, int D, int causal, float scale,
                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, l, B, S, H, Hkv, causal, scale,
-                             s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, l, B, S, H, Hkv, causal,
-                                     scale, s);
+  if (dtype == 0 && D == 64)
+    return launch<float, 64>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == 1 && D == 64)
+    return wg::launch<64>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == 1 && D == 128)
+    return wg::launch<128>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,6 +8,7 @@ interpret mode. The CUDA kernels themselves run only on a card
 (`python3 chip_smoke.py` compares each with its plain version there)."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -184,10 +185,12 @@ def test_paged_decode_caps_at_table_width():
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,h,hkv", [(128, 2, 2), (100, 4, 2)])
+@pytest.mark.parametrize("s,h,hkv", [(128, 2, 2), (100, 4, 2), (63, 4, 2),
+                                     (65, 4, 2), (129, 4, 2)])
 def test_flash_attention_plain_matches_jax_interpret(causal, s, h, hkv):
     """Causal and full, a ragged S (the JAX kernel pads to 128 and masks)
-    and GQA (head i reads kv head i // (h / hkv))."""
+    and GQA (head i reads kv head i // (h / hkv)); S = 63, 65 and 129
+    straddle the CUDA kernels' 64-row and 64-key tiles."""
     rng = np.random.default_rng(5)
     d = 32
     q = rng.normal(size=(2, s, h, d)).astype(np.float32)
@@ -286,6 +289,23 @@ def test_kernel_build_is_keyed_and_fails_loudly(monkeypatch, tmp_path):
     assert not (tmp_path / "b").exists()
 
 
+@pytest.mark.parametrize("header", ["common.cuh", "hopper.cuh"])
+def test_kernel_build_key_covers_every_header(monkeypatch, tmp_path,
+                                              header):
+    """Editing any shared header under csrc/ changes every source's build
+    key, so no stale library is loaded after a header changes."""
+    from ray_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = {n: _build._paths(n) for n in _build.SOURCES}
+    (csrc / header).write_text((csrc / header).read_text() + "\n// edit\n")
+    after = {n: _build._paths(n) for n in _build.SOURCES}
+    for n in _build.SOURCES:
+        assert after[n][0] != before[n][0], n
+        assert after[n][1] != before[n][1], n
+
+
 # ---- layer VJPs ----
 
 
@@ -367,13 +387,16 @@ def _bwd_close(got, want):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,h,hkv", [(64, 2, 2), (100, 4, 2)])
+@pytest.mark.parametrize("s,h,hkv", [(64, 2, 2), (100, 4, 2), (63, 4, 2),
+                                     (65, 4, 2), (129, 4, 2)])
 def test_flash_bwd_plain_matches_jax_kernels(causal, s, h, hkv):
     """The plain backward against the JAX dq/dkv Pallas kernels (interpret
     mode, 16-row tiles), both fed the same (o, lse) from the JAX forward
     kernel: the port's backward takes an (o, lse) it did not produce. A
     ragged S goes to the JAX kernels padded to the tile with kv_len set,
-    as its flash_attention does; the port takes it unpadded."""
+    as its flash_attention does; the port takes it unpadded. S = 63, 65
+    and 129 straddle the CUDA kernels' 64-key tile (and K4's 64- or
+    32-query tiles)."""
     rng = np.random.default_rng(10)
     q, k, v, do = _bwd_case(rng, s, h, hkv)
     b, d = q.shape[0], q.shape[-1]
