@@ -351,7 +351,8 @@ def check_verify(torch, results):
     writes scratch page 0: its attention reads scratch that other slots'
     writes race with, so it is left out of the attention comparison); its
     written pools must equal the plain insert's bit for bit on every page
-    but scratch. Then the times at the serving shape."""
+    but scratch. Also 40 query rows per kv head (32/4), the kernels'
+    limit. Then the times at the serving shape and at a long context."""
     from ray_tpu_torch.ops import paged_attention as PA
     S = 5
     errs = {"k1p": [], "k5": []}
@@ -360,7 +361,8 @@ def check_verify(torch, results):
     rng_l += torch.randint(1, 1025, (24,), generator=g).tolist()
     for label, h, hkv, hd in (("llama-125m", 12, 12, 64),
                               ("llama3-1b GQA", 32, 8, 64),
-                              ("hd 128 GQA", 16, 8, 128)):
+                              ("hd 128 GQA", 16, 8, 128),
+                              ("40 rows per kv head", 32, 4, 64)):
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             q, pk, pv, _kn, _vn, lens, tables = verify_case(
@@ -401,19 +403,38 @@ def check_verify(torch, results):
             errs["k5"].append(e5)
             del q, pk, pv, kn, vn, rk, rv, got, want
 
-    # timing at the spec serving path's shape: 32 slots x S = 5 at lengths
-    # 128-191, a 2-page table bucket, 12 layers' pools visited in turn
+    # times at the spec serving path's shape (32 slots x S = 5, lengths
+    # 128-191, a 2-page table bucket) and at a long context (lengths
+    # 896-1023, 8 pages); 12 layers' pools visited in turn
+    times = {}
+    for label, lo, hi, P in (("lengths 128-191", 128, 192, 2),
+                             ("long context, lengths 896-1023", 896, 1024,
+                              8)):
+        times[label] = time_verify(torch, PA, S, lo, hi, P, label,
+                                   unfused=P == 2)
+    for name, line, key in (
+            ("paged_verify", "ray_tpu/ops/paged_attention.py:504", "k1p"),
+            ("paged_verify_insert", "ray_tpu/ops/paged_attention.py:211",
+             "k5")):
+        ms, plain_ms, b_ms, b_by = times["lengths 128-191"][key]
+        results[name] = dict(
+            name=name, route="cuda",
+            source="ray_tpu_torch/ops/csrc/paged_verify.cu", replaces=line,
+            launches=None, max_abs_err=max(errs[key]), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+
+
+def time_verify(torch, PA, S, lo, hi, P, label, unfused):
+    """K1' and K5 device times at 32 slots x S x 12 x 64 bf16 with lengths
+    in [lo, hi) and P-page tables, beside their plain versions and
+    bounds; with `unfused`, also the unfused pair (insert scatter, then
+    K1'). Returns {"k1p" | "k5": (ms, plain_ms, bound_ms, bound_by)}."""
     g = torch.Generator().manual_seed(3)
-    lens_l = torch.randint(128, 192, (32,), generator=g).tolist()
+    lens_l = torch.randint(lo, hi, (32,), generator=g).tolist()
     q, pk, pv, kn, vn, lens, tables = verify_case(
-        torch, 32, S, 12, 12, 64, 128, 2, lens_l, torch.bfloat16, seed=4,
+        torch, 32, S, 12, 12, 64, 128, P, lens_l, torch.bfloat16, seed=4,
         layers=12, scratch_entries=False)
-
-    def unfused(i):      # the insert as a scatter, then K1'
-        PA.insert_tokens_reference(pk, pv, kn, vn, lens, tables, i % 12)
-        return PA.paged_verify_attention(q, pk[i % 12], pv[i % 12], lens,
-                                         tables)
-
     k1p_ms = device_ms(torch, lambda i: PA.paged_verify_attention(
         q, pk[i % 12], pv[i % 12], lens, tables), 240)
     k1p_plain = device_ms(torch, lambda i: PA.paged_verify_attention_reference(
@@ -422,28 +443,27 @@ def check_verify(torch, results):
         q, pk, pv, kn, vn, lens, tables, i % 12), 240)
     k5_plain = device_ms(torch, lambda i: PA.paged_verify_insert_reference(
         q, pk, pv, kn, vn, lens, tables, i % 12), 24)
-    pair_ms = device_ms(torch, unfused, 120)
-    for name, src, line, ms, plain_ms, insert, key in (
-            ("paged_verify", "K1'", "ray_tpu/ops/paged_attention.py:504",
-             k1p_ms, k1p_plain, False, "k1p"),
-            ("paged_verify_insert", "K5",
-             "ray_tpu/ops/paged_attention.py:211", k5_ms, k5_plain, True,
-             "k5")):
-        nbytes, flops = verify_work(lens_l, S, 128, 2, 12, 12, 64, 2, insert)
+    out = {}
+    for name, src, ms, plain_ms, insert, key in (
+            ("paged_verify", "K1'", k1p_ms, k1p_plain, False, "k1p"),
+            ("paged_verify_insert", "K5", k5_ms, k5_plain, True, "k5")):
+        nbytes, flops = verify_work(lens_l, S, 128, P, 12, 12, 64, 2, insert)
         b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-        log(f"  {src} {name} time at 32 x 5 x 12 x 64 bf16, lengths 128-191:"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        log(f"  {src} {name} time at 32 x {S} x 12 x 64 bf16, {label}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP); {rate(flops, ms, b_ms)}")
-        results[name] = dict(
-            name=name, route="cuda",
-            source="ray_tpu_torch/ops/csrc/paged_verify.cu", replaces=line,
-            launches=None, max_abs_err=max(errs[key]), ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None)
-    log(f"  unfused pair (index_put_ insert of the 5 rows, then K1'): "
-        f"{pair_ms:.4f} ms vs K5 {k5_ms:.4f} ms; no single PyTorch call "
-        f"computes either kernel's function")
+        out[key] = (ms, plain_ms, b_ms, b_by)
+    if unfused:
+        def pair(i):      # the insert as a scatter, then K1'
+            PA.insert_tokens_reference(pk, pv, kn, vn, lens, tables, i % 12)
+            return PA.paged_verify_attention(q, pk[i % 12], pv[i % 12],
+                                             lens, tables)
+        pair_ms = device_ms(torch, pair, 120)
+        log(f"  unfused pair (index_put_ insert of the {S} rows, then K1'): "
+            f"{pair_ms:.4f} ms vs K5 {k5_ms:.4f} ms; no single PyTorch call "
+            f"computes either kernel's function")
+    return out
 
 
 def check_k2(torch, results):
@@ -1255,11 +1275,16 @@ def main() -> int:
     else:
         for fn, (hg, hm) in tc.items():
             log(f"  SASS {fn}: {hg} HGMMA (wgmma), {hm} HMMA (mma.sync)")
-        for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+        for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                       "flash_bwd_dq_wgmma_kernel"):
             found = [n for n in tc if n.startswith(kernel + " bf16")]
             if len(found) != 2 or any(tc[n][0] == 0 for n in found):
                 raise AssertionError(f"{kernel}: bf16 instantiations {found} "
                                      f"lack wgmma in their SASS")
+        tf32 = [n for n in tc if " fp32 " in n and tc[n] != (0, 0)]
+        if tf32:
+            raise AssertionError(f"fp32 bodies {tf32} use the tensor cores "
+                                 f"(TF32): they must stay on fp32 FMAs")
 
     results: dict = {}
     t0 = time.perf_counter()

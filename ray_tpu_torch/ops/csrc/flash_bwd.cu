@@ -41,10 +41,20 @@
 // SM), so tiles that no mask cuts skip the per-element mask tests, and
 // the exponential is one FMA and one ex2.approx.
 //
-// K3, and K4's fp32 body (`flash_bwd_dkv_kernel`), do the products with
-// fp32 FMAs on the CUDA cores (tensor cores would take fp32 as TF32, and
-// the fp32 path is the one the train-exact checks hold to the plain
-// version). Every tile sits row-major in shared memory as fp32; in the
+// K3's bf16 body (`flash_bwd_dq_wgmma_kernel`) is K2's shape with K4's
+// score products: one warpgroup owns a 64-row q tile (longest rows first),
+// Q and dO sit in swizzled shared memory once, and K and V tiles of 64
+// keys stream through a 2-stage cp.async ring. Per k tile: S = Q K^T and
+// dP = dO V^T are shared-memory wgmmas; P and dS are formed on the
+// accumulator registers (lse and delta of a thread's two rows stay in
+// registers); dQ += bf16(dS) K takes dS as the register A operand with K
+// read MN-major from the same tile, so nothing is transposed or goes back
+// through shared memory. Accumulators: 32 + 32 + D/2 registers a thread.
+//
+// The fp32 bodies (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`) do the
+// products with fp32 FMAs on the CUDA cores (tensor cores would take fp32
+// as TF32, and the fp32 path is the one the train-exact checks hold to the
+// plain version). Every tile sits row-major in shared memory as fp32; in the
 // score products a thread owns 4 consecutive rows of one operand and 4
 // rows 16 apart of the other, so each float4 read along D is either a
 // warp broadcast or lands on distinct banks (row pitch D + 4 floats).
@@ -492,6 +502,138 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ---- K3's bf16 body: wgmma products, cp.async staging ----
+
+template <int D>
+struct DqTiles {
+  static constexpr int BQ = 64;           // query rows per block: the M
+  static constexpr int BK = 64;           // keys per streamed tile
+  static constexpr int qt = BQ * D * 2;   // the Q or dO tile, bytes
+  static constexpr int kv = BK * D * 2;   // a K or V tile
+  // Q, dO, then two stages of (K, V); slack to align the first to 1024
+  static constexpr int bytes = 2 * qt + 4 * kv + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int S, int H, int Hkv,
+                          int causal, float scale) {
+  using L = DqTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  constexpr int SR = BK / 2;  // score accumulator registers
+  constexpr int DR = D / 2;   // dQ accumulator registers
+  extern __shared__ uint8_t smem[];
+  const uint32_t sQ = (hop::smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + L::qt;
+  const uint32_t sKV = sdO + L::qt;  // stage st: K, then V
+
+  const int tid = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / Hkv);
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
+  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * D;
+
+  int nk = (S + BK - 1) / BK;
+  if (causal) {
+    const int last = (q0 + BQ - 1) / BK + 1;
+    nk = nk < last ? nk : last;
+  }
+  hop::load_tile<BQ, D, kThreads>(sQ, q + q_off, q_stride, q0, S);
+  hop::load_tile<BQ, D, kThreads>(sdO, dout + q_off, q_stride, q0, S);
+  hop::load_tile<BK, D, kThreads>(sKV, kb, kv_stride, 0, S);
+  hop::load_tile<BK, D, kThreads>(sKV + L::kv, vb, kv_stride, 0, S);
+  hop::cp_async_commit();
+
+  // lse (in log2 units, negated) and delta of this thread's two rows;
+  // rows at or beyond S are never stored, so their values do not matter
+  const float sl2 = scale * kLog2e;
+  float nl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + hop::acc_row(tid, 2 * r);
+    nl[r] = qi < S ? -lse[(size_t)bh * S + qi] * kLog2e : 0.f;
+    dl[r] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+  }
+  float acc[DR];
+#pragma unroll
+  for (int i = 0; i < DR; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    const uint32_t sK = sKV + (kt & 1) * 2 * L::kv;
+    const uint32_t sV = sK + L::kv;
+    hop::cp_async_wait_all();
+    hop::fence_async_smem();
+    __syncthreads();  // tile kt landed; every reader of the other stage done
+    if (kt + 1 < nk) {
+      const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * L::kv;
+      hop::load_tile<BK, D, kThreads>(nK, kb, kv_stride, k0 + BK, S);
+      hop::load_tile<BK, D, kThreads>(nK + L::kv, vb, kv_stride, k0 + BK, S);
+      hop::cp_async_commit();
+    }
+
+    float sc[SR], dp[SR];  // [query][key]: S, then dS; dP
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::Mma<BK>::ss(sc, hop::desc_k<BQ>(sQ, kk), hop::desc_k<BK>(sK, kk),
+                       kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::Mma<BK>::ss(dp, hop::desc_k<BQ>(sdO, kk), hop::desc_k<BK>(sV, kk),
+                       kk > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+
+    // the masks (causal, key >= S) cut into this tile
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = hop::exp2_approx(fmaf(sc[i], sl2, nl[r]));
+      if (edge) {
+        const int kj = k0 + hop::acc_col(tid, i);
+        if (kj >= S || (causal && kj > q0 + hop::acc_row(tid, i))) p = 0.f;
+      }
+      sc[i] = p * (dp[i] - dl[r]) * scale;
+    }
+    uint32_t da[BK / 16][4];  // dS in bf16: the A operand of dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hop::to_a(sc, kk, da[kk]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hop::Mma<D>::rs(acc, da[kk], hop::desc_mn<BK>(sK, kk), 1);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    hop::fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + hop::acc_row(tid, 2 * r);
+    if (qi >= S) continue;
+    bf16* row = dq + q_off + (size_t)qi * q_stride + 2 * (tid & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
 }  // namespace wg
 
 template <typename Kernel>
@@ -540,19 +682,20 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 bodies stage their tiles by cp.async: 16-byte-aligned tensors
+// (and 4-byte lse / delta) only.
+bool misaligned(const Args& a) {
+  auto u = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  return (u(a.q) | u(a.k) | u(a.v) | u(a.dout) | u(a.out0) | u(a.out1)) %
+             16 ||
+         (u(a.lse) | u(a.delta)) % 4;
+}
+
 // K4 in bf16: the tensor-core body.
 template <int D>
 int launch_dkv_wgmma(const Args& a) {
   using wg::bf16;
-  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-       reinterpret_cast<uintptr_t>(a.v) |
-       reinterpret_cast<uintptr_t>(a.dout) |
-       reinterpret_cast<uintptr_t>(a.out0) |
-       reinterpret_cast<uintptr_t>(a.out1)) %
-          16 ||
-      reinterpret_cast<uintptr_t>(a.lse) % 4 ||
-      reinterpret_cast<uintptr_t>(a.delta) % 4)
-    return static_cast<int>(cudaErrorMisalignedAddress);  // cp.async
+  if (misaligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   static bool attr = false;
   const int bytes = wg::DkvTiles<D>::bytes;
   if (int e = allow_smem(wg::flash_bwd_dkv_wgmma_kernel<D>, bytes, &attr))
@@ -566,10 +709,31 @@ int launch_dkv_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 in bf16: the tensor-core body.
+template <int D>
+int launch_dq_wgmma(const Args& a) {
+  using wg::bf16;
+  using L = wg::DqTiles<D>;
+  if (misaligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
+  static bool attr = false;
+  if (int e = allow_smem(wg::flash_bwd_dq_wgmma_kernel<D>, L::bytes, &attr))
+    return e;
+  dim3 grid((a.S + L::BQ - 1) / L::BQ, a.B * a.H);
+  wg::flash_bwd_dq_wgmma_kernel<D><<<grid, wg::kThreads, L::bytes,
+                                     a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.out0), a.S, a.H, a.Hkv, a.causal,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool DKV, typename T, int D>
 int run(const Args& a) {
   if constexpr (DKV && std::is_same_v<T, __nv_bfloat16>) {
     return launch_dkv_wgmma<D>(a);
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_dq_wgmma<D>(a);
   } else if constexpr (DKV) {
     return launch_dkv<T, D>(a);
   } else {

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the tensor-core kernel bodies:
-// asynchronous tile copies into 128-byte-swizzled shared memory, the wgmma
-// shared-memory descriptor, the wgmma fence / commit / wait, the bf16
-// m64nNk16 wgmma with fp32 accumulators (A from shared memory or from
-// registers), and the accumulator's register layout.
+// Hopper (sm_90a) building blocks for the hand-written kernel bodies:
+// asynchronous tile copies into 128-byte-swizzled shared memory, bulk
+// copies completing on mbarriers, the wgmma shared-memory descriptor, the
+// wgmma fence / commit / wait, the bf16 m64nNk16 wgmma with fp32
+// accumulators (A from shared memory or from registers), and the
+// accumulator's register layout.
 //
 // Tile layout. A [rows][D] bf16 tile sits in shared memory as D / 64
 // column blocks of [rows][64], one after the other (one block for D = 64,
@@ -53,6 +54,61 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // thread's writes are.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- bulk copies (the TMA's untiled form) under mbarriers ----
+//
+// One thread arms a barrier with the bytes it expects (mbar_expect_tx,
+// which is also that barrier's one arrival of the phase) and starts
+// bulk_copy_g2s copies that count those bytes down as they land; every
+// thread waits for the phase to complete with mbar_wait. Sizes and both
+// addresses must be multiples of 16 bytes.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(arrivals)
+               : "memory");
+}
+
+// Make mbar_init visible to the async proxy; a block barrier follows.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity (0, 1, 0, ...) is
+// complete. A phase that has not completed after ~2^32 clocks (a copy that
+// never lands) traps: the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+// Copy `bytes` contiguous bytes from global `src` to shared `dst`; the
+// landing bytes complete on barrier `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Byte offset of 16-byte chunk c (0-7) of row r in a swizzled column block.

@@ -14,249 +14,447 @@
 // the layer's base pointer. q and out are [B, S, h, hd], knew/vnew
 // [B, S, hkv, hd].
 //
-// What bounds it: bytes, as for K1. A call reads every attended token's K
-// and V row once per kv head (about 16 MB at 32 slots x ~165 tokens x 12
-// kv heads x hd 64 in bf16) and does 2*g*S FMAs per element read, far
-// below the card's operations-per-byte ridge. The design is K1's: grid
-// (slot, kv head, row group), four warps split the slot's tokens, each
-// keeps fp32 (max, sum, acc) per query row in registers, and the warps
-// merge through shared memory. The g*S query rows of a kv head (g = h/hkv,
-// query index minor as in the TPU kernel's fold) go in groups of RG <= 8
-// rows; each group is one block, so a kv head with more than 8 rows reads
-// its K/V rows once per group (the later reads mostly hit L2).
+// What bounds it: bytes. A call reads every attended token's K and V row
+// once per kv head (about 16 MB at 32 slots x ~165 tokens x 12 kv heads x
+// hd 64 in bf16) and does about g*S FMAs per element read, far below the
+// card's operations-per-byte ridge, so the design keeps many bytes in
+// flight and the math on the CUDA cores, in fp32 as the TPU kernel
+// computes it (q, K and V upcast, P kept fp32 for the PV sum).
 //
-// K5's insert: the TPU kernel merges the new columns into the page while
-// it streams through VMEM and DMAs the page back. Here the block for
-// (slot, kv head) takes the new tokens' K/V rows for the attention
-// straight from knew/vnew (the very values it stores), reads only
-// positions < lengths-1 from the pool, and stores the new rows as plain
-// bit copies: no read of the pool ever follows a store to the same
-// address, so no ordering between the two is needed. A write whose page
-// index is >= P is dropped, as in the TPU kernel. Only scratch page 0 can
-// be written by several blocks at once (inactive slots, all-zero table
-// rows), which its garbage-by-contract allows.
+// Design, as the TPU kernel's page DMAs: one block of 8 warps owns one
+// (slot, kv head) and all g*S (<= 40) of its query rows, so each K/V row
+// is read from HBM once. q (fp32) and the slot's page-table row go into
+// shared memory once. The slot's positions are cut into chunks of C
+// tokens that never cross a page (C = min(page, 16 KB of K)); a chunk of
+// one page is one contiguous block of C x hd elements, for K and for V.
+// Thread 0 moves each chunk with two bulk copies (cp.async.bulk, the
+// TMA's untiled form) into a ring of stages (64 KB in all: 2 stages of
+// 32 KB at bf16 hd 64, more for small pages), each stage completing on
+// its own mbarrier; the ring is refilled as stages free up. At the serving
+// shape (lengths 128-191, page 128) the whole slot is in flight at once.
+// Rows go in groups of RB = 5 (the verify step's S = 5 rows per query
+// head fill a group; other counts are padded to Rp). Per chunk:
+//   scores: a thread owns a key and a row group and sums the products
+//           along hd from shared memory (K's 16-byte pieces read in a
+//           rotated order so a warp's reads hit distinct banks; q as
+//           float4): no cross-lane sum per token;
+//   softmax: one warp per row reduces the chunk's max and sum (one
+//           shuffle reduction per row per chunk) and updates the row's
+//           running (max, sum);
+//   PV:     a thread owns (row group, 4 columns of hd, key split) and sums
+//           P x V over its keys of the chunk from shared memory into
+//           registers; the key splits' partials are added once, at the
+//           end, in a fixed order.
+// Three blocks share an SM (at most 80 registers a thread): a block's
+// time is mostly the latency of its chunks' copies and phases, which the
+// other blocks hide.
+// A row's causal limit is min(lengths + j, P * page); a row with nothing
+// to attend returns zeros.
+//
+// K5's insert: positions >= lengths-1 take their K/V from knew/vnew,
+// never from the pool: the bulk copies stop below lengths-1, and the new
+// rows are written into the stage in shared memory before the chunk's
+// scores. After the block's last copy has landed, the new rows are stored
+// into the pool as bit copies, so no copy of this block reads an address
+// the block writes. A write whose page index is >= P is dropped, as in the
+// TPU kernel. Only scratch page 0 can be written by several blocks at
+// once (inactive slots, all-zero table rows), which its
+// garbage-by-contract allows.
 #include <cfloat>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kThreads = 256;
+constexpr int kMaxRows = 40;        // g * S; the wrapper's MAX_VERIFY_ROWS
+constexpr int RB = 5;               // query rows a thread takes at a time
+constexpr int kMaxStages = 16;
+constexpr int kChunkBytes = 16384;  // a chunk's K (or V) bytes, at most
+constexpr int kMaxSplit = 16;       // key splits of the PV sum
+constexpr int kRingBytes = 65536;   // the ring of stages
+constexpr int kSmemLimit = 200 * 1024;
 constexpr float kNeg = -0.7f * FLT_MAX;
 
+// 16 bytes of T from shared memory, as floats.
 template <typename T>
-struct Bits;
+struct Vec16;
 template <>
-struct Bits<float> {
-  using type = unsigned int;
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* x) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
 };
 template <>
-struct Bits<__nv_bfloat16> {
-  using type = unsigned short;
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* x) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    }
+  }
 };
 
-template <typename T, int HD, int RG, bool INSERT, typename PoolPtr>
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Tokens per chunk and stages of the ring for a page size (host and
+// device agree through the launch arguments).
+struct Plan {
+  int chunk, stages;
+};
+
+// Bytes of the ring: its stages, and at least the PV partials that reuse
+// it at the end: [KS][Rp][HD] fp32, at most 20 * kThreads floats when
+// KS > 1 (KS * Rp * HD <= 4 * RB * kThreads) and kMaxRows * HD when KS = 1.
+template <typename T, int HD>
+__host__ __device__ inline size_t ring_bytes(int chunk, int stages) {
+  const size_t ring = (size_t)stages * 2 * chunk * HD * sizeof(T);
+  const size_t red = (size_t)(kMaxRows * HD > 20 * kThreads ? kMaxRows * HD
+                                                            : 20 * kThreads) *
+                     4;
+  return ring > red ? ring : red;
+}
+
+template <typename T, int HD>
+Plan plan(int page) {
+  Plan p;
+  p.chunk = kChunkBytes / (HD * (int)sizeof(T));
+  if (page < p.chunk) p.chunk = page;
+  p.stages = kRingBytes / (2 * p.chunk * HD * (int)sizeof(T));
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  return p;
+}
+
+// Rows are padded to Rp, a multiple of RB (the verify step's S = 5 rows
+// per query head fill it, for any g).
+template <typename T, int HD, bool INSERT, typename PoolPtr>
 __device__ __forceinline__ void verify_body(
     const T* __restrict__ q, PoolPtr k_pages, PoolPtr v_pages,
     const T* __restrict__ knew, const T* __restrict__ vnew,
     const int* __restrict__ lengths, const int* __restrict__ tables,
     T* __restrict__ out, int S, int G, int num_pages, int page, int P,
-    float scale) {
-  constexpr int VEC = HD / 32;        // head-dim elements per lane
-  constexpr int U = RG <= 2 ? 8 : 4;  // tokens per warp iteration
+    float scale, int chunk, int stages) {
+  constexpr int E = Vec16<T>::N;  // elements per 16 bytes
+  constexpr int CH = HD / E;      // 16-byte pieces per row
+  constexpr int C4 = HD / 4;      // 4-column slices per row
+  constexpr int NI =  // PV items per thread, at most
+      ((kMaxRows + RB - 1) / RB * C4 + kThreads - 1) / kThreads;
+  static_assert(E % 4 == 0, "q pieces are read as float4");
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t bars[kMaxStages];
+  __shared__ float row_m[kMaxRows], row_l[kMaxRows], row_a[kMaxRows];
+  __shared__ int row_lim[kMaxRows];
+
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int hkv = gridDim.y;
-  const int r0 = blockIdx.z * RG;     // first query row of this block
+  const int tid = threadIdx.x;
   const int R = G * S;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int Rp = (R + RB - 1) / RB * RB;
   const int h = hkv * G;
   const int cap = P * page;
   const int len = lengths[b];
   // Positions >= base come from knew/vnew (K5); K1' reads the pool only.
   const int base = INSERT ? len - 1 : cap;
-  const int* row = tables + (size_t)b * P;
   const size_t head_base = (size_t)kvh * num_pages;
 
-  if constexpr (INSERT) {
-    using B_t = typename Bits<T>::type;
-    const int n = blockIdx.z == 0 ? S * HD : 0;  // one row group writes
-    for (int idx = threadIdx.x; idx < n; idx += kWarps * 32) {
-      const int j = idx / HD;
-      const int d = idx % HD;
-      const int pos = base + j;
-      if (pos < 0 || pos >= cap) continue;
-      const size_t dst =
-          ((head_base + row[pos / page]) * page + pos % page) * HD + d;
-      const size_t src = (((size_t)b * S + j) * hkv + kvh) * HD + d;
-      reinterpret_cast<B_t*>(k_pages)[dst] =
-          reinterpret_cast<const B_t*>(knew)[src];
-      reinterpret_cast<B_t*>(v_pages)[dst] =
-          reinterpret_cast<const B_t*>(vnew)[src];
+  const int stage_elems = chunk * HD;  // one chunk of K (or V)
+  T* ring = reinterpret_cast<T*>(smem);
+  float* qs =
+      reinterpret_cast<float*>(smem + ring_bytes<T, HD>(chunk, stages));
+  float* sc = qs + Rp * HD;                          // [Rp][chunk]
+  int* tab = reinterpret_cast<int*>(sc + Rp * chunk);  // used pages
+
+  // The last row attends the most: positions < eff.
+  int eff = len + S - 1;
+  eff = eff < 0 ? 0 : (eff < cap ? eff : cap);
+  const int np = (eff + page - 1) / page;
+  const int cpp = (page + chunk - 1) / chunk;  // chunks per page
+  const int nc = np == 0 ? 0
+                         : (np - 1) * cpp +
+                               (eff - (np - 1) * page + chunk - 1) / chunk;
+  int pool_end = base < eff ? base : eff;  // copies stop below this
+  pool_end = pool_end < 0 ? 0 : pool_end;
+
+  for (int i = tid; i < np; i += kThreads) tab[i] = tables[(size_t)b * P + i];
+  // Row r of the block is query head kvh*G + r/S, token j = r%S.
+  for (int i = tid; i < Rp * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    qs[i] = r < R ? rt::to_float(q[(((size_t)b * S + r % S) * h + kvh * G +
+                                    r / S) * HD + d])
+                  : 0.f;
+  }
+  if (tid < Rp) {  // padded rows attend nothing
+    const int l = tid < R ? len + tid % S : 0;
+    row_lim[tid] = l < 0 ? 0 : (l < cap ? l : cap);
+    row_m[tid] = kNeg;
+    row_l[tid] = 0.f;
+    row_a[tid] = 1.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      hop::mbar_init(hop::smem_addr(&bars[s]), 1);
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Chunk c: positions [t0, t0 + n) of one page, as (t0, n).
+  auto span = [&](int c) {
+    const int o = (c % cpp) * chunk;
+    const int t0 = (c / cpp) * page + o;
+    int n = chunk < page - o ? chunk : page - o;
+    n = n < eff - t0 ? n : eff - t0;
+    return make_int2(t0, n);
+  };
+  // Thread 0: move chunk c's pool rows into its stage.
+  auto fetch = [&](int c) {
+    const int2 sp = span(c);
+    const int t0 = sp.x, n = sp.y;
+    const int st = c % stages;
+    const uint32_t bar = hop::smem_addr(&bars[st]);
+    int nb = pool_end - t0 < n ? pool_end - t0 : n;
+    nb = nb < 0 ? 0 : nb;
+    const uint32_t bytes = nb * HD * sizeof(T);
+    hop::mbar_expect_tx(bar, 2 * bytes);
+    if (bytes) {
+      const size_t off =
+          ((head_base + tab[t0 / page]) * page + t0 % page) * HD;
+      const uint32_t dst = hop::smem_addr(ring + (size_t)st * 2 * stage_elems);
+      hop::bulk_copy_g2s(dst, k_pages + off, bytes, bar);
+      hop::bulk_copy_g2s(dst + stage_elems * sizeof(T), v_pages + off, bytes,
+                         bar);
     }
-  }
+  };
+  if (tid == 0)
+    for (int c = 0; c < nc && c < stages; ++c) fetch(c);
 
-  // Row i of the group is query row r = r0 + i: query head kvh*G + r/S,
-  // token j = r%S, causal limit min(len + j, cap).
-  float qv[RG][VEC];
-  int lim[RG];
-  int eff = 0;
+  float acc[NI][RB][4];
 #pragma unroll
-  for (int i = 0; i < RG; ++i) {
-    const int r = r0 + i;
-    if (r < R) {
-      const int j = r % S;
-      rt::VecLoad<T, VEC>::run(
-          q + (((size_t)b * S + j) * h + kvh * G + r / S) * HD + lane * VEC,
-          qv[i]);
-      int l = len + j;
-      l = l < 0 ? 0 : (l < cap ? l : cap);
-      lim[i] = l;
-      eff = eff > l ? eff : l;
-    } else {
-      lim[i] = 0;
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int c = 0; c < VEC; ++c) qv[i][c] = 0.f;
-    }
-  }
+    for (int j = 0; j < RB; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
+  const int warp = tid / 32, lane = tid % 32;
+  // PV items: (group of RB rows, 4 columns) pairs, times KS key splits
+  // when the pairs alone would leave threads idle
+  const int pairs = Rp / RB * C4;
+  int KS = pairs >= kThreads ? 1 : kThreads / pairs;
+  KS = KS < kMaxSplit ? KS : kMaxSplit;
 
-  float m[RG], l[RG], acc[RG][VEC];
-#pragma unroll
-  for (int i = 0; i < RG; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t0 = warp * U; t0 < eff; t0 += kWarps * U) {
-    float kf[U][VEC], vf[U][VEC];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u;
-      if (t < eff) {
-        if (INSERT && t >= base) {
-          const size_t off =
-              (((size_t)b * S + (t - base)) * hkv + kvh) * HD + lane * VEC;
-          rt::VecLoad<T, VEC>::run(knew + off, kf[u]);
-          rt::VecLoad<T, VEC>::run(vnew + off, vf[u]);
-        } else {
-          const size_t off =
-              ((head_base + row[t / page]) * page + (t % page)) * HD +
-              lane * VEC;
-          rt::VecLoad<T, VEC>::run(k_pages + off, kf[u]);
-          rt::VecLoad<T, VEC>::run(v_pages + off, vf[u]);
+  for (int c = 0; c < nc; ++c) {
+    const int2 sp = span(c);
+    const int t0 = sp.x, n = sp.y;
+    const int st = c % stages;
+    T* Ks = ring + (size_t)st * 2 * stage_elems;
+    const T* Vs = Ks + stage_elems;
+    hop::mbar_wait(hop::smem_addr(&bars[st]), (c / stages) & 1);
+    if constexpr (INSERT) {
+      const int f0 = t0 > base ? t0 : base;  // first row from knew/vnew
+      if (f0 < t0 + n) {                     // uniform across the block
+        for (int i = tid; i < (t0 + n - f0) * CH; i += kThreads) {
+          const int t = f0 + i / CH, e = (i % CH) * E;
+          const size_t src =
+              (((size_t)b * S + (t - base)) * hkv + kvh) * HD + e;
+          T* dst = Ks + (t - t0) * HD + e;
+          *reinterpret_cast<uint4*>(dst) =
+              *reinterpret_cast<const uint4*>(knew + src);
+          *reinterpret_cast<uint4*>(dst + stage_elems) =
+              *reinterpret_cast<const uint4*>(vnew + src);
         }
-      } else {
-#pragma unroll
-        for (int c = 0; c < VEC; ++c) kf[u][c] = vf[u][c] = 0.f;
+        hop::fence_async_smem();  // before a later bulk copy reuses it
+        __syncthreads();
       }
     }
+
+    // scores: item = (key kk, rows r0 .. r0 + RB - 1)
+    for (int it = tid; it < chunk * (Rp / RB); it += kThreads) {
+      const int kk = it % chunk, r0 = (it / chunk) * RB;
+      if (kk >= n) continue;
+      const T* krow = Ks + kk * HD;
+      float s[RB];
 #pragma unroll
-    for (int i = 0; i < RG; ++i) {
-      if (r0 + i >= R) continue;  // uniform across the block
-      float s[U];
+      for (int i = 0; i < RB; ++i) s[i] = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < CH; ++p) {
+        const int e = ((p + kk) % CH) * E;
+        float kf[E];
+        Vec16<T>::load(krow + e, kf);
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float part = 0.f;
+        for (int i = 0; i < RB; ++i) {
 #pragma unroll
-        for (int c = 0; c < VEC; ++c) part += qv[i][c] * kf[u][c];
-        s[u] = part;
+          for (int x = 0; x < E; x += 4) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qs + (r0 + i) * HD + e + x);
+            s[i] = fmaf(qv.x, kf[x], s[i]);
+            s[i] = fmaf(qv.y, kf[x + 1], s[i]);
+            s[i] = fmaf(qv.z, kf[x + 2], s[i]);
+            s[i] = fmaf(qv.w, kf[x + 3], s[i]);
+          }
+        }
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+      for (int i = 0; i < RB; ++i) sc[(r0 + i) * chunk + kk] = s[i] * scale;
+    }
+    __syncthreads();
+
+    // softmax: warp w updates rows w, w + 8, ...; scores become P
+    for (int r = warp; r < R; r += kThreads / 32) {
+      const int lim = row_lim[r] - t0;  // keys kk < lim are attended
+      float* sr = sc + r * chunk;
+      float mx = kNeg;
+      for (int kk = lane; kk < n; kk += 32)
+        if (kk < lim) mx = fmaxf(mx, sr[kk]);
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, warp_max(mx));
+      float sum = 0.f;
+      for (int kk = lane; kk < n; kk += 32) {
+        const float p = kk < lim ? expf(sr[kk] - m_new) : 0.f;
+        sr[kk] = p;
+        sum += p;
       }
-      float cmax = kNeg;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        s[u] = (t0 + u < lim[i]) ? s[u] * scale : kNeg;
-        cmax = fmaxf(cmax, s[u]);
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float a = expf(m_old - m_new);
+        row_a[r] = a;
+        row_l[r] = row_l[r] * a + sum;
+        row_m[r] = m_new;
       }
-      const float m_new = fmaxf(m[i], cmax);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
+    }
+    __syncthreads();
+
+    // PV: item = (key split ks, rows r0 .. r0 + RB - 1, columns d .. d + 3);
+    // split ks sums keys ks, ks + KS, ... of each chunk into its own partial
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        s[u] = (t0 + u < lim[i]) ? expf(s[u] - m_new) : 0.f;
-        psum += s[u];
+    for (int i = 0; i < NI; ++i) {
+      const int it = tid + i * kThreads;
+      const int ks = it / pairs, r0 = it % pairs / C4 * RB, d = it % C4 * 4;
+      if (it < pairs * KS) {
+        float x[RB][4];
+#pragma unroll
+        for (int j = 0; j < RB; ++j) {
+          const float a = row_a[r0 + j];
+#pragma unroll
+          for (int y = 0; y < 4; ++y) x[j][y] = acc[i][j][y] * a;
+        }
+        const float* pr = sc + r0 * chunk;
+#pragma unroll 2
+        for (int kk = ks; kk < n; kk += KS) {
+          float vf[4];
+          rt::VecLoad<T, 4>::run(Vs + kk * HD + d, vf);
+#pragma unroll
+          for (int j = 0; j < RB; ++j) {
+            const float p = pr[j * chunk + kk];
+#pragma unroll
+            for (int y = 0; y < 4; ++y) x[j][y] = fmaf(p, vf[y], x[j][y]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < RB; ++j)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) acc[i][j][y] = x[j][y];
       }
-      l[i] = l[i] * alpha + psum;
-#pragma unroll
-      for (int c = 0; c < VEC; ++c) {
-        float a = acc[i][c] * alpha;
-#pragma unroll
-        for (int u = 0; u < U; ++u) a += s[u] * vf[u][c];
-        acc[i][c] = a;
-      }
-      m[i] = m_new;
+    }
+    __syncthreads();  // every reader of this stage and of the scores done
+    if (tid == 0 && c + stages < nc) {
+      hop::fence_async_smem();
+      fetch(c + stages);
     }
   }
 
-  __shared__ float sm_m[kWarps][RG];
-  __shared__ float sm_l[kWarps][RG];
-  __shared__ float sm_acc[kWarps][RG][HD];
+  // Sum the key splits' partials through the (now idle) ring, then
+  // divide by the row sums.
+  float* red = reinterpret_cast<float*>(smem);  // [KS][Rp][HD]
 #pragma unroll
-  for (int i = 0; i < RG; ++i) {
+  for (int i = 0; i < NI; ++i) {
+    const int it = tid + i * kThreads;
+    if (it < pairs * KS) {
+      const int ks = it / pairs, r0 = it % pairs / C4 * RB, d = it % C4 * 4;
 #pragma unroll
-    for (int c = 0; c < VEC; ++c) sm_acc[warp][i][lane * VEC + c] = acc[i][c];
-    if (lane == 0) {
-      sm_m[warp][i] = m[i];
-      sm_l[warp][i] = l[i];
+      for (int j = 0; j < RB; ++j)
+        *reinterpret_cast<float4*>(red + (ks * Rp + r0 + j) * HD + d) =
+            make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2],
+                        acc[i][j][3]);
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < RG * HD; idx += kWarps * 32) {
-    const int i = idx / HD;
-    const int d = idx % HD;
-    const int r = r0 + i;
-    if (r >= R) break;  // rows past R come last in idx order
-    float mx = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][i]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][i] - mx);
-      lsum += sm_l[w][i] * f;
-      a += sm_acc[w][i][d] * f;
-    }
-    if (lsum == 0.f) lsum = 1.f;
+  for (int i = tid; i < R * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    float x = 0.f;
+    for (int ks = 0; ks < KS; ++ks) x += red[ks * Rp * HD + i];
+    const float l = row_l[r];
     out[(((size_t)b * S + r % S) * h + kvh * G + r / S) * HD + d] =
-        rt::from_float<T>(a / lsum);
+        rt::from_float<T>(l > 0.f ? x / l : 0.f);
+  }
+
+  if constexpr (INSERT) {
+    // Every copy of this block has landed (each chunk was waited for).
+    for (int i = tid; i < S * CH; i += kThreads) {
+      const int j = i / CH, e = (i % CH) * E;
+      const int pos = base + j;
+      if (pos < 0 || pos >= cap) continue;
+      const size_t dst =
+          ((head_base + tab[pos / page]) * page + pos % page) * HD + e;
+      const size_t src = (((size_t)b * S + j) * hkv + kvh) * HD + e;
+      *reinterpret_cast<uint4*>(k_pages + dst) =
+          *reinterpret_cast<const uint4*>(knew + src);
+      *reinterpret_cast<uint4*>(v_pages + dst) =
+          *reinterpret_cast<const uint4*>(vnew + src);
+    }
   }
 }
 
-// K1': the pools are only read (read-only, non-aliased: the compiler may
-// use the non-coherent load path).
-template <typename T, int HD, int RG>
-__global__ void __launch_bounds__(kWarps * 32)
+// K1': the pools are only read.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 3)
 paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tables, T* __restrict__ out,
                     int S, int G, int num_pages, int page, int P,
-                    float scale) {
-  verify_body<T, HD, RG, false>(q, k_pages, v_pages, nullptr, nullptr,
-                                lengths, tables, out, S, G, num_pages, page,
-                                P, scale);
+                    float scale, int chunk, int stages) {
+  verify_body<T, HD, false>(q, k_pages, v_pages, nullptr, nullptr, lengths,
+                            tables, out, S, G, num_pages, page, P, scale,
+                            chunk, stages);
 }
 
-// K5: the pools are written, so they are plain (coherent) pointers.
-template <typename T, int HD, int RG>
-__global__ void __launch_bounds__(kWarps * 32)
+// K5: the pools are written, so they are plain pointers.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 3)
 paged_verify_insert_kernel(const T* __restrict__ q, T* k_pages, T* v_pages,
                            const T* __restrict__ knew,
                            const T* __restrict__ vnew,
                            const int* __restrict__ lengths,
                            const int* __restrict__ tables,
                            T* __restrict__ out, int S, int G, int num_pages,
-                           int page, int P, float scale) {
-  verify_body<T, HD, RG, true>(q, k_pages, v_pages, knew, vnew, lengths,
-                               tables, out, S, G, num_pages, page, P, scale);
+                           int page, int P, float scale, int chunk,
+                           int stages) {
+  verify_body<T, HD, true>(q, k_pages, v_pages, knew, vnew, lengths, tables,
+                           out, S, G, num_pages, page, P, scale, chunk,
+                           stages);
 }
 
 struct Args {
@@ -273,40 +471,54 @@ struct Args {
   bool insert;
 };
 
-template <typename T, int HD, int RG>
+// Raise a kernel's dynamic shared-memory allowance to `bytes`.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int* allowed) {
+  if (bytes <= *allowed) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *allowed = bytes;
+  return 0;
+}
+
+template <typename T, int HD>
 int launch(const Args& a, cudaStream_t stream) {
-  const int R = a.G * a.S;
-  dim3 grid(a.B, a.hkv, (R + RG - 1) / RG);
+  const Plan pl = plan<T, HD>(a.page);
+  const int Rp = (a.G * a.S + RB - 1) / RB * RB;
+  const size_t bytes = ring_bytes<T, HD>(pl.chunk, pl.stages) +
+                       (size_t)Rp * HD * 4 + (size_t)Rp * pl.chunk * 4 +
+                       (size_t)a.P * 4;
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(a.B, a.hkv);
   const T* q = static_cast<const T*>(a.q);
   T* out = static_cast<T*>(a.out);
   if (a.insert) {
-    paged_verify_insert_kernel<T, HD, RG><<<grid, kWarps * 32, 0, stream>>>(
+    static int allowed = 0;
+    if (int e = allow_smem(paged_verify_insert_kernel<T, HD>, (int)bytes,
+                           &allowed))
+      return e;
+    paged_verify_insert_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         q, static_cast<T*>(a.k_pages), static_cast<T*>(a.v_pages),
         static_cast<const T*>(a.knew), static_cast<const T*>(a.vnew),
         a.lengths, a.tables, out, a.S, a.G, a.num_pages, a.page, a.P,
-        a.scale);
+        a.scale, pl.chunk, pl.stages);
   } else {
-    paged_verify_kernel<T, HD, RG><<<grid, kWarps * 32, 0, stream>>>(
+    static int allowed = 0;
+    if (int e = allow_smem(paged_verify_kernel<T, HD>, (int)bytes, &allowed))
+      return e;
+    paged_verify_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         q, static_cast<const T*>(a.k_pages), static_cast<const T*>(a.v_pages),
         a.lengths, a.tables, out, a.S, a.G, a.num_pages, a.page, a.P,
-        a.scale);
+        a.scale, pl.chunk, pl.stages);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows per block: the least of 2, 4, 8 that holds all g*S rows, else 8.
-template <typename T, int HD>
-int dispatch_rows(const Args& a, cudaStream_t s) {
-  const int R = a.G * a.S;
-  if (R <= 2) return launch<T, HD, 2>(a, s);
-  if (R <= 4) return launch<T, HD, 4>(a, s);
-  return launch<T, HD, 8>(a, s);
-}
-
 template <typename T>
 int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
-  if (hd == 64) return dispatch_rows<T, 64>(a, s);
-  if (hd == 128) return dispatch_rows<T, 128>(a, s);
+  if (hd == 64) return launch<T, 64>(a, s);
+  if (hd == 128) return launch<T, 128>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -315,8 +527,8 @@ int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
 // q [B, S, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (one
 // layer); knew/vnew [B, S, hkv, hd] (read only when insert != 0);
 // lengths [B] int32 (the causal limit of query 0); tables [B, P] int32;
-// out [B, S, hkv*G, hd]. dtype: 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t.
+// out [B, S, hkv*G, hd]. Pointers 16-byte aligned (the bulk copies).
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int rt_paged_verify(const void* q, void* k_pages, void* v_pages,
                                const void* knew, const void* vnew,
                                const int* lengths, const int* tables,
@@ -324,7 +536,8 @@ extern "C" int rt_paged_verify(const void* q, void* k_pages, void* v_pages,
                                int hd, int num_pages, int page, int P,
                                float scale, int dtype, int insert,
                                void* stream) {
-  if (S < 1 || G < 1 || G * S > 40 || (insert && (!knew || !vnew)))
+  if (S < 1 || G < 1 || G * S > kMaxRows || page < 1 ||
+      (insert && (!knew || !vnew)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q,   k_pages, v_pages,   knew, vnew, lengths, tables, out,
                B,   S,       hkv,       G,    num_pages,     page,   P,

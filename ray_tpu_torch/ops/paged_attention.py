@@ -226,8 +226,12 @@ def _verify_lib():
     return lib
 
 
-# The most query rows (g * S) of one kv head the verify kernels take.
+# The most query rows (g * S) of one kv head the verify kernels take: one
+# block holds all of them.
 MAX_VERIFY_ROWS = 40
+# The most pages a slot's table row may hold: the verify kernels keep the
+# row in shared memory (16 KB at most).
+MAX_VERIFY_PAGES = 4096
 
 
 def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
@@ -258,6 +262,10 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
         raise ValueError(f"{what}: kernel supports head_dim 64/128 and 1-"
                          f"{MAX_VERIFY_ROWS} query rows (h/hkv * S) per kv "
                          f"head, got hd={hd}, h={h}, hkv={hkv}, S={S}")
+    if page_tables.shape[1] > MAX_VERIFY_PAGES:
+        raise ValueError(f"{what}: kernel supports page tables of at most "
+                         f"{MAX_VERIFY_PAGES} pages per slot, got "
+                         f"{page_tables.shape[1]}")
     ts = (q, k_pages, v_pages, *news, lengths, page_tables)
     if any(t.device != q.device for t in ts):
         raise ValueError(f"{what}: all inputs must be on one device")
@@ -265,7 +273,7 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
         raise ValueError(f"{what}: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, *news)):
         raise ValueError(f"{what}: q, pools and new K/V must be 16-byte "
-                         f"aligned")
+                         f"aligned (the kernels move pages by bulk copies)")
     out = torch.empty_like(q)
     lib = _verify_lib()
     with torch.cuda.device(q.device):

@@ -112,13 +112,29 @@ def _jax_layout(port_pages):
 # ---- K1': paged verify ----
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_verify_plain_matches_jax_kernel_and_reference(dtype):
-    """GQA 4/2 with S = 3 queries per slot, lengths at page edges and one
-    slot whose last queries run past the P-page cap."""
+# (S, h, hkv, lengths); page 8, P 4, hd 16.
+_VERIFY_CASES = {
+    # GQA 4/2 with S = 3, lengths at page edges and one slot whose last
+    # queries run past the P-page cap
+    "base": (3, 4, 2, [1, 7, 8, 11, 31]),
+    # g * S = 8 * 5 = 40 query rows per kv head: the CUDA kernels' limit
+    "rows40": (5, 8, 1, [6, 13, 20]),
+    # S = 5 queries at positions 5..9, 13..17, 22..26: each straddles a
+    # page edge
+    "straddle": (5, 4, 2, [6, 14, 23]),
+}
+
+
+@pytest.mark.parametrize("dtype,case", [
+    pytest.param(dt, case, id=dt if case == "base" else f"{dt}-{case}")
+    for case in _VERIFY_CASES for dt in ("float32", "bfloat16")])
+def test_paged_verify_plain_matches_jax_kernel_and_reference(dtype, case):
+    """The plain K1' against the JAX Pallas body (interpret mode) and its
+    dense reference on `_VERIFY_CASES`."""
     rng = np.random.default_rng(0)
-    B, S, h, hkv, hd, page, N, P = 5, 3, 4, 2, 16, 8, 16, 4
-    lengths = np.array([1, page - 1, page, page + 3, P * page - 1], np.int32)
+    S, h, hkv, lengths = _VERIFY_CASES[case]
+    B, hd, page, N, P = len(lengths), 16, 8, 16, 4
+    lengths = np.array(lengths, np.int32)
     q = rng.normal(size=(B, S, h, hd)).astype(np.float32)
     kp, vp = (rng.normal(size=(hkv, N, page, hd)).astype(np.float32)
               for _ in range(2))
@@ -150,6 +166,9 @@ _INSERT_CASES = {
     # an inactive slot's all-zero table row: its writes go to scratch
     "zero_row": (2, 4, 2, 2, [12, 20], (1,)),
     "gqa": (3, 3, 8, 2, [9, 16, 25], ()),
+    # g * S = 8 * 5 = 40 query rows per kv head (the CUDA kernels' limit);
+    # the writes at 5..9 and 14..18 straddle page edges
+    "rows40": (2, 5, 8, 1, [6, 15], ()),
 }
 
 
@@ -222,6 +241,23 @@ def test_verify_wrappers_validate_before_launch():
     with pytest.raises(TypeError):
         t_paged._verify_cuda(q, pages, pages, new, new, lens, tabs,
                              "paged_verify_insert")
+
+
+def test_verify_wrappers_refuse_long_page_tables():
+    """The verify kernels keep a slot's page-table row in shared memory:
+    the CUDA wrapper refuses rows of more than MAX_VERIFY_PAGES pages
+    (checked on meta tensors, before any build or launch)."""
+    meta = dict(device="meta")
+    pages = torch.empty(2, 3, 8, 64, **meta)
+    lens = torch.empty(2, dtype=torch.int32, **meta)
+    q = torch.empty(2, 2, 4, 64, **meta)
+    for what, new in (("paged_verify", None),
+                      ("paged_verify_insert", torch.empty(2, 2, 2, 64,
+                                                          **meta))):
+        tabs = torch.empty(2, t_paged.MAX_VERIFY_PAGES + 1,
+                           dtype=torch.int32, **meta)
+        with pytest.raises(ValueError, match="page tables"):
+            t_paged._verify_cuda(q, pages, pages, new, new, lens, tabs, what)
 
 
 # ---- the verify forward ----
