@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port (`ray_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --serve-ab ../parent --pairs 10
+                                     # only the serve phase, this checkout
+                                     # against another, in alternation
 
 Phases (each raises on failure, so the script exits non-zero and prints
 no result line):
@@ -21,8 +24,13 @@ no result line):
               plain version's time, the least time the card could take
               (bound), the achieved TFLOP/s and share of the bound and,
               where one PyTorch call computes the same function, that
-              call's time; K2 and K3/K4 also at S = 1, 63, 65, 129 and
-              1000 (the edges of their 64-row tiles) in bf16;
+              call's time; K1 (the split-KV cluster kernel) over g = 1-16
+              and its chunk and split edges, two calls bit-equal, timed at
+              the serving shape and at a long context, and under each
+              split count at 1-32 slots beside its plan's; K1'/K5 up to 48
+              query rows per kv head (two row groups); K2 and K3/K4 also
+              at S = 1, 63, 65, 129 and 1000 (the edges of their 64-row
+              tiles) in bf16;
  4. serve   — the engine at full Llama-125M width (bf16, seeded random
               weights): 32 requests of 127 tokens plus 4 sharing a
               128-token prefix, 64 greedy tokens each; the paged-decode
@@ -44,7 +52,9 @@ no result line):
  7. spec-exact — fp32 again: the speculative engine's greedy tokens must
               equal the plain engine's and the argmax loop's, with drafts
               accepted; then a 2-iteration speculative window with mixed
-              temperatures under CUDA sync debug mode "error";
+              temperatures under CUDA sync debug mode "error"; then the
+              same equalities for a 2-layer model with 8 query heads per
+              kv head at spec_k 5 (48 verify rows per kv head);
  8. train   — the train step (`make_train_step` + `loss_fn` + `adamw`)
               at full Llama-125M width and depth in bf16 on a fixed
               16 x 1024 batch: 3 warm-up and 10 timed steps; the forward
@@ -243,56 +253,168 @@ def k1_case(torch, B, h, hkv, hd, page, P, lengths, dtype, seed, layers=1):
 
 
 def check_k1(torch, results):
+    """K1 against its plain version at llama-125m (12/12) and llama3-1b
+    GQA (32/8) widths, g = 7 and 8 at head_dim 128 (qwen2-7b's and
+    llama3-70b's groups: 8 query heads in one block) and g = 16 at 64 (two
+    row groups), bf16 and fp32, over lengths 0, 1, 63-65 and 127-129
+    (chunk and split edges), page edges, 1024 and past the 8-page table;
+    then the serving plan (P = 2) and 16-token pages (a two-stage ring of
+    16-token chunks); each case under the plan `decode_plan` picks and,
+    where that is another, under 8 splits; two calls must give the same
+    bytes. Then the times at the serving shape and at a long context,
+    beside the verify body's (K1') at S = 1, and every split count timed
+    at the shapes the split rule is set from (`time_k1_plans`)."""
     from ray_tpu_torch.ops import paged_attention as PA
     errs = []
-    for label, h, hkv in (("llama-125m", 12, 12), ("llama3-1b GQA", 32, 8)):
-        rng_l = [1, 127, 128, 129, 1024, 255, 256, 257]
-        g = torch.Generator().manual_seed(1)
-        rng_l += torch.randint(1, 1025, (24,), generator=g).tolist()
-        for dtype in (torch.bfloat16, torch.float32):
-            q, pk, pv, lens, tables = k1_case(torch, 32, h, hkv, 64, 128, 8,
-                                              rng_l, dtype, seed=2)
-            got = PA.paged_decode_attention(q, pk[0], pv[0], lens, tables)
-            want = PA.paged_decode_attention_reference(q, pk[0], pv[0],
-                                                       lens, tables)
+    rng_l = [0, 1, 63, 64, 65, 127, 128, 129, 1024, 255, 256, 257, 1100]
+    g = torch.Generator().manual_seed(1)
+    rng_l += torch.randint(1, 1025, (24,), generator=g).tolist()
+    lens_serve = torch.randint(120, 200, (32,), generator=g).tolist()
+    cases = [(label, h, hkv, hd, 128, 8, rng_l, dtype)
+             for label, h, hkv, hd in (("llama-125m", 12, 12, 64),
+                                       ("llama3-1b GQA", 32, 8, 64),
+                                       ("g 7 hd 128", 28, 4, 128),
+                                       ("g 8 hd 128", 64, 8, 128),
+                                       ("g 16 hd 64", 32, 2, 64))
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("serving plan P 2", 12, 12, 64, 128, 2, lens_serve, dtype)
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("16-token pages", 16, 4, 128, 16, 16, [0, 1, 15, 16, 17, 63,
+                                                       64, 65, 200, 255,
+                                                       256, 300], dtype)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for label, h, hkv, hd, page, P, lens_l, dtype in cases:
+        q, pk, pv, lens, tables = k1_case(torch, len(lens_l), h, hkv, hd,
+                                          page, P, lens_l, dtype, seed=2)
+        want = PA.paged_decode_attention_reference(q, pk[0], pv[0], lens,
+                                                   tables)
+        dn = str(dtype).split(".")[1]
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        rule = PA.decode_plan(P, page, hd, q.element_size(), h // hkv,
+                              len(lens_l) * hkv)
+        eight = PA.decode_plan(P, page, hd, q.element_size(), h // hkv,
+                               len(lens_l) * hkv, splits=8)
+        outs = {}
+        for pl in dict.fromkeys((rule, eight)):
+            got = PA._paged_decode_cuda(q, pk[0], pv[0], lens, tables, pl)
+            again = PA._paged_decode_cuda(q, pk[0], pv[0], lens, tables, pl)
             torch.cuda.synchronize()
-            dn = str(dtype).split(".")[1]
+            same = torch.equal(got.view(bits), again.view(bits))
             err = (got.float() - want.float()).abs().max().item()
-            ok = math.isfinite(err) and err <= TOL[dn]
-            log(f"  K1 paged_decode {label} {dn}: max_abs_err {err:.3e} "
-                f"(tol {TOL[dn]}) {'ok' if ok else 'FAIL'}")
+            ok = math.isfinite(err) and err <= TOL[dn] and same
+            log(f"  K1 paged_decode {label} ({h}/{hkv}, hd {hd}, page "
+                f"{page}, P {P}: {pl.splits} splits of {pl.split_len}"
+                f"{' (the rule)' if pl == rule else ''}, chunk {pl.chunk}, "
+                f"{pl.stages} stage(s), {pl.row_groups} row group(s) of "
+                f"{pl.rows}) {dn}: max_abs_err {err:.3e} (tol {TOL[dn]}), "
+                f"two calls {'bit-equal' if same else 'DIFFER'} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"K1 {label} {dn} disagrees: {err}")
+                raise AssertionError(f"K1 {label} {dn} disagrees: {err}, "
+                                     f"deterministic {same}")
             errs.append(err)
-    # timing at the serving path's shape: 32 slots at lengths 128-191,
-    # a 2-page table bucket, 12 layers' pools visited in turn (the
-    # per-layer working set, 15.7 MB, would otherwise sit in L2)
-    g = torch.Generator().manual_seed(3)
-    lens_l = torch.randint(128, 192, (32,), generator=g).tolist()
-    q, pk, pv, lens, tables = k1_case(torch, 32, 12, 12, 64, 128, 2, lens_l,
-                                      torch.bfloat16, seed=4, layers=12)
-    kern = lambda i: PA.paged_decode_attention(  # noqa: E731
-        q, pk[i % 12], pv[i % 12], lens, tables)
-    plain = lambda i: PA.paged_decode_attention_reference(  # noqa: E731
-        q, pk[i % 12], pv[i % 12], lens, tables)
-    ms = device_ms(torch, kern, 240)
-    plain_ms = device_ms(torch, plain, 24)
-    tokens = sum(min(x, 2 * 128) for x in lens_l)
-    isz = 2
-    nbytes = (tokens * 12 * 64 * 2 * isz          # K and V rows, once
-              + 2 * q.numel() * isz               # q in, out
-              + lens.numel() * 4 + tables.numel() * 4)
-    flops = 4 * 12 * 64 * tokens                  # QK and PV
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"  K1 time at 32x12x64 bf16, lengths 128-191: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e6:.1f} MB); {rate(flops, ms, b_ms)}")
+            outs[pl] = got
+        # the public entry point takes the rule's plan
+        got = PA.paged_decode_attention(q, pk[0], pv[0], lens, tables)
+        if not torch.equal(got.view(bits), outs[rule].view(bits)):
+            raise AssertionError(f"K1 {label} {dn}: the entry point's output "
+                                 f"differs from decode_plan's plan's")
+        del q, pk, pv, got, again, want, outs
+    # times at the serving path's shape (32 slots at lengths 128-191, a
+    # 2-page table bucket) and at a long context (lengths 896-1023, 8
+    # pages); 12 layers' pools visited in turn (a layer's working set,
+    # 15.6 MB at the serving shape, would otherwise sit in L2)
+    times = {}
+    for label, lo, hi, P in (("lengths 128-191", 128, 192, 2),
+                             ("long context, lengths 896-1023", 896, 1024,
+                              8)):
+        g = torch.Generator().manual_seed(3)
+        lens_l = torch.randint(lo, hi, (32,), generator=g).tolist()
+        q, pk, pv, lens, tables = k1_case(torch, 32, 12, 12, 64, 128, P,
+                                          lens_l, torch.bfloat16, seed=4,
+                                          layers=12)
+        kern = lambda i: PA.paged_decode_attention(  # noqa: E731
+            q, pk[i % 12], pv[i % 12], lens, tables)
+        plain = lambda i: PA.paged_decode_attention_reference(  # noqa: E731
+            q, pk[i % 12], pv[i % 12], lens, tables)
+        ms = device_ms(torch, kern, 240)
+        plain_ms = device_ms(torch, plain, 24)
+        tokens = sum(min(x, P * 128) for x in lens_l)
+        isz = 2
+        nbytes = (tokens * 12 * 64 * 2 * isz          # K and V rows, once
+                  + 2 * q.numel() * isz               # q in, out
+                  + lens.numel() * 4 + tables.numel() * 4)
+        flops = 4 * 12 * 64 * tokens                  # QK and PV
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        # the yardstick K1's design was chosen against: the verify body
+        # (K1', one body for both modes as in the TPU kernel) at S = 1
+        q1 = q[:, None].contiguous()
+        k1p_ms = device_ms(torch, lambda i: PA.paged_verify_attention(
+            q1, pk[i % 12], pv[i % 12], lens, tables), 240)
+        log(f"  K1 time at 32x12x64 bf16, {label}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, the verify body (K1') at S = 1 "
+            f"{k1p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{nbytes / 1e6:.1f} MB); {rate(flops, ms, b_ms)}")
+        times[label] = (ms, plain_ms, b_ms, b_by)
+        del q, q1, pk, pv
+    time_k1_plans(torch)
+    ms, plain_ms, b_ms, b_by = times["lengths 128-191"]
     results["paged_decode"] = dict(
         name="paged_decode", route="cuda",
         source="ray_tpu_torch/ops/csrc/paged_decode.cu",
         replaces="ray_tpu/ops/paged_attention.py:78", launches=None,
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
+
+
+def time_k1_plans(torch):
+    """K1 under each split count (1, 2, 4, 8) beside the plan
+    `decode_plan` picks, at the serving shape, a long context, few slots
+    (1 and 4) and 32-page tables, at llama-125m's heads (12/12, hd 64) and
+    llama3-8b's (32/8, hd 128), bf16: the measurements the split rule is
+    set from. Each plan is held against the plain version before it is
+    timed. Enough layers' pools are visited in turn that the K/V a run of
+    calls reads is twice the card's 50 MB L2."""
+    from ray_tpu_torch.ops import paged_attention as PA
+    for label, B, h, hkv, hd, P, lo, hi in (
+            ("serving", 32, 12, 12, 64, 2, 128, 192),
+            ("long", 32, 12, 12, 64, 8, 896, 1024),
+            ("4 slots", 4, 12, 12, 64, 2, 128, 192),
+            ("4 slots long", 4, 12, 12, 64, 8, 896, 1024),
+            ("1 slot", 1, 12, 12, 64, 2, 128, 192),
+            ("1 slot long", 1, 12, 12, 64, 8, 896, 1024),
+            ("1 slot 4k", 1, 12, 12, 64, 32, 3968, 4096),
+            ("4 slots 4k", 4, 12, 12, 64, 32, 3968, 4096),
+            ("llama3-8b 4 slots long", 4, 32, 8, 128, 8, 896, 1024),
+            ("llama3-8b 32 slots long", 32, 32, 8, 128, 8, 896, 1024)):
+        g = torch.Generator().manual_seed(5)
+        lens_l = torch.randint(lo, hi, (B,), generator=g).tolist()
+        tokens = sum(min(x, P * 128) for x in lens_l)
+        nbytes = (tokens * hkv * hd * 2 * 2 + 2 * B * h * hd * 2
+                  + B * 4 * (1 + P))
+        layers = min(256, max(12, math.ceil(100e6 / nbytes)))
+        q, pk, pv, lens, tables = k1_case(torch, B, h, hkv, hd, 128, P,
+                                          lens_l, torch.bfloat16, seed=6,
+                                          layers=layers)
+        want = PA.paged_decode_attention_reference(q, pk[0], pv[0], lens,
+                                                   tables)
+        rule = PA.decode_plan(P, 128, hd, 2, h // hkv, B * hkv)
+        cells = []
+        for n in (1, 2, 4, 8):
+            pl = PA.decode_plan(P, 128, hd, 2, h // hkv, B * hkv, splits=n)
+            got = PA._paged_decode_cuda(q, pk[0], pv[0], lens, tables, pl)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= TOL["bfloat16"]:
+                raise AssertionError(f"K1 plan {pl} at {label}: {err}")
+            ms = device_ms(torch, lambda i: PA._paged_decode_cuda(  # noqa: B023
+                q, pk[i % layers], pv[i % layers], lens, tables, pl), 240)
+            cells.append(f"{pl.splits}{'*' if pl == rule else ''} "
+                         f"{ms * 1e3:.2f}")
+        b_ms, _ = bound_ms(nbytes, 4 * h * hd * tokens, "bfloat16")
+        log(f"  K1 splits at {label} (B {B}, {h}/{hkv}, hd {hd}, P {P}, "
+            f"lengths {lo}-{hi - 1}; {layers} layers): us by splits "
+            f"{'; '.join(cells)} (* the rule's); bound {b_ms * 1e3:.2f} us")
+        del q, pk, pv, want, got
 
 
 def verify_case(torch, B, S, h, hkv, hd, page, P, lengths, dtype, seed,
@@ -351,18 +473,21 @@ def check_verify(torch, results):
     writes scratch page 0: its attention reads scratch that other slots'
     writes race with, so it is left out of the attention comparison); its
     written pools must equal the plain insert's bit for bit on every page
-    but scratch. Also 40 query rows per kv head (32/4), the kernels'
-    limit. Then the times at the serving shape and at a long context."""
+    but scratch. Also 40 query rows per kv head (32/4: one row group),
+    42 (28/4 at hd 128, S 6: qwen2-7b's g at spec_k 5) and 48 (64/8 at hd
+    128, S 6: llama3-70b's) in two row groups. Then the times at the
+    serving shape and at a long context."""
     from ray_tpu_torch.ops import paged_attention as PA
-    S = 5
     errs = {"k1p": [], "k5": []}
     rng_l = [1, 127, 128, 129, 1024, 255, 256, 257]
     g = torch.Generator().manual_seed(1)
     rng_l += torch.randint(1, 1025, (24,), generator=g).tolist()
-    for label, h, hkv, hd in (("llama-125m", 12, 12, 64),
-                              ("llama3-1b GQA", 32, 8, 64),
-                              ("hd 128 GQA", 16, 8, 128),
-                              ("40 rows per kv head", 32, 4, 64)):
+    for label, h, hkv, hd, S in (("llama-125m", 12, 12, 64, 5),
+                                 ("llama3-1b GQA", 32, 8, 64, 5),
+                                 ("hd 128 GQA", 16, 8, 128, 5),
+                                 ("40 rows per kv head", 32, 4, 64, 5),
+                                 ("42 rows per kv head", 28, 4, 128, 6),
+                                 ("48 rows per kv head", 64, 8, 128, 6)):
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             q, pk, pv, _kn, _vn, lens, tables = verify_case(
@@ -391,7 +516,9 @@ def check_verify(torch, results):
                        for a, b in ((pk, rk), (pv, rv)))
             aliased = ok_k is pk and ok_v is pv
             ok = all(math.isfinite(x) and x <= TOL[dn] for x in (e1, e5))
-            log(f"  K1' paged_verify {label} hd {hd} {dn}: max_abs_err "
+            log(f"  K1' paged_verify {label} hd {hd} S {S} "
+                f"({PA.verify_plan(h // hkv, S)[0]} row group(s)) {dn}: "
+                f"max_abs_err "
                 f"{e1:.3e}; K5 paged_verify_insert: max_abs_err {e5:.3e} "
                 f"(tol {TOL[dn]}), pool bytes on pages 1-{pk.shape[2] - 1} "
                 f"of both layers {'equal' if same else 'DIFFER'} to the "
@@ -410,7 +537,7 @@ def check_verify(torch, results):
     for label, lo, hi, P in (("lengths 128-191", 128, 192, 2),
                              ("long context, lengths 896-1023", 896, 1024,
                               8)):
-        times[label] = time_verify(torch, PA, S, lo, hi, P, label,
+        times[label] = time_verify(torch, PA, 5, lo, hi, P, label,
                                    unfused=P == 2)
     for name, line, key in (
             ("paged_verify", "ray_tpu/ops/paged_attention.py:504", "k1p"),
@@ -790,7 +917,10 @@ def profile_phase(torch, eng, prompts, smi):
             eng.step_window()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    trace_summary(torch, prof, wall_us, "32 x 17 tokens", smi)
+    trace_summary(torch, prof, wall_us, "32 x 17 tokens", smi, groups=(
+        ("K1 decode", ("paged_decode",)),
+        ("fp32 products (logits heads)", ("sgemm", "f32f32")),
+        ("bf16 products", ("gemm", "nvjet"))))
 
 
 def no_sync_check(torch, eng):
@@ -915,10 +1045,11 @@ def spec_serve_phase(torch, results, smi, params, serve):
 def spec_exact_phase(torch):
     """fp32 llama-125m: the speculative engine's greedy tokens equal the
     plain engine's and an argmax loop over `forward`, with drafts
-    accepted; then the speculative window stays free of host syncs."""
+    accepted; then the speculative window stays free of host syncs; then
+    the same at 48 verify rows per kv head (`spec_rows_check`)."""
     import numpy as np
     from ray_tpu_torch.llm import EngineConfig, InferenceEngine
-    from ray_tpu_torch.models import configs, forward, init_params
+    from ray_tpu_torch.models import configs, init_params
     from ray_tpu_torch.ops import paged_attention as PA
     cfg = dataclasses.replace(configs.bench_125m(), dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(1), "cuda")
@@ -939,15 +1070,7 @@ def spec_exact_phase(torch):
     got = eng.generate(prompts, n_new, 0.0)
     k5 = dict(PA.verify_insert_launches)
     st = eng.kv_stats()
-    want = []
-    with torch.no_grad():
-        for p in prompts:
-            seq = list(p)
-            for _ in range(n_new):
-                logits = forward(params, torch.tensor([seq], device="cuda"),
-                                 cfg)
-                seq.append(int(logits[0, -1].argmax()))
-            want.append(seq[len(p):])
+    want = forward_argmax(torch, params, cfg, prompts, n_new)
     log(f"  fp32 greedy, {len(prompts)} prompts x {n_new} tokens: spec == "
         f"plain {got == plain}, spec == forward argmax {got == want}; "
         f"accepted {st['spec_accepted']}/{st['spec_drafted']} drafts over "
@@ -960,6 +1083,74 @@ def spec_exact_phase(torch):
         raise AssertionError(f"K5 launches {k5} for {st['verify_steps']} "
                              f"verify steps")
     spec_no_sync_check(torch, eng)
+    spec_rows_check(torch)
+
+
+def forward_argmax(torch, params, cfg, prompts, n_new):
+    """Greedy tokens of an argmax loop over the port's `forward`."""
+    from ray_tpu_torch.models import forward
+    want = []
+    with torch.no_grad():
+        for p in prompts:
+            seq = list(p)
+            for _ in range(n_new):
+                logits = forward(params, torch.tensor([seq], device="cuda"),
+                                 cfg)
+                seq.append(int(logits[0, -1].argmax()))
+            want.append(seq[len(p):])
+    return want
+
+
+def spec_rows_check(torch):
+    """More than 40 verify rows through the engine: a 2-layer fp32 model
+    with 8 query heads per kv head (16/2, head_dim 64) at spec_k 5
+    verifies 8 x 6 = 48 query rows per kv head (K5 in two row groups).
+    Its speculative greedy tokens must equal the plain engine's and an
+    argmax loop over `forward`, with drafts accepted, K5 launched 2 times
+    per verify step and no plain paged path run."""
+    import numpy as np
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import ModelConfig, init_params
+    from ray_tpu_torch.ops import paged_attention as PA
+    cfg = ModelConfig(vocab=32000, d_model=1024, n_layers=2, n_heads=16,
+                      n_kv_heads=2, d_ff=2816, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cuda")
+    rng = np.random.default_rng(3)
+    pattern = rng.integers(1, cfg.vocab, 5).tolist()
+    prompts = [rng.integers(1, cfg.vocab, 33).tolist(), pattern * 9,
+               pattern[:2] * 12]                 # two repeating prompts
+    n_new, spec_k = 24, 5
+    ecfg = dict(max_slots=4, max_len=256, prompt_buckets=(128,),
+                eos_token=-1)
+    reset_counts()
+    plain = InferenceEngine(cfg, EngineConfig(**ecfg), params=params,
+                            device="cuda").generate(prompts, n_new, 0.0)
+    k1 = dict(PA.launches)
+    eng = InferenceEngine(cfg, EngineConfig(**ecfg, speculation="ngram",
+                                            spec_k=spec_k),
+                          params=params, device="cuda")
+    reset_counts()
+    got = eng.generate(prompts, n_new, 0.0)
+    k5, k1p = dict(PA.verify_insert_launches), dict(PA.verify_launches)
+    st = eng.kv_stats()
+    want = forward_argmax(torch, params, cfg, prompts, n_new)
+    rows = cfg.n_heads // cfg.n_kv_heads * (spec_k + 1)
+    log(f"  fp32 greedy at g 8, spec_k {spec_k} ({rows} verify rows per kv "
+        f"head, {PA.verify_plan(8, spec_k + 1)[0]} row groups): spec == "
+        f"plain {got == plain}, spec == forward argmax {got == want}; "
+        f"accepted {st['spec_accepted']}/{st['spec_drafted']} drafts over "
+        f"{st['verify_steps']} verify steps; K5 launches {k5}; plain "
+        f"engine's K1 launches {k1}")
+    if got != plain or got != want:
+        raise AssertionError(f"g 8 spec {got} != plain {plain} / forward "
+                             f"{want}")
+    if st["spec_accepted"] == 0:
+        raise AssertionError("g 8: no draft was accepted")
+    if k5 != {"cuda": cfg.n_layers * st["verify_steps"], "plain": 0}:
+        raise AssertionError(f"g 8: K5 launches {k5} for "
+                             f"{st['verify_steps']} verify steps")
+    if k1p["plain"] or k1["plain"] or k1["cuda"] == 0:
+        raise AssertionError(f"g 8: paged paths ran {k1} / {k1p}")
 
 
 def spec_no_sync_check(torch, eng):
@@ -1231,7 +1422,124 @@ def train_exact_phase(torch):
         raise AssertionError("train-exact: trajectories disagree")
 
 
+def serve_worker(root: str) -> int:
+    """--serve-worker ROOT: import the port from the checkout at ROOT and
+    run this script's serve phase once per line read from stdin, each
+    run's numbers printed on a line of their own after "SERVE_RUN "."""
+    import torch
+    sys.path.insert(0, root)
+    import ray_tpu_torch
+    if not os.path.abspath(ray_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"ray_tpu_torch imported from "
+                           f"{ray_tpu_torch.__file__}, not {root}")
+    from ray_tpu_torch.ops import paged_attention as PA
+    smi = smi_line()
+    lens_l = torch.randint(128, 192, (32,), generator=torch.Generator()
+                           .manual_seed(3)).tolist()
+    k1_in = k1_case(torch, 32, 12, 12, 64, 128, 2, lens_l, torch.bfloat16,
+                    seed=4)
+    k1_args = (k1_in[0], k1_in[1][0], k1_in[2][0], *k1_in[3:])
+    for _ in sys.stdin:
+        serve, eng, _p = serve_phase(torch, {"paged_decode": {}}, smi)
+        del eng
+        torch.cuda.empty_cache()
+        # the host's cost of one K1 call at the serving shape: 200 calls
+        # issued without a wait (each takes the device ~12 us, less than
+        # the host's cost, so the launch queue never fills)
+        for _i in range(10):
+            PA.paged_decode_attention(*k1_args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _i in range(200):
+            PA.paged_decode_attention(*k1_args)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        print("SERVE_RUN " + json.dumps(dict(
+            {k: serve[k] for k in ("tokens_per_s", "wall_s", "decode_steps")},
+            k1_host_us=host_us)), flush=True)
+    return 0
+
+
+def serve_ab(other: str, pairs: int) -> int:
+    """--serve-ab OTHER [--pairs N]: the serve phase (phase 4) of another
+    checkout of the repo (say a parent commit's, unpacked beside this one)
+    and of this one in turn, N pairs in the order other, this, this,
+    other, ...: each checkout's package in a worker process of its own,
+    both alive throughout, one serving at a time, after one unrecorded
+    run each (builds, first engine). Prints every run's decode tokens/s
+    and the host's cost of one K1 call at the serving shape, their
+    medians and the pairs this checkout won."""
+    import statistics
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = smi_line()
+    roots = {"other": os.path.abspath(other), "this": ROOT}
+    procs = {}
+    try:
+        for name, root in roots.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--serve-worker",
+                 root], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                text=True)
+
+        def run(name):
+            p = procs[name]
+            p.stdin.write("run\n")
+            p.stdin.flush()
+            for line in p.stdout:
+                if line.startswith("SERVE_RUN "):
+                    return json.loads(line[len("SERVE_RUN "):])
+                log(f"  [{name}] {line.rstrip()}")
+            raise RuntimeError(f"the {name} worker ended: rc {p.wait()}")
+
+        for name in roots:
+            run(name)
+        tps = {"other": [], "this": []}
+        host = {"other": [], "this": []}
+        for i in range(pairs):
+            for name in (("other", "this") if i % 2 == 0
+                         else ("this", "other")):
+                r = run(name)
+                tps[name].append(r["tokens_per_s"])
+                host[name].append(r["k1_host_us"])
+                log(f"  pair {i} {name}: {r['tokens_per_s']:.1f} tokens/s, "
+                    f"wall {r['wall_s']:.3f} s, {r['decode_steps']} decode "
+                    f"steps; host cost of a K1 call {r['k1_host_us']:.2f} us")
+    finally:
+        for p in procs.values():
+            p.stdin.close()
+        for p in procs.values():
+            try:
+                p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    won = sum(a > b for a, b in zip(tps["this"], tps["other"]))
+    log(f"serve A/B over {pairs} pairs [{smi}]: this "
+        f"{roots['this']} median {statistics.median(tps['this']):.1f} "
+        f"tokens/s ({', '.join(f'{x:.1f}' for x in tps['this'])}); other "
+        f"{roots['other']} median {statistics.median(tps['other']):.1f} "
+        f"({', '.join(f'{x:.1f}' for x in tps['other'])}); this faster in "
+        f"{won} of {pairs} pairs; host cost of a K1 call, median: this "
+        f"{statistics.median(host['this']):.2f} us, other "
+        f"{statistics.median(host['other']):.2f} us")
+    return 0
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--serve-ab", metavar="OTHER_CHECKOUT",
+                    help="only time the serve phase against another checkout")
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--serve-worker", metavar="ROOT", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.serve_worker:
+        return serve_worker(os.path.abspath(args.serve_worker))
+    if args.serve_ab:
+        return serve_ab(args.serve_ab, args.pairs)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernel bodies:
 // asynchronous tile copies into 128-byte-swizzled shared memory, bulk
-// copies completing on mbarriers, the wgmma shared-memory descriptor, the
+// copies completing on mbarriers, thread-block clusters (rank, barrier,
+// distributed shared memory), 16-byte row reads from shared memory and
+// warp reductions, the wgmma shared-memory descriptor, the
 // wgmma fence / commit / wait, the bf16 m64nNk16 wgmma with fp32
 // accumulators (A from shared memory or from registers), and the
 // accumulator's register layout.
@@ -109,6 +111,104 @@ __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// ---- thread-block clusters ----
+//
+// A kernel launched with a cluster dimension (cudaLaunchKernelEx with
+// cudaLaunchAttributeClusterDimension) runs its blocks in clusters that
+// are scheduled together and can read and write each other's shared memory
+// (distributed shared memory). cluster_sync is a barrier over every
+// thread of every block of the cluster (release on arrive, acquire on
+// wait): shared-memory writes before it, a peer's stores included, are
+// visible to reads after it. Every thread of every block takes part in
+// each barrier. A block's shared memory may be accessed by a peer only
+// after a barrier that block has arrived at (it has started) and only
+// until it exits: a block whose shared memory peers read or write must
+// not exit before a barrier that follows their last access.
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The two halves of a cluster barrier: an arrive that orders no memory
+// (to mark that this block has started) and the wait that completes it.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (a variable in this block's shared memory) in the
+// shared memory of the cluster's block of rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// A float to distributed shared memory (an address from map_rank).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+// ---- rows in shared memory and warp reductions (the paged kernels) ----
+
+// 16 bytes of T from shared memory, as floats.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* x) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* x) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // Byte offset of 16-byte chunk c (0-7) of row r in a swizzled column block.

@@ -1,226 +1,411 @@
 // Paged-KV decode attention for Hopper (one query token per slot).
 //
 // Replaces the TPU kernel ray_tpu/ops/paged_attention.py::_dma_kernel
-// (launched by _paged_decode_dma, n_q = 1): flash decode over a slot's
-// page table, fp32 online softmax, GQA heads sharing one pass over KV.
+// (launched by _paged_decode_dma, n_q = 1): attention of each slot's query
+// heads over its page table, fp32 softmax, GQA heads sharing one pass over
+// KV.
 //
 // Pool layout (the port's choice): [hkv, num_pages, page, hd] per layer,
-// i.e. the engine's pool is [L, hkv, N, page, hd]. Each token's head row
-// is hd contiguous elements (128 B for hd 64 in bf16), so one warp reads
-// one token's K (or V) row as a single coalesced 128/256-byte access.
-// The JAX layout puts hd before page only for Mosaic's (8, 128) tiling.
+// i.e. the engine's pool is [L, hkv, N, page, hd]. A run of a page's
+// tokens is one contiguous block of rows x hd elements, for K and for V,
+// so one bulk copy moves it. The JAX layout puts hd before page only for
+// Mosaic's (8, 128) tiling.
 //
-// What bounds it: bytes. Per call it must read every attended token's K
-// and V row once (about 15.7 MB at 32 slots x ~160 tokens x 12 kv heads x
-// hd 64 in bf16) and does g/2 FMAs per byte read (g = h/hkv), far below
-// the card's operations-per-byte ridge. The design therefore reads each K/V row
-// exactly once per kv head for all g = h/hkv query heads of the group
-// (grid = (slot, kv head)), keeps q and the accumulators in registers,
-// and gives each warp U tokens at a time so U independent row loads are
-// in flight before the first score is needed. No page copies, no scalar
-// prefetch: a block reads its own page-table row. Four warps split the
-// slot's tokens and merge their (max, sum, acc) states through shared
-// memory at the end. Splitting long sequences across blocks
-// (flash-decoding) is left for a later change.
+// What bounds it: bytes. A call must read every attended token's K and V
+// row once per kv head (about 15.6 MB at 32 slots x ~160 tokens x 12 kv
+// heads x hd 64 in bf16) and does g FLOP per byte read (g = h/hkv <= 8 in
+// every config of the repo), below even the CUDA cores' ~20 FLOP/byte
+// ridge. So the design puts many bytes in flight at once and keeps the
+// math in fp32 on the CUDA cores, as the TPU kernel computes it (q, K and
+// V upcast; P kept fp32). The tensor cores would round P to bf16 or take
+// fp32 as TF32, and have nothing to gain here.
 //
-// Semantics match the TPU kernel: a slot attends positions < length,
-// capped at P pages; a slot with nothing to attend returns 0.
+// Design: split-KV over a thread-block cluster, in one launch. The grid
+// is (splits, hkv x row groups, slots); a cluster is the `splits` blocks
+// of one (slot, kv head, row group), launched with cudaLaunchKernelEx.
+// The wrapper's plan (`decode_plan` in paged_attention.py) fixes the
+// split length (a power of two), the splits (<= 8, the portable cluster
+// size) and the chunk from the shapes alone (slots x kv heads, P, page,
+// hd), never from the lengths: more splits only while a call has fewer
+// blocks than the card has SMs. At the serving shape (32 slots x 12 kv
+// heads, P = 2, page 128) a call is 384 blocks of one 256-token split,
+// all in flight at once; one slot's long table gets 8 splits. Each block:
+//   - thread 0 reads the slot's length and the split's page id and moves
+//     the split's K and V rows into shared memory with bulk copies
+//     (cp.async.bulk under an mbarrier) in chunks that never cross a
+//     page, through a ring of 1 or 2 stages; the other threads meanwhile
+//     put q (fp32) into shared memory;
+//   - scores: a thread per key sums q . k along hd from shared memory
+//     (K's 16-byte pieces read in a rotated order, so a warp's reads hit
+//     distinct banks): no per-token shuffle;
+//   - softmax: one block reduction per chunk (each thread holds its key's
+//     scores; warp shuffles, then the warps' partials through shared
+//     memory): the rows' max, P = exp(s - max) into shared memory, the
+//     rows' sums; every thread carries the rows' running (max, sum);
+//   - PV: a thread owns (4 columns of hd, key split) and sums P x V over
+//     its keys from shared memory into registers; the key splits' partials
+//     are added once, at the end, in a fixed order.
+// Each block then stores its (m, l, acc[rows][hd]) into its slot of rank
+// 0's shared memory (distributed shared memory; a relaxed cluster arrive
+// at the start and its wait before the first store make sure rank 0 has
+// started). After a cluster barrier, rank 0 merges the splits in rank
+// order and writes the rows out; nothing reads the other blocks' shared
+// memory, so they exit. No atomics, no second kernel: the output is the
+// same bits from run to run.
+//
+// Semantics match the TPU kernel: a slot attends positions < min(length,
+// P * page); a slot with length <= 0 returns zeros; table entries of
+// scratch page 0 are read like any page; a split with nothing to attend
+// contributes (m = -inf, l = 0).
 #include <cfloat>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kThreads = 128;
+constexpr int kMaxSplits = 8;       // the portable cluster size
+constexpr int kMaxChunk = kThreads;  // a thread per key of a chunk
 constexpr float kNeg = -0.7f * FLT_MAX;
 
-template <typename T, int HD, int G>
-__global__ void __launch_bounds__(kWarps * 32)
+// Shared memory of a block: the ring of K/V stages (reused at the end for
+// the key splits' partials, [kThreads / (HD / 4)][RT][HD] fp32 = 2 KB x
+// RT), q [RT][HD] fp32, the chunk's P [RT][chunk] fp32 and, read in rank
+// 0 only, the cluster's partial accs [splits][RT][HD] fp32.
+template <typename T, int HD, int RT>
+__host__ __device__ inline size_t ring_bytes(int chunk, int stages) {
+  const size_t ring = (size_t)stages * 2 * chunk * HD * sizeof(T);
+  const size_t red = (size_t)kThreads * 4 * RT * 4;
+  return ring > red ? ring : red;
+}
+
+template <typename T, int HD, int RT>
+__host__ __device__ inline size_t smem_bytes(int chunk, int stages,
+                                             int splits) {
+  return ring_bytes<T, HD, RT>(chunk, stages) +
+         (size_t)RT * (HD + chunk + splits * HD) * 4;
+}
+
+// RT: rows (query heads) a block holds, padded to a power of two; the
+// block's real rows are `rows` (the last row group may hold fewer).
+template <typename T, int HD, int RT>
+__global__ void __launch_bounds__(kThreads, RT <= 2 ? 12 : 6)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tables, T* __restrict__ out,
-                    int num_pages, int page, int P, float scale) {
-  constexpr int VEC = HD / 32;        // head-dim elements per lane
-  constexpr int U = G <= 2 ? 8 : 4;   // tokens per warp iteration
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int hkv = gridDim.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int h = hkv * G;
+                    int G, int rows, int num_pages, int page, int P,
+                    int split_len, int chunk, int stages, float scale) {
+  constexpr int E = hop::Vec16<T>::N;  // elements per 16 bytes
+  constexpr int CH = HD / E;           // 16-byte pieces per row
+  constexpr int Q4 = HD / 4;           // 4-column slices per row
+  constexpr int KS = kThreads / Q4;    // key splits of the PV sum
+  constexpr int NW = kThreads / 32;
+  static_assert(kThreads % Q4 == 0 && E % 4 == 0, "layout");
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t bars[2];
+  __shared__ float warp_m[NW][RT], warp_s[NW][RT];  // per-warp max, sum
+  __shared__ float gm[kMaxSplits][RT], gl[kMaxSplits][RT];  // rank 0's
 
-  int eff = lengths[b];
-  eff = eff < 0 ? 0 : eff;
-  eff = eff < P * page ? eff : P * page;
+  // Every block of the cluster arrives here and waits just before its
+  // first store into rank 0's shared memory (which must have started).
+  hop::cluster_arrive_relaxed();
+  const int split = hop::cluster_rank();  // == blockIdx.x: a cluster spans x
+  const int splits = gridDim.x;
+  const int groups = (G + rows - 1) / rows;
+  const int kvh = blockIdx.y / groups;
+  const int head0 = kvh * G + (blockIdx.y % groups) * rows;
+  const int nr = min(rows, (kvh + 1) * G - head0);  // this block's rows
+  const int h = gridDim.y / groups * G;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int cap = P * page;
 
-  float qv[G][VEC];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-    rt::VecLoad<T, VEC>::run(
-        q + ((size_t)b * h + kvh * G + gi) * HD + lane * VEC, qv[gi]);
+  const int s0 = split * split_len;
+  // Thread 0 loads the split's first page id beside the length, so the
+  // two loads are in flight together (s0 < P * page by the plan).
+  const int pid0 = tid == 0 ? tables[(size_t)b * P + s0 / page] : 0;
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len < cap ? len : cap);
+  const int n_tok = max(0, min(s0 + split_len, len) - s0);
+  const int nc = (n_tok + chunk - 1) / chunk;  // chunks of this split
 
-  float m[G], l[G], acc[G][VEC];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    m[gi] = kNeg;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) acc[gi][c] = 0.f;
-  }
-
-  const int* row = tables + (size_t)b * P;
+  T* ring = reinterpret_cast<T*>(smem);
+  float* qs = reinterpret_cast<float*>(
+      smem + ring_bytes<T, HD, RT>(chunk, stages));  // [RT][HD]
+  float* sc = qs + RT * HD;                          // [RT][chunk]
+  float* gacc = sc + RT * chunk;                     // [splits][RT][HD]
+  const size_t stage_elems = (size_t)chunk * HD;     // one chunk of K (or V)
   const size_t head_base = (size_t)kvh * num_pages;
-  for (int t0 = warp * U; t0 < eff; t0 += kWarps * U) {
-    float kf[U][VEC], vf[U][VEC];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u;
-      if (t < eff) {
-        const int pid = row[t / page];
-        const size_t off =
-            ((head_base + pid) * page + (t % page)) * HD + lane * VEC;
-        rt::VecLoad<T, VEC>::run(k_pages + off, kf[u]);
-        rt::VecLoad<T, VEC>::run(v_pages + off, vf[u]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < VEC; ++c) kf[u][c] = vf[u][c] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      float s[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < VEC; ++c) part += qv[gi][c] * kf[u][c];
-        s[u] = part;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
-      }
-      float cmax = kNeg;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        s[u] = (t0 + u < eff) ? s[u] * scale : kNeg;
-        cmax = fmaxf(cmax, s[u]);
-      }
-      const float m_new = fmaxf(m[gi], cmax);
-      const float alpha = expf(m[gi] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        s[u] = (t0 + u < eff) ? expf(s[u] - m_new) : 0.f;
-        psum += s[u];
-      }
-      l[gi] = l[gi] * alpha + psum;
-#pragma unroll
-      for (int c = 0; c < VEC; ++c) {
-        float a = acc[gi][c] * alpha;
-#pragma unroll
-        for (int u = 0; u < U; ++u) a += s[u] * vf[u][c];
-        acc[gi][c] = a;
-      }
-      m[gi] = m_new;
-    }
-  }
 
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][HD];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) sm_acc[warp][gi][lane * VEC + c] = acc[gi][c];
-    if (lane == 0) {
-      sm_m[warp][gi] = m[gi];
-      sm_l[warp][gi] = l[gi];
-    }
+  // Thread 0: move chunk c (positions s0 + c chunk ..., within one page)
+  // into its stage.
+  auto fetch = [&](int c) {
+    const int t0 = s0 + c * chunk;
+    const int n = min(chunk, s0 + n_tok - t0);
+    const int st = c % stages;
+    const uint32_t bar = hop::smem_addr(&bars[st]);
+    const uint32_t bytes = n * HD * sizeof(T);
+    const int pid = c == 0 ? pid0 : tables[(size_t)b * P + t0 / page];
+    const size_t off = ((head_base + pid) * page + t0 % page) * HD;
+    const uint32_t dst = hop::smem_addr(ring + st * 2 * stage_elems);
+    hop::mbar_expect_tx(bar, 2 * bytes);
+    hop::bulk_copy_g2s(dst, k_pages + off, bytes, bar);
+    hop::bulk_copy_g2s(dst + stage_elems * sizeof(T), v_pages + off, bytes,
+                       bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      hop::mbar_init(hop::smem_addr(&bars[s]), 1);
+    hop::mbar_init_fence();
+    for (int c = 0; c < nc && c < stages; ++c) fetch(c);
+  }
+  for (int i = tid; i < RT * HD; i += kThreads) {
+    const int r = i / HD;
+    qs[i] = r < nr ? rt::to_float(q[((size_t)b * h + head0 + r) * HD +
+                                    i % HD])
+                   : 0.f;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * HD; idx += kWarps * 32) {
-    const int gi = idx / HD;
-    const int d = idx % HD;
-    float mx = kNeg;
+
+  // Every thread carries the rows' running (max, sum); acc is its PV item:
+  // columns dq .. dq + 3 over keys ks, ks + KS, ... of each chunk. Rows
+  // past nr (q padded with zeros) are computed and never written out.
+  float m[RT], l[RT], acc[RT][4];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][gi]);
-    float lsum = 0.f, a = 0.f;
+  for (int r = 0; r < RT; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][gi] - mx);
-      lsum += sm_l[w][gi] * f;
-      a += sm_acc[w][gi][d] * f;
+    for (int y = 0; y < 4; ++y) acc[r][y] = 0.f;
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  const int dq = tid % Q4 * 4, ks = tid / Q4;
+
+  for (int c = 0; c < nc; ++c) {
+    const int n = min(chunk, n_tok - c * chunk);
+    const int st = c % stages;
+    const T* Ks = ring + st * 2 * stage_elems;
+    const T* Vs = Ks + stage_elems;
+    hop::mbar_wait(hop::smem_addr(&bars[st]), (c / stages) & 1);
+
+    // scores: thread kk sums q . k[kk] along hd for every row
+    float s[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) s[r] = 0.f;
+    if (tid < n) {
+      const T* krow = Ks + tid * HD;
+#pragma unroll 4
+      for (int p = 0; p < CH; ++p) {
+        const int e = ((p + tid) % CH) * E;
+        float kf[E];
+        hop::Vec16<T>::load(krow + e, kf);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+#pragma unroll
+          for (int x = 0; x < E; x += 4) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(qs + r * HD + e + x);
+            s[r] = fmaf(qv.x, kf[x], s[r]);
+            s[r] = fmaf(qv.y, kf[x + 1], s[r]);
+            s[r] = fmaf(qv.z, kf[x + 2], s[r]);
+            s[r] = fmaf(qv.w, kf[x + 3], s[r]);
+          }
+        }
+      }
     }
-    if (lsum == 0.f) lsum = 1.f;
-    out[((size_t)b * h + kvh * G + gi) * HD + d] =
-        rt::from_float<T>(a / lsum);
+    // softmax, one block reduction per chunk: the rows' max over the
+    // block, then P = exp(s - max) and the rows' sums
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      s[r] = tid < n ? s[r] * scale : kNeg;
+      const float mx = hop::warp_max(s[r]);
+      if (lane == 0) warp_m[warp][r] = mx;
+    }
+    __syncthreads();
+    float alpha[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float m_new = m[r];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m_new = fmaxf(m_new, warp_m[w][r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      const float p = tid < n ? expf(s[r] - m_new) : 0.f;
+      if (tid < n) sc[r * chunk + tid] = p;
+      const float ps = hop::warp_sum(p);
+      if (lane == 0) warp_s[warp][r] = ps;
+    }
+    __syncthreads();
+
+    // PV
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) sum += warp_s[w][r];
+      l[r] = l[r] * alpha[r] + sum;
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[r][y] *= alpha[r];
+    }
+#pragma unroll 2
+    for (int kk = ks; kk < n; kk += KS) {
+      float vf[4];
+      rt::VecLoad<T, 4>::run(Vs + kk * HD + dq, vf);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float p = sc[r * chunk + kk];
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[r][y] = fmaf(p, vf[y], acc[r][y]);
+      }
+    }
+    __syncthreads();  // every reader of this stage, of P and of the sums
+    if (tid == 0 && c + stages < nc) {
+      hop::fence_async_smem();
+      fetch(c + stages);
+    }
+  }
+
+  // The key splits' partials through the (now idle) ring, summed in a
+  // fixed order and stored, with the rows' (max, sum), into slot `split`
+  // of rank 0's shared memory.
+  float* red = reinterpret_cast<float*>(smem);  // [KS][RT][HD]
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+    *reinterpret_cast<float4*>(red + (ks * RT + r) * HD + dq) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  __syncthreads();
+  hop::cluster_wait();  // rank 0 has started
+  for (int i = tid; i < RT * HD; i += kThreads) {
+    float x = 0.f;
+#pragma unroll
+    for (int j = 0; j < KS; ++j) x += red[j * RT * HD + i];
+    hop::st_cluster(hop::map_rank(&gacc[split * RT * HD + i], 0), x);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      hop::st_cluster(hop::map_rank(&gm[split][r], 0), m[r]);
+      hop::st_cluster(hop::map_rank(&gl[split][r], 0), l[r]);
+    }
+  }
+  hop::cluster_sync();  // every split's partials are in rank 0
+  if (split != 0) return;  // nothing reads this block's shared memory
+
+  // Rank 0 merges the splits in rank order.
+  for (int i = tid; i < nr * HD; i += kThreads) {
+    const int r = i / HD;
+    float mx = kNeg;
+    for (int j = 0; j < splits; ++j) mx = fmaxf(mx, gm[j][r]);
+    float lsum = 0.f, x = 0.f;
+    for (int j = 0; j < splits; ++j) {
+      const float f = expf(gm[j][r] - mx);
+      lsum += gl[j][r] * f;
+      x += gacc[j * RT * HD + i] * f;
+    }
+    out[((size_t)b * h + head0) * HD + i] =
+        rt::from_float<T>(lsum > 0.f ? x / lsum : 0.f);
   }
 }
 
-template <typename T, int HD, int G>
-int launch(const void* q, const void* kp, const void* vp, const int* lengths,
-           const int* tables, void* out, int B, int hkv, int num_pages,
-           int page, int P, float scale, cudaStream_t stream) {
-  dim3 grid(B, hkv);
-  paged_decode_kernel<T, HD, G><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), lengths, tables, static_cast<T*>(out),
-      num_pages, page, P, scale);
+// Raise a kernel's dynamic shared-memory allowance to `bytes`.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, int* allowed) {
+  if (bytes <= *allowed) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *allowed = bytes;
+  return 0;
+}
+
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int* lengths;
+  const int* tables;
+  void* out;
+  int B, hkv, G, rows, num_pages, page, P, split_len, splits, chunk, stages;
+  float scale;
+};
+
+template <typename T, int HD, int RT>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<T, HD, RT>(a.chunk, a.stages, a.splits);
+  static int allowed = 0;
+  auto kernel = paged_decode_kernel<T, HD, RT>;
+  if (int e = allow_smem(kernel, (int)bytes, &allowed)) return e;
+  const int groups = (a.G + a.rows - 1) / a.rows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.hkv * groups, a.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k_pages), static_cast<const T*>(a.v_pages),
+      a.lengths, a.tables, static_cast<T*>(a.out), a.G, a.rows, a.num_pages,
+      a.page, a.P, a.split_len, a.chunk, a.stages, a.scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int dispatch_g(int G, const void* q, const void* kp, const void* vp,
-               const int* lengths, const int* tables, void* out, int B,
-               int hkv, int num_pages, int page, int P, float scale,
-               cudaStream_t s) {
-  switch (G) {
-#define RT_G(g)                                                          \
-  case g:                                                                \
-    return launch<T, HD, g>(q, kp, vp, lengths, tables, out, B, hkv,     \
-                            num_pages, page, P, scale, s);
-    RT_G(1) RT_G(2) RT_G(3) RT_G(4) RT_G(5) RT_G(6) RT_G(7) RT_G(8)
-#undef RT_G
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+int dispatch_rows(const Args& a, cudaStream_t s) {
+  if (a.rows <= 1) return launch<T, HD, 1>(a, s);
+  if (a.rows <= 2) return launch<T, HD, 2>(a, s);
+  if (a.rows <= 4) return launch<T, HD, 4>(a, s);
+  return launch<T, HD, 8>(a, s);
 }
 
 template <typename T>
-int dispatch_hd(int hd, int G, const void* q, const void* kp, const void* vp,
-                const int* lengths, const int* tables, void* out, int B,
-                int hkv, int num_pages, int page, int P, float scale,
-                cudaStream_t s) {
-  if (hd == 64)
-    return dispatch_g<T, 64>(G, q, kp, vp, lengths, tables, out, B, hkv,
-                             num_pages, page, P, scale, s);
-  if (hd == 128)
-    return dispatch_g<T, 128>(G, q, kp, vp, lengths, tables, out, B, hkv,
-                              num_pages, page, P, scale, s);
+int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
+  if (hd == 64) return dispatch_rows<T, 64>(a, s);
+  if (hd == 128) return dispatch_rows<T, 128>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q [B, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd];
-// lengths [B] int32; tables [B, P] int32; out [B, hkv*G, hd].
+// q [B, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (16-byte
+// aligned: the bulk copies; else cudaErrorMisalignedAddress); lengths [B] int32; tables [B, P] int32; out
+// [B, hkv*G, hd]. The plan (decode_plan in paged_attention.py): `rows`
+// (1-8) query heads a block, `splits` (1-8) blocks a cluster, each over
+// `split_len` positions in chunks of `chunk` tokens (a chunk never
+// crosses a page: page % chunk == 0) through `stages` (1-2) stages.
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int rt_paged_decode(const void* q, const void* k_pages,
                                const void* v_pages, const int* lengths,
                                const int* tables, void* out, int B, int hkv,
                                int G, int hd, int num_pages, int page, int P,
-                               float scale, int dtype, void* stream) {
+                               int rows, int split_len, int splits,
+                               int chunk, int stages, float scale, int dtype,
+                               void* stream) {
+  if (B < 1 || hkv < 1 || G < 1 || P < 1 || rows < 1 || rows > 8 ||
+      splits < 1 || splits > kMaxSplits ||
+      (splits - 1) * split_len >= P * page || splits * split_len < P * page ||
+      chunk < 1 || chunk > kMaxChunk ||
+      page % chunk || split_len % chunk || stages < 1 || stages > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the bulk copies take 16-byte-aligned sources (a page's rows are
+  // multiples of 16 bytes from its pool's start)
+  if ((reinterpret_cast<uintptr_t>(k_pages) |
+       reinterpret_cast<uintptr_t>(v_pages)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Args a{q,    k_pages,   v_pages, lengths, tables,    out,
+               B,    hkv,       G,       rows,    num_pages, page,
+               P,    split_len, splits,  chunk,   stages,    scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, G, q, k_pages, v_pages, lengths, tables,
-                              out, B, hkv, num_pages, page, P, scale, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, G, q, k_pages, v_pages, lengths,
-                                      tables, out, B, hkv, num_pages, page, P,
-                                      scale, s);
+  if (dtype == 0) return dispatch_hd<float>(hd, a, s);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(hd, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

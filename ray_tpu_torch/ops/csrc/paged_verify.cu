@@ -22,26 +22,30 @@
 // computes it (q, K and V upcast, P kept fp32 for the PV sum).
 //
 // Design, as the TPU kernel's page DMAs: one block of 8 warps owns one
-// (slot, kv head) and all g*S (<= 40) of its query rows, so each K/V row
-// is read from HBM once. q (fp32) and the slot's page-table row go into
-// shared memory once. The slot's positions are cut into chunks of C
-// tokens that never cross a page (C = min(page, 16 KB of K)); a chunk of
+// (slot, kv head) and a row group of at most 40 of its g*S query rows;
+// the grid is (slot, kv head, row group). The verify step's rows (g*S
+// <= 40 in most configs) fit one group, so each K/V row is read from HBM
+// once; more rows take more groups (the wrapper's plan, `verify_plan` in
+// paged_attention.py, balances them), each re-reading the slot's KV. q
+// (fp32) and the slot's page-table row go into shared memory once. The
+// slot's positions are cut into chunks of C tokens that never cross a
+// page (C = min(page, 16 KB of K)); a chunk of
 // one page is one contiguous block of C x hd elements, for K and for V.
 // Thread 0 moves each chunk with two bulk copies (cp.async.bulk, the
 // TMA's untiled form) into a ring of stages (64 KB in all: 2 stages of
 // 32 KB at bf16 hd 64, more for small pages), each stage completing on
 // its own mbarrier; the ring is refilled as stages free up. At the serving
 // shape (lengths 128-191, page 128) the whole slot is in flight at once.
-// Rows go in groups of RB = 5 (the verify step's S = 5 rows per query
-// head fill a group; other counts are padded to Rp). Per chunk:
-//   scores: a thread owns a key and a row group and sums the products
+// A thread takes rows RB = 5 at a time (the verify step's S = 5 rows per
+// query head fill a set; other counts are padded to Rp). Per chunk:
+//   scores: a thread owns a key and a set of RB rows and sums the products
 //           along hd from shared memory (K's 16-byte pieces read in a
 //           rotated order so a warp's reads hit distinct banks; q as
 //           float4): no cross-lane sum per token;
 //   softmax: one warp per row reduces the chunk's max and sum (one
 //           shuffle reduction per row per chunk) and updates the row's
 //           running (max, sum);
-//   PV:     a thread owns (row group, 4 columns of hd, key split) and sums
+//   PV:     a thread owns (RB rows, 4 columns of hd, key split) and sums
 //           P x V over its keys of the chunk from shared memory into
 //           registers; the key splits' partials are added once, at the
 //           end, in a fixed order.
@@ -52,14 +56,14 @@
 // to attend returns zeros.
 //
 // K5's insert: positions >= lengths-1 take their K/V from knew/vnew,
-// never from the pool: the bulk copies stop below lengths-1, and the new
-// rows are written into the stage in shared memory before the chunk's
-// scores. After the block's last copy has landed, the new rows are stored
-// into the pool as bit copies, so no copy of this block reads an address
-// the block writes. A write whose page index is >= P is dropped, as in the
-// TPU kernel. Only scratch page 0 can be written by several blocks at
-// once (inactive slots, all-zero table rows), which its
-// garbage-by-contract allows.
+// never from the pool: every row group's bulk copies stop below
+// lengths-1, and the new rows are written into the stage in shared memory
+// before the chunk's scores. Row group 0 alone stores the new rows into
+// the pool, as bit copies, after its last copy has landed, so no copy of
+// any group reads an address a block writes. A write whose page index is
+// >= P is dropped, as in the TPU kernel. Only scratch page 0 can be
+// written by several blocks at once (inactive slots, all-zero table
+// rows), which its garbage-by-contract allows.
 #include <cfloat>
 
 #include "common.cuh"
@@ -68,7 +72,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRows = 40;        // g * S; the wrapper's MAX_VERIFY_ROWS
+constexpr int kMaxRows = 40;        // query rows a block; the plan's cap
 constexpr int RB = 5;               // query rows a thread takes at a time
 constexpr int kMaxStages = 16;
 constexpr int kChunkBytes = 16384;  // a chunk's K (or V) bytes, at most
@@ -76,49 +80,6 @@ constexpr int kMaxSplit = 16;       // key splits of the PV sum
 constexpr int kRingBytes = 65536;   // the ring of stages
 constexpr int kSmemLimit = 200 * 1024;
 constexpr float kNeg = -0.7f * FLT_MAX;
-
-// 16 bytes of T from shared memory, as floats.
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* x) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* x) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      x[2 * j] = f.x;
-      x[2 * j + 1] = f.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Tokens per chunk and stages of the ring for a page size (host and
 // device agree through the launch arguments).
@@ -155,9 +116,9 @@ __device__ __forceinline__ void verify_body(
     const T* __restrict__ q, PoolPtr k_pages, PoolPtr v_pages,
     const T* __restrict__ knew, const T* __restrict__ vnew,
     const int* __restrict__ lengths, const int* __restrict__ tables,
-    T* __restrict__ out, int S, int G, int num_pages, int page, int P,
-    float scale, int chunk, int stages) {
-  constexpr int E = Vec16<T>::N;  // elements per 16 bytes
+    T* __restrict__ out, int S, int G, int rows, int num_pages, int page,
+    int P, float scale, int chunk, int stages) {
+  constexpr int E = hop::Vec16<T>::N;  // elements per 16 bytes
   constexpr int CH = HD / E;      // 16-byte pieces per row
   constexpr int C4 = HD / 4;      // 4-column slices per row
   constexpr int NI =  // PV items per thread, at most
@@ -172,7 +133,10 @@ __device__ __forceinline__ void verify_body(
   const int kvh = blockIdx.y;
   const int hkv = gridDim.y;
   const int tid = threadIdx.x;
-  const int R = G * S;
+  // Row r of the block is row row0 + r of the (slot, kv head): query head
+  // kvh*G + (row0 + r)/S, token j = (row0 + r)%S.
+  const int row0 = blockIdx.z * rows;
+  const int R = min(rows, G * S - row0);
   const int Rp = (R + RB - 1) / RB * RB;
   const int h = hkv * G;
   const int cap = P * page;
@@ -200,15 +164,14 @@ __device__ __forceinline__ void verify_body(
   pool_end = pool_end < 0 ? 0 : pool_end;
 
   for (int i = tid; i < np; i += kThreads) tab[i] = tables[(size_t)b * P + i];
-  // Row r of the block is query head kvh*G + r/S, token j = r%S.
   for (int i = tid; i < Rp * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    qs[i] = r < R ? rt::to_float(q[(((size_t)b * S + r % S) * h + kvh * G +
-                                    r / S) * HD + d])
-                  : 0.f;
+    const int r = row0 + i / HD, d = i % HD;
+    qs[i] = r < row0 + R ? rt::to_float(q[(((size_t)b * S + r % S) * h +
+                                            kvh * G + r / S) * HD + d])
+                         : 0.f;
   }
   if (tid < Rp) {  // padded rows attend nothing
-    const int l = tid < R ? len + tid % S : 0;
+    const int l = tid < R ? len + (row0 + tid) % S : 0;
     row_lim[tid] = l < 0 ? 0 : (l < cap ? l : cap);
     row_m[tid] = kNeg;
     row_l[tid] = 0.f;
@@ -302,7 +265,7 @@ __device__ __forceinline__ void verify_body(
       for (int p = 0; p < CH; ++p) {
         const int e = ((p + kk) % CH) * E;
         float kf[E];
-        Vec16<T>::load(krow + e, kf);
+        hop::Vec16<T>::load(krow + e, kf);
 #pragma unroll
         for (int i = 0; i < RB; ++i) {
 #pragma unroll
@@ -329,14 +292,14 @@ __device__ __forceinline__ void verify_body(
       for (int kk = lane; kk < n; kk += 32)
         if (kk < lim) mx = fmaxf(mx, sr[kk]);
       const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(mx));
+      const float m_new = fmaxf(m_old, hop::warp_max(mx));
       float sum = 0.f;
       for (int kk = lane; kk < n; kk += 32) {
         const float p = kk < lim ? expf(sr[kk] - m_new) : 0.f;
         sr[kk] = p;
         sum += p;
       }
-      sum = warp_sum(sum);
+      sum = hop::warp_sum(sum);
       if (lane == 0) {
         const float a = expf(m_old - m_new);
         row_a[r] = a;
@@ -402,16 +365,18 @@ __device__ __forceinline__ void verify_body(
   }
   __syncthreads();
   for (int i = tid; i < R * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
+    const int r = i / HD, d = i % HD, rr = row0 + r;
     float x = 0.f;
     for (int ks = 0; ks < KS; ++ks) x += red[ks * Rp * HD + i];
     const float l = row_l[r];
-    out[(((size_t)b * S + r % S) * h + kvh * G + r / S) * HD + d] =
+    out[(((size_t)b * S + rr % S) * h + kvh * G + rr / S) * HD + d] =
         rt::from_float<T>(l > 0.f ? x / l : 0.f);
   }
 
   if constexpr (INSERT) {
-    // Every copy of this block has landed (each chunk was waited for).
+    // Row group 0 writes; every copy of this block has landed (each chunk
+    // was waited for), and the other groups' copies stop below base.
+    if (blockIdx.z != 0) return;
     for (int i = tid; i < S * CH; i += kThreads) {
       const int j = i / CH, e = (i % CH) * E;
       const int pos = base + j;
@@ -434,11 +399,11 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tables, T* __restrict__ out,
-                    int S, int G, int num_pages, int page, int P,
-                    float scale, int chunk, int stages) {
+                    int S, int G, int rows, int num_pages, int page,
+                    int P, float scale, int chunk, int stages) {
   verify_body<T, HD, false>(q, k_pages, v_pages, nullptr, nullptr, lengths,
-                            tables, out, S, G, num_pages, page, P, scale,
-                            chunk, stages);
+                            tables, out, S, G, rows, num_pages, page, P,
+                            scale, chunk, stages);
 }
 
 // K5: the pools are written, so they are plain pointers.
@@ -449,11 +414,11 @@ paged_verify_insert_kernel(const T* __restrict__ q, T* k_pages, T* v_pages,
                            const T* __restrict__ vnew,
                            const int* __restrict__ lengths,
                            const int* __restrict__ tables,
-                           T* __restrict__ out, int S, int G, int num_pages,
-                           int page, int P, float scale, int chunk,
-                           int stages) {
+                           T* __restrict__ out, int S, int G, int rows,
+                           int num_pages, int page, int P, float scale,
+                           int chunk, int stages) {
   verify_body<T, HD, true>(q, k_pages, v_pages, knew, vnew, lengths, tables,
-                           out, S, G, num_pages, page, P, scale, chunk,
+                           out, S, G, rows, num_pages, page, P, scale, chunk,
                            stages);
 }
 
@@ -466,7 +431,7 @@ struct Args {
   const int* lengths;
   const int* tables;
   void* out;
-  int B, S, hkv, G, num_pages, page, P;
+  int B, S, hkv, G, rows, num_pages, page, P;
   float scale;
   bool insert;
 };
@@ -485,12 +450,12 @@ int allow_smem(Kernel kernel, int bytes, int* allowed) {
 template <typename T, int HD>
 int launch(const Args& a, cudaStream_t stream) {
   const Plan pl = plan<T, HD>(a.page);
-  const int Rp = (a.G * a.S + RB - 1) / RB * RB;
+  const int Rp = (a.rows + RB - 1) / RB * RB;
   const size_t bytes = ring_bytes<T, HD>(pl.chunk, pl.stages) +
                        (size_t)Rp * HD * 4 + (size_t)Rp * pl.chunk * 4 +
                        (size_t)a.P * 4;
   if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(a.B, a.hkv);
+  dim3 grid(a.B, a.hkv, (a.G * a.S + a.rows - 1) / a.rows);
   const T* q = static_cast<const T*>(a.q);
   T* out = static_cast<T*>(a.out);
   if (a.insert) {
@@ -501,16 +466,16 @@ int launch(const Args& a, cudaStream_t stream) {
     paged_verify_insert_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         q, static_cast<T*>(a.k_pages), static_cast<T*>(a.v_pages),
         static_cast<const T*>(a.knew), static_cast<const T*>(a.vnew),
-        a.lengths, a.tables, out, a.S, a.G, a.num_pages, a.page, a.P,
-        a.scale, pl.chunk, pl.stages);
+        a.lengths, a.tables, out, a.S, a.G, a.rows, a.num_pages, a.page,
+        a.P, a.scale, pl.chunk, pl.stages);
   } else {
     static int allowed = 0;
     if (int e = allow_smem(paged_verify_kernel<T, HD>, (int)bytes, &allowed))
       return e;
     paged_verify_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         q, static_cast<const T*>(a.k_pages), static_cast<const T*>(a.v_pages),
-        a.lengths, a.tables, out, a.S, a.G, a.num_pages, a.page, a.P,
-        a.scale, pl.chunk, pl.stages);
+        a.lengths, a.tables, out, a.S, a.G, a.rows, a.num_pages, a.page,
+        a.P, a.scale, pl.chunk, pl.stages);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -528,19 +493,21 @@ int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
 // layer); knew/vnew [B, S, hkv, hd] (read only when insert != 0);
 // lengths [B] int32 (the causal limit of query 0); tables [B, P] int32;
 // out [B, S, hkv*G, hd]. Pointers 16-byte aligned (the bulk copies).
+// `rows` (1-40): query rows a block, from the plan (verify_plan in
+// paged_attention.py); the grid takes ceil(G*S / rows) row groups.
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int rt_paged_verify(const void* q, void* k_pages, void* v_pages,
                                const void* knew, const void* vnew,
                                const int* lengths, const int* tables,
                                void* out, int B, int S, int hkv, int G,
-                               int hd, int num_pages, int page, int P,
-                               float scale, int dtype, int insert,
+                               int rows, int hd, int num_pages, int page,
+                               int P, float scale, int dtype, int insert,
                                void* stream) {
-  if (S < 1 || G < 1 || G * S > kMaxRows || page < 1 ||
-      (insert && (!knew || !vnew)))
+  if (S < 1 || G < 1 || rows < 1 || rows > kMaxRows || page < 1 ||
+      (G * S + rows - 1) / rows > 65535 || (insert && (!knew || !vnew)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,   k_pages, v_pages,   knew, vnew, lengths, tables, out,
-               B,   S,       hkv,       G,    num_pages,     page,   P,
+  const Args a{q,    k_pages,   v_pages, knew, vnew, lengths, tables, out,
+               B,    S,         hkv,     G,    rows, num_pages, page,   P,
                scale, insert != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_hd<float>(hd, a, s);

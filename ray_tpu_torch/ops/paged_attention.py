@@ -19,6 +19,7 @@ NaN there).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -68,17 +69,74 @@ def paged_decode_attention_reference(q, k_pages, v_pages, lengths,
     return out.reshape(B, h, hd).to(q.dtype)
 
 
+# K1's launch plan. A slot's positions [0, P*page) go to `splits` blocks
+# of one thread-block cluster, `split_len` positions each (a power of
+# two); a block moves its split in chunks of `chunk` tokens (a power of
+# two that divides the page, so a chunk never crosses one; at most
+# CHUNK_BYTES of K and one thread per key) through `stages` stages.
+# Query heads go MAX_DECODE_ROWS at most to a block, in `row_groups`
+# balanced groups of `rows`. The splits: doubled from one while the
+# call's blocks (slots x kv heads x row groups x splits) are fewer than
+# FILL_BLOCKS (about one an SM of an H100's 132), up to MAX_SPLITS (the
+# portable cluster size) and no shorter than MIN_SPLIT tokens: the
+# fastest split count, or within 2 % of it, at every shape that
+# `chip_smoke.py` times them all (`time_k1_plans`; PERF.md §6). Nothing
+# here reads the lengths: the plan comes from the shapes alone, so the
+# wrapper never waits for the device.
+MAX_SPLITS = 8
+MIN_SPLIT = 64
+FILL_BLOCKS = 128
+CHUNK_BYTES = 16384
+MAX_CHUNK = 128
+MAX_DECODE_ROWS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    split_len: int
+    splits: int
+    chunk: int
+    stages: int
+    rows: int
+    row_groups: int
+
+
+@functools.cache
+def decode_plan(P: int, page: int, hd: int, itemsize: int, g: int,
+                pairs: int, splits: int = 0) -> DecodePlan:
+    """K1's launch plan for `pairs` (slot, kv head) pairs of P-page tables
+    of `page`-token pages, head_dim `hd` in `itemsize`-byte elements and
+    g query heads per kv head. `splits` > 0 asks for that many splits
+    instead of the rule's (fewer where a power-of-two split length covers
+    the table with fewer)."""
+    cap = P * page
+    row_groups = -(-g // MAX_DECODE_ROWS)
+    if splits <= 0:
+        splits = 1
+        while (splits < MAX_SPLITS and pairs * row_groups * splits
+               < FILL_BLOCKS and cap >= 2 * splits * MIN_SPLIT):
+            splits *= 2
+    split_len = 1 << (-(-cap // min(splits, MAX_SPLITS)) - 1).bit_length()
+    chunk = min(split_len, CHUNK_BYTES // (hd * itemsize), MAX_CHUNK,
+                page & -page)          # the largest power of two in page
+    return DecodePlan(split_len=split_len, splits=-(-cap // split_len),
+                      chunk=chunk, stages=1 if chunk == split_len else 2,
+                      rows=-(-g // row_groups), row_groups=row_groups)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("paged_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rt_paged_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                    ctypes.c_float, i, p]
+                                    i, i, i, i, i, ctypes.c_float, i, p]
     lib.rt_paged_decode.restype = i
     return lib
 
 
-def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables):
+def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables,
+                       plan: DecodePlan | None = None):
+    """Launch K1; `plan` replaces `decode_plan`'s (timing sweeps)."""
     B, h, hd = q.shape
     hkv, num_pages, page, hd_k = k_pages.shape
     if q.dtype not in _build.DTYPE_CODES:
@@ -94,15 +152,17 @@ def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables):
             f"paged_decode: bad shapes q {tuple(q.shape)} pools "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} lengths "
             f"{tuple(lengths.shape)} tables {tuple(page_tables.shape)}")
-    if hd not in (64, 128) or not 1 <= h // hkv <= 8:
+    if hd not in (64, 128) or B < 1 or h < 1 or page_tables.shape[1] < 1:
         raise ValueError(f"paged_decode: kernel supports head_dim 64/128 and "
-                         f"1-8 query heads per kv head, got hd={hd}, "
-                         f"h={h}, hkv={hkv}")
+                         f"non-empty inputs, got hd={hd}, B={B}, h={h}, "
+                         f"P={page_tables.shape[1]}")
     ts = (q, k_pages, v_pages, lengths, page_tables)
     if any(t.device != q.device for t in ts):
         raise ValueError("paged_decode: all inputs must be on one device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_decode: inputs must be contiguous")
+    pl = plan or decode_plan(page_tables.shape[1], page, hd,
+                             q.element_size(), h // hkv, B * hkv)
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -111,6 +171,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables):
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
             B, hkv, h // hkv, hd, num_pages, page, page_tables.shape[1],
+            pl.rows, pl.split_len, pl.splits, pl.chunk, pl.stages,
             1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype], stream)
     _build.check(lib, rc, "paged_decode")
     launches["cuda"] += 1
@@ -220,15 +281,25 @@ def _verify_lib():
     lib = _build.load("paged_verify")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rt_paged_verify.argtypes = [p, p, p, p, p, p, p, p,
-                                    i, i, i, i, i, i, i, i,
+                                    i, i, i, i, i, i, i, i, i,
                                     ctypes.c_float, i, i, p]
     lib.rt_paged_verify.restype = i
     return lib
 
 
-# The most query rows (g * S) of one kv head the verify kernels take: one
-# block holds all of them.
+# The most query rows of one kv head a verify block holds; a (slot, kv
+# head) with more (g * S of them) takes several row groups.
 MAX_VERIFY_ROWS = 40
+
+
+@functools.cache
+def verify_plan(g: int, S: int) -> tuple[int, int]:
+    """(row groups, rows per group) of the verify kernels for g query heads
+    per kv head and S queries per slot: the g*S rows in the fewest groups
+    of at most MAX_VERIFY_ROWS, balanced (the last may hold fewer)."""
+    groups = -(-g * S // MAX_VERIFY_ROWS)
+    return groups, -(-g * S // groups)
+
 # The most pages a slot's table row may hold: the verify kernels keep the
 # row in shared memory (16 KB at most).
 MAX_VERIFY_PAGES = 4096
@@ -258,10 +329,10 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} new K/V "
             f"{[tuple(t.shape) for t in news]} lengths "
             f"{tuple(lengths.shape)} tables {tuple(page_tables.shape)}")
-    if hd not in (64, 128) or not 1 <= (h // hkv) * S <= MAX_VERIFY_ROWS:
-        raise ValueError(f"{what}: kernel supports head_dim 64/128 and 1-"
-                         f"{MAX_VERIFY_ROWS} query rows (h/hkv * S) per kv "
-                         f"head, got hd={hd}, h={h}, hkv={hkv}, S={S}")
+    if hd not in (64, 128) or B < 1 or S < 1 or h < 1:
+        raise ValueError(f"{what}: kernel supports head_dim 64/128 and "
+                         f"non-empty inputs, got hd={hd}, B={B}, S={S}, "
+                         f"h={h}")
     if page_tables.shape[1] > MAX_VERIFY_PAGES:
         raise ValueError(f"{what}: kernel supports page tables of at most "
                          f"{MAX_VERIFY_PAGES} pages per slot, got "
@@ -274,6 +345,7 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, *news)):
         raise ValueError(f"{what}: q, pools and new K/V must be 16-byte "
                          f"aligned (the kernels move pages by bulk copies)")
+    _groups, rows = verify_plan(h // hkv, S)
     out = torch.empty_like(q)
     lib = _verify_lib()
     with torch.cuda.device(q.device):
@@ -283,9 +355,9 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
             knew.data_ptr() if insert else None,
             vnew.data_ptr() if insert else None,
             lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
-            B, S, hkv, h // hkv, hd, num_pages, page, page_tables.shape[1],
-            1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype], int(insert),
-            stream)
+            B, S, hkv, h // hkv, rows, hd, num_pages, page,
+            page_tables.shape[1], 1.0 / math.sqrt(hd),
+            _build.DTYPE_CODES[q.dtype], int(insert), stream)
     _build.check(lib, rc, what)
     (verify_insert_launches if insert else verify_launches)["cuda"] += 1
     return out

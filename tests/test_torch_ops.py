@@ -7,6 +7,8 @@ paged-decode Pallas kernel and the flash forward and backward kernels in
 interpret mode. The CUDA kernels themselves run only on a card
 (`python3 chip_smoke.py` compares each with its plain version there)."""
 
+import inspect
+import math
 import os
 import shutil
 import subprocess
@@ -138,10 +140,20 @@ def _to_port_layout(pages_jax_layout):
     return np.ascontiguousarray(np.swapaxes(pages_jax_layout, 2, 3))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_decode_plain_matches_jax_kernel_and_reference(dtype):
+# (h, hkv, hd) of the K1 cases: GQA 4/2 at a narrow head; 8 query heads a
+# kv head at head_dim 128; 16 a kv head (two of the CUDA kernel's row
+# groups of at most 8).
+_DECODE_CASES = {"base": (4, 2, 16), "g8_hd128": (16, 2, 128),
+                 "g16": (16, 1, 16)}
+
+
+@pytest.mark.parametrize("dtype,case", [
+    pytest.param(dt, case, id=dt if case == "base" else f"{dt}-{case}")
+    for case in _DECODE_CASES for dt in ("float32", "bfloat16")])
+def test_paged_decode_plain_matches_jax_kernel_and_reference(dtype, case):
     rng = np.random.default_rng(3)
-    q, kp, vp, lengths, tables = _paged_case(rng)
+    h, hkv, hd = _DECODE_CASES[case]
+    q, kp, vp, lengths, tables = _paged_case(rng, h=h, hkv=hkv, hd=hd)
     jq, tq = _pair(q, dtype)
     jk, _ = _pair(kp, dtype)
     jv, _ = _pair(vp, dtype)
@@ -163,6 +175,136 @@ def test_paged_decode_plain_matches_jax_kernel_and_reference(dtype):
     ref = j_paged_reference(jq, jk, jv, jnp.asarray(lengths),
                             jnp.asarray(tables))
     _close(got[1:], ref[1:], dtype)
+
+
+def _split_kv_model(q, kp, vp, lengths, tables, plan):
+    """The CUDA kernel's split-KV arithmetic in plain torch (fp32), a test
+    model only: per split, chunk by chunk, a running (m, l, acc); the
+    splits' partials merged in rank order. Pools in the port's layout."""
+    B, h, _hd = q.shape
+    hkv, _n, page, _ = kp.shape
+    g, cap = h // hkv, tables.shape[1] * page
+    out = torch.zeros(q.shape)
+    for b in range(B):
+        eff = min(max(int(lengths[b]), 0), cap)
+        for kvh in range(hkv):
+            qs = q[b, kvh * g:(kvh + 1) * g].float()
+            parts = []
+            for s in range(plan.splits):
+                m = torch.full((g,), -0.7 * torch.finfo(torch.float32).max)
+                l, acc = torch.zeros(g), torch.zeros(g, q.shape[2])
+                s0 = s * plan.split_len
+                for t0 in range(s0, min(s0 + plan.split_len, eff),
+                                plan.chunk):
+                    t1 = min(t0 + plan.chunk, s0 + plan.split_len, eff)
+                    assert t0 // page == (t1 - 1) // page   # one page
+                    pid = int(tables[b, t0 // page])
+                    k = kp[kvh, pid, t0 % page:t0 % page + t1 - t0].float()
+                    v = vp[kvh, pid, t0 % page:t0 % page + t1 - t0].float()
+                    sc = qs @ k.T / math.sqrt(q.shape[2])
+                    m_new = torch.maximum(m, sc.max(1).values)
+                    p = torch.exp(sc - m_new[:, None])
+                    a = torch.exp(m - m_new)
+                    l, acc, m = l * a + p.sum(1), acc * a[:, None] + p @ v, \
+                        m_new
+                parts.append((m, l, acc))
+            mx = torch.stack([m for m, _l, _a in parts]).max(0).values
+            lsum, asum = torch.zeros(g), torch.zeros(g, q.shape[2])
+            for m, l, acc in parts:                 # rank order
+                f = torch.exp(m - mx)
+                lsum, asum = lsum + l * f, asum + acc * f[:, None]
+            out[b, kvh * g:(kvh + 1) * g] = torch.where(
+                lsum[:, None] > 0, asum / lsum.clamp_min(1e-30)[:, None], 0.0)
+    return out
+
+
+@pytest.mark.parametrize("dtype,splits", [
+    pytest.param(dt, n, id=dt if n == 2 else f"{dt}-{'rule' if n == 0 else n}")
+    for n in (2, 8, 0) for dt in ("float32", "bfloat16")])
+def test_split_kv_merge_model_matches_jax_kernel(dtype, splits):
+    """The split-KV plans and merge the CUDA K1 runs (`decode_plan` at P =
+    16, page 16: two 128-token splits, eight of 32 tokens, and the rule's
+    four of 64 for these 12 slots x 2 kv heads; 16-token chunks) reproduce
+    the JAX kernel at lengths 0, 1, chunk and page edges, split edges and
+    beyond P * page."""
+    rng = np.random.default_rng(7)
+    P, page, hd, h, hkv = 16, 16, 16, 4, 2
+    lengths = np.array([0, 1, 15, 16, 17, 127, 128, 129, 191, 255, 256,
+                        300], np.int32)
+    B, N = len(lengths), 40
+    q = rng.normal(size=(B, h, hd)).astype(np.float32)
+    kp, vp = (rng.normal(size=(hkv, N, hd, page)).astype(np.float32)
+              for _ in range(2))
+    tables = rng.integers(0, N, (B, P)).astype(np.int32)  # 0 = scratch
+    jdt, tdt = _DT[dtype]
+    tq, tk, tv = (torch.tensor(a).to(tdt)
+                  for a in (q, _to_port_layout(kp), _to_port_layout(vp)))
+    plan = t_paged.decode_plan(P, page, hd, tq.element_size(), h // hkv,
+                               B * hkv, splits)
+    assert (plan.splits, plan.split_len, plan.chunk) == {
+        2: (2, 128, 16), 8: (8, 32, 16), 0: (4, 64, 16)}[splits]
+    got = _split_kv_model(tq, tk, tv, lengths, tables, plan).to(tdt)
+    want = j_paged_decode(jnp.asarray(q, jdt), jnp.asarray(kp, jdt),
+                          jnp.asarray(vp, jdt), jnp.asarray(lengths),
+                          jnp.asarray(tables), interpret=True)
+    _close(got, want, dtype)
+    plain = paged_decode_attention(tq, tk, tv, torch.tensor(lengths),
+                                   torch.tensor(tables))
+    _close(got, plain.float().numpy(), dtype)
+    assert not got[0].float().abs().any()        # length 0: zeros
+
+
+@pytest.mark.parametrize("P,page,hd,itemsize,g", [
+    (2, 128, 64, 2, 1), (8, 128, 64, 2, 1), (2, 128, 128, 2, 8),
+    (8, 128, 128, 4, 7), (1, 128, 64, 2, 16), (3, 24, 64, 2, 12),
+    (16, 128, 64, 2, 1), (4096, 16, 128, 4, 3), (4, 8, 16, 4, 2)])
+def test_decode_plan_covers_every_position_once(P, page, hd, itemsize, g):
+    """K1's launch plan, from the shapes alone (it takes no lengths), for
+    1 to 4096 (slot, kv head) pairs, by the rule and by request: the
+    splits (at most 8, the portable cluster size) cover positions [0,
+    P*page) exactly once, every split is non-empty, a chunk never crosses
+    a page or outgrows the kernel's limits, one stage only where a split
+    is one chunk, and the row groups cover the g query heads exactly
+    once, at most 8 to a block. The rule doubles the splits only while
+    the blocks are short of FILL_BLOCKS and a split stays >= MIN_SPLIT."""
+    assert "lengths" not in inspect.signature(t_paged.decode_plan).parameters
+    cap = P * page
+    for pairs in (1, 12, 48, 384, 4096):
+        for asked in (0, 1, 2, 4, 8, 16):
+            pl = t_paged.decode_plan(P, page, hd, itemsize, g, pairs, asked)
+            assert 1 <= pl.splits <= min(t_paged.MAX_SPLITS, asked or 8)
+            assert pl.split_len & (pl.split_len - 1) == 0
+            covered = np.zeros(cap, np.int64)
+            for s in range(pl.splits):
+                lo, hi = s * pl.split_len, min((s + 1) * pl.split_len, cap)
+                assert lo < hi
+                for t0 in range(lo, hi, pl.chunk):  # the kernel's chunks
+                    t1 = min(t0 + pl.chunk, hi)
+                    assert t0 // page == (t1 - 1) // page
+                    covered[t0:t1] += 1
+            assert (covered == 1).all()
+            assert page % pl.chunk == 0 and pl.split_len % pl.chunk == 0
+            assert pl.chunk <= t_paged.MAX_CHUNK
+            assert pl.chunk * hd * itemsize <= t_paged.CHUNK_BYTES
+            assert pl.stages == (1 if pl.chunk == pl.split_len else 2)
+            assert 1 <= pl.rows <= t_paged.MAX_DECODE_ROWS
+            assert (pl.row_groups - 1) * pl.rows < g <= pl.row_groups * pl.rows
+            if asked == 0:
+                blocks = pairs * pl.row_groups
+                assert pl.splits == 1 or pl.split_len >= t_paged.MIN_SPLIT
+                assert (pl.splits == 1
+                        or blocks * (pl.splits // 2) < t_paged.FILL_BLOCKS)
+
+
+@pytest.mark.parametrize("g,S", [(1, 1), (8, 5), (7, 6), (8, 6), (4, 11),
+                                 (1, 128), (64, 8)])
+def test_verify_plan_covers_every_row_once(g, S):
+    """The verify kernels' row groups: the g*S query rows of a kv head in
+    the fewest groups of at most MAX_VERIFY_ROWS, each row once."""
+    groups, rows = t_paged.verify_plan(g, S)
+    assert 1 <= rows <= t_paged.MAX_VERIFY_ROWS
+    assert groups == -(-g * S // t_paged.MAX_VERIFY_ROWS)
+    assert (groups - 1) * rows < g * S <= groups * rows
 
 
 def test_paged_decode_caps_at_table_width():

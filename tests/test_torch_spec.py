@@ -117,8 +117,11 @@ _VERIFY_CASES = {
     # GQA 4/2 with S = 3, lengths at page edges and one slot whose last
     # queries run past the P-page cap
     "base": (3, 4, 2, [1, 7, 8, 11, 31]),
-    # g * S = 8 * 5 = 40 query rows per kv head: the CUDA kernels' limit
+    # g * S = 8 * 5 = 40 query rows per kv head: one CUDA row group
     "rows40": (5, 8, 1, [6, 13, 20]),
+    # 42 (g 7, S 6) and 48 (g 8, S 6) rows: two row groups on CUDA
+    "rows42": (6, 14, 2, [5, 12, 26]),
+    "rows48": (6, 8, 1, [1, 9, 27]),
     # S = 5 queries at positions 5..9, 13..17, 22..26: each straddles a
     # page edge
     "straddle": (5, 4, 2, [6, 14, 23]),
@@ -166,9 +169,12 @@ _INSERT_CASES = {
     # an inactive slot's all-zero table row: its writes go to scratch
     "zero_row": (2, 4, 2, 2, [12, 20], (1,)),
     "gqa": (3, 3, 8, 2, [9, 16, 25], ()),
-    # g * S = 8 * 5 = 40 query rows per kv head (the CUDA kernels' limit);
+    # g * S = 8 * 5 = 40 query rows per kv head (one CUDA row group);
     # the writes at 5..9 and 14..18 straddle page edges
     "rows40": (2, 5, 8, 1, [6, 15], ()),
+    # 42 and 48 rows (two CUDA row groups); writes straddle page edges
+    "rows42": (2, 6, 14, 2, [4, 21], ()),
+    "rows48": (2, 6, 16, 2, [7, 13], ()),
 }
 
 
@@ -219,18 +225,15 @@ def test_paged_verify_insert_plain_matches_jax(case, dtype):
 
 
 def test_verify_wrappers_validate_before_launch():
-    """The K1'/K5 CUDA wrappers refuse what the kernel does not take
-    (checked on meta tensors, before any build or launch): more than 40
-    query rows per kv head, a head_dim other than 64/128, a dtype mismatch
-    of the new K/V."""
+    """The K1'/K5 CUDA wrappers take any number of query rows per kv head
+    (44 go as two row groups) and refuse what the kernel does not take
+    (checked on meta tensors, before any build or launch): a head_dim
+    other than 64/128, a dtype mismatch of the new K/V."""
     meta = dict(device="meta")
     pages = torch.empty(2, 3, 8, 64, **meta)
     lens = torch.empty(2, dtype=torch.int32, **meta)
     tabs = torch.empty(2, 1, dtype=torch.int32, **meta)
-    q_many = torch.empty(2, 11, 8, 64, **meta)      # g = 4, S = 11: 44 rows
-    with pytest.raises(ValueError, match="query rows"):
-        t_paged._verify_cuda(q_many, pages, pages, None, None, lens, tabs,
-                             "paged_verify")
+    assert t_paged.verify_plan(4, 11) == (2, 22)    # g = 4, S = 11: 44 rows
     q32 = torch.empty(2, 2, 4, 32, **meta)
     with pytest.raises(ValueError):
         t_paged._verify_cuda(q32, torch.empty(2, 3, 8, 32, **meta),
