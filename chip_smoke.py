@@ -5,6 +5,9 @@
     python3 chip_smoke.py --serve-ab ../parent --pairs 10
                                      # only the serve phase, this checkout
                                      # against another, in alternation
+    python3 chip_smoke.py --head-dim-times ../parent
+                                     # only the kernels' times at head_dims
+                                     # 16-128, of the package at ../parent
 
 Phases (each raises on failure, so the script exits non-zero and prints
 no result line):
@@ -30,7 +33,9 @@ no result line):
               split count at 1-32 slots beside its plan's; K1'/K5 up to 48
               query rows per kv head (two row groups); K2 and K3/K4 also
               at S = 1, 63, 65, 129 and 1000 (the edges of their 64-row
-              tiles) in bf16;
+              tiles) in bf16; then every kernel at head_dims 16, 32, 80,
+              8 and 120 (the reference's kernels take any multiple of 8;
+              the port's up to 128), bf16 and fp32;
  4. serve   — the engine at full Llama-125M width (bf16, seeded random
               weights): 32 requests of 127 tokens plus 4 sharing a
               128-token prefix, 64 greedy tokens each; the paged-decode
@@ -66,7 +71,23 @@ no result line):
  9. train-exact — the same width in fp32 at 2 x 256: loss and every
               gradient leaf of the kernel path against the plain path
               (dense attention differentiated by autograd), and a 3-step
-              AdamW trajectory of both, within stated tolerances.
+              AdamW trajectory of both, within stated tolerances;
+10. tiny    — configs.tiny() (head_dim 16) in fp32 and bf16 through the
+              plain engine (K1), the speculative engine (K5) and 3 train
+              steps (K2-K4), launch counts held, no plain version run;
+11. guided  — the serve phase's prompts at llama-125m width in bf16, half
+              under a JSON-schema guide: every guided answer parses, K1
+              runs 12 times per decode step; tokens/s, the guide table's
+              bytes and uploads per window; in fp32 the engine's guided
+              greedy tokens equal a masked-argmax loop over `forward` (K2)
+              walking the same DFA; one guided window under sync debug
+              mode "error";
+12. handoff — PrefillEngine.prefill_export, then import_kv + resume_token
+              in a decode engine: in fp32 (300-token prompts) the tokens
+              equal the monolithic engine's, with prefix hits; in bf16 32
+              such requests timed;
+13. dense   — kv_layout="dense": fp32 greedy tokens equal the paged
+              engine's; the serve phase's requests in bf16 timed.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -158,9 +179,11 @@ def tensor_core_counts(_build) -> dict | None:
                 mangled = line.split("Function :", 1)[1].strip()
                 name = re.search(r"(flash_[a-z_]+_kernel)I", mangled)
                 width = re.search(r"Li(\d+)E", mangled)
+                pad = re.search(r"Lb1E", mangled)
                 fn = (f"{name.group(1) if name else mangled} "
                       f"{'bf16' if '__nv_bfloat16' in mangled else 'fp32'} "
-                      f"D={width.group(1) if width else '?'}")
+                      f"D={width.group(1) if width else '?'}"
+                      f"{' padded' if pad else ''}")
                 counts[fn] = [0, 0]
             elif fn is not None:
                 if "HGMMA" in line:
@@ -811,6 +834,116 @@ def check_k3_k4(torch, results):
             library_ms=lib_ms)
 
 
+def check_head_dims(torch, results):
+    """Every kernel at head_dims other than 64 and 128 (the reference's
+    Pallas kernels take any multiple of 8): hd 16 and 32 (configs.tiny()
+    and the engine tests' models), 80 (not a power of two), 8 and 120 (the
+    ends of the two instantiations), bf16 and fp32, against the plain
+    versions within TOL: K1 under its plan and under 8 splits, K1' and K5
+    (K5's written pools bit-equal to the plain insert's), K2 causal and
+    full at S = 1, 65 and 300, K3/K4 at S = 65 and 300. Their errors join
+    each kernel's max_abs_err."""
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.ops import paged_attention as PA
+    errs = {k: [] for k in ("paged_decode", "paged_verify",
+                            "paged_verify_insert", "flash_fwd",
+                            "flash_bwd_dq", "flash_bwd_dkv")}
+    lens_l = [0, 1, 15, 16, 17, 127, 128, 129, 300, 511, 512, 600]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for hd in (16, 32, 80, 8, 120):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            line = []
+            # K1: 8 query heads over 4 kv heads, 16-token pages x 32 and
+            # 128-token pages x 5
+            e = 0.0
+            for page, P in ((16, 32), (128, 5)):
+                q, pk, pv, lens, tables = k1_case(torch, len(lens_l), 8, 4,
+                                                  hd, page, P, lens_l, dtype,
+                                                  seed=12)
+                want = PA.paged_decode_attention_reference(q, pk[0], pv[0],
+                                                           lens, tables)
+                for splits in (0, 8):
+                    pl = PA.decode_plan(P, page, hd, q.element_size(), 2,
+                                        len(lens_l) * 4, splits=splits)
+                    got = PA._paged_decode_cuda(q, pk[0], pv[0], lens,
+                                                tables, pl)
+                    e = max(e, (got.float() - want.float()).abs().max()
+                            .item())
+                del q, pk, pv, want, got
+            errs["paged_decode"].append(e)
+            line.append(f"K1 {e:.2e}")
+            # K1' and K5: S = 5, 128-token pages, 8-page tables; a verify
+            # step always has its pending token: lengths >= 1
+            vlens = [max(x, 1) for x in lens_l]
+            q, pk, pv, _kn, _vn, lens, tables = verify_case(
+                torch, len(vlens), 5, 8, 4, hd, 128, 8, vlens, dtype,
+                seed=13)
+            got = PA.paged_verify_attention(q, pk[0], pv[0], lens, tables)
+            want = PA.paged_verify_attention_reference(q, pk[0], pv[0], lens,
+                                                       tables)
+            e = (got.float() - want.float()).abs().max().item()
+            errs["paged_verify"].append(e)
+            line.append(f"K1' {e:.2e}")
+            q, pk, pv, kn, vn, lens, tables = verify_case(
+                torch, len(vlens), 5, 8, 4, hd, 128, 8, vlens, dtype,
+                seed=14, layers=2, scratch_entries=False, zero_rows=(5,))
+            rk, rv = pk.clone(), pv.clone()
+            got, _, _ = PA.paged_verify_insert_attention(q, pk, pv, kn, vn,
+                                                         lens, tables, 1)
+            want, _, _ = PA.paged_verify_insert_reference(q, rk, rv, kn, vn,
+                                                          lens, tables, 1)
+            keep = torch.arange(len(vlens), device="cuda") != 5
+            e = (got[keep].float() - want[keep].float()).abs().max().item()
+            same = all(torch.equal(a[:, :, 1:].view(bits),
+                                   b[:, :, 1:].view(bits))
+                       for a, b in ((pk, rk), (pv, rv)))
+            errs["paged_verify_insert"].append(e)
+            line.append(f"K5 {e:.2e} (pools {'equal' if same else 'DIFFER'})")
+            del q, pk, pv, kn, vn, rk, rv, got, want
+            # K2, K3/K4: GQA 4/2
+            e2, e34 = 0.0, [0.0, 0.0, 0.0]
+            for S in (1, 65, 300):
+                for causal in (True, False):
+                    q, k, v, do = attn_case(torch, gen, 2, S, 4, 2, hd, dtype)
+                    got = A.flash_attention(q, k, v, causal=causal,
+                                            impl="pallas")
+                    want = A.flash_attention(q, k, v, causal=causal,
+                                             impl="reference")
+                    e2 = max(e2, (got.float() - want.float()).abs().max()
+                             .item())
+                    if S > 1:
+                        scale = hd ** -0.5
+                        o, lse = A.flash_attention_fwd(q, k, v, causal, scale,
+                                                       with_lse=True)
+                        grads = A.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal, scale)
+                        ref = A.flash_attention_bwd_reference(
+                            q, k, v, o, lse, do, causal, scale)
+                        for j in range(3):
+                            e34[j] = max(e34[j], scaled_err(grads[j], ref[j],
+                                                            []))
+                    del q, k, v, do, got, want
+            errs["flash_fwd"].append(e2)
+            errs["flash_bwd_dq"].append(e34[0])
+            errs["flash_bwd_dkv"].append(max(e34[1:]))
+            line.append(f"K2 {e2:.2e}; K3 {e34[0]:.2e}, K4 {max(e34[1:]):.2e} "
+                        f"(of the reference's scale)")
+            torch.cuda.synchronize()
+            worst = max(x[-1] for x in errs.values())
+            ok = math.isfinite(worst) and worst <= TOL[dn] and same
+            log(f"  head_dim {hd} {dn}: {'; '.join(line)} (tol {TOL[dn]}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"head_dim {hd} {dn}: a kernel "
+                                     f"disagrees ({line})")
+    for name, e in errs.items():
+        if name in results:
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               max(e))
+
+
 # ---------------- phases 4-5: the main path ----------------
 
 
@@ -945,9 +1078,10 @@ def no_sync_check(torch, eng):
     torch.cuda.set_sync_debug_mode("error")
     try:
         _t, lens, _a, out, logps = decode_window(
-            eng.params, eng.cache_k, eng.cache_v, generator=gen,
-            config=eng.c, eos_token=-1, n_steps=4, trunc=True,
-            want_logp=True, fused=fused, **args)
+            eng.params, eng.cache_k, eng.cache_v, gtables=None,
+            gstates=None, generator=gen, config=eng.c, eos_token=-1,
+            n_steps=4, trunc=True, guided=False, want_logp=True,
+            fused=fused, **args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     out, logps, lens = out.cpu(), logps.cpu(), lens.cpu()
@@ -1422,6 +1556,461 @@ def train_exact_phase(torch):
         raise AssertionError("train-exact: trajectories disagree")
 
 
+# ---------------- phases 10-13: the slice's serving surfaces ----------------
+
+# The guided phases' JSON schema: every field bounded (a string of at most
+# 8 characters, an integer 0-999, a boolean), so a guided answer is at most
+# 38 bytes and ends within 64 tokens.
+GUIDE_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string", "maxLength": 8},
+    "n": {"type": "integer", "minimum": 0, "maximum": 999},
+    "ok": {"type": "boolean"}}}
+
+
+def parses_to_schema(text: str) -> bool:
+    try:
+        obj = json.loads(text)
+    except ValueError:
+        return False
+    return (isinstance(obj, dict) and list(obj) == ["name", "n", "ok"]
+            and isinstance(obj["name"], str) and len(obj["name"]) <= 8
+            and type(obj["n"]) is int and 0 <= obj["n"] <= 999
+            and isinstance(obj["ok"], bool))
+
+
+def tiny_phase(torch):
+    """configs.tiny() (head_dim 16) on the card, in fp32 and bf16: the
+    plain engine (K1), the speculative engine (K5) and 3 train steps (K2
+    with lse, K3, K4), each with its launch count and no plain version
+    run; in fp32 the engines' greedy tokens equal an argmax loop over
+    `forward` (K2)."""
+    import numpy as np
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.ops import paged_attention as PA
+    from ray_tpu_torch.train import adamw, make_train_step
+    rng = np.random.default_rng(7)
+    for dtype in ("float32", "bfloat16"):
+        cfg = configs.tiny(dtype=dtype)
+        params = init_params(cfg, torch.Generator().manual_seed(7), "cuda")
+        pattern = rng.integers(1, cfg.vocab, 4).tolist()
+        prompts = [rng.integers(1, cfg.vocab, 9).tolist(), pattern * 5,
+                   rng.integers(1, cfg.vocab, 30).tolist()]
+        ecfg = dict(max_slots=4, max_len=128, prompt_buckets=(32,),
+                    eos_token=-1, page_size=16)
+        reset_counts()
+        eng = InferenceEngine(cfg, EngineConfig(**ecfg), params=params,
+                              device="cuda")
+        plain = eng.generate(prompts, 20, 0.0)
+        k1 = dict(PA.launches)
+        steps = eng.kv_stats()["decode_steps"]
+        reset_counts()
+        spec_eng = InferenceEngine(cfg, EngineConfig(**ecfg,
+                                                     speculation="ngram",
+                                                     spec_k=4),
+                                   params=params, device="cuda")
+        spec = spec_eng.generate(prompts, 20, 0.0)
+        k5 = dict(PA.verify_insert_launches)
+        st = spec_eng.kv_stats()
+        line = (f"  tiny {dtype} (hd {cfg.head_dim}): engine {steps} decode "
+                f"steps, K1 {k1}; spec engine {st['verify_steps']} verify "
+                f"steps, K5 {k5}, spec == plain {spec == plain}")
+        if dtype == "float32":
+            reset_counts()
+            want = forward_argmax(torch, params, cfg, prompts, 20)
+            k2 = dict(A.launches)
+            line += f", == forward argmax {plain == want} (K2 {k2})"
+            if plain != want or spec != plain or k2["plain"]:
+                raise AssertionError(f"tiny fp32: engine {plain}, spec "
+                                     f"{spec}, forward {want}")
+        if (k1 != {"cuda": cfg.n_layers * steps, "plain": 0} or steps == 0
+                or k5 != {"cuda": cfg.n_layers * st["verify_steps"],
+                          "plain": 0} or st["verify_steps"] == 0):
+            raise AssertionError(f"tiny {dtype}: launches {k1} {k5}")
+        init_fn, step, _, _ = make_train_step(
+            lambda p, b, c=cfg: loss_fn(p, b, c), adamw(1e-3), device="cuda")
+        state = init_fn(params)
+        batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (4, 65)),
+                                        dtype=torch.int32, device="cuda")}
+        reset_counts()
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, batch)
+            losses.append(loss)
+        losses = torch.stack(losses).tolist()
+        counts = bwd_counts()
+        want = {"cuda": 3 * cfg.n_layers, "plain": 0}
+        log(f"{line}; 3 train steps, losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, launches {counts}")
+        if (any(counts[k] != want for k in counts)
+                or not all(math.isfinite(x) for x in losses)
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"tiny {dtype} train: {losses} {counts}")
+
+
+def guided_phase(torch, smi, params, serve):
+    """The serve phase's 32 prompts and llama-125m bf16 weights, half of
+    the requests under a JSON-schema guide (temperature 0.7), half free
+    (greedy), 64 tokens at most: every guided answer parses to the schema,
+    K1 runs 12 times per decode step; tokens/s beside the serve phase's,
+    the guide table's bytes and uploads per window, peak memory."""
+    from ray_tpu_torch.llm import ByteTokenizer, EngineConfig, InferenceEngine
+    from ray_tpu_torch.llm.guided import compile_json_guide
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.ops import paged_attention as PA
+    cfg = configs.bench_125m()
+    tok = ByteTokenizer()
+    guide = compile_json_guide(GUIDE_SCHEMA, tok, vocab=cfg.vocab,
+                               eos_id=tok.eos_id)
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=32, max_len=1024,
+                                            prompt_buckets=(128,),
+                                            eos_token=tok.eos_id),
+                          params=params, seed=0, device="cuda")
+    prompts = serve["prompts"][:32]
+    eng.generate(prompts[:2], max_new_tokens=4)    # warm library handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st0 = eng.kv_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=64,
+                            temperature=0.7 if i % 2 == 0 else 0.0,
+                            guide=guide if i % 2 == 0 else None)
+            for i, p in enumerate(prompts)]
+    windows = 0
+    while eng.has_work():
+        eng.step_window()
+        windows += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = dict(PA.launches)
+    st = eng.kv_stats()
+    steps = st["decode_steps"] - st0["decode_steps"]
+    uploads = st["guide_uploads"] - st0["guide_uploads"]
+    gen = [eng.finished.pop(r).generated for r in rids]
+    texts = [tok.decode([t for t in g if t != tok.eos_id])
+             for g in gen[0::2]]
+    good = sum(map(parses_to_schema, texts))
+    n_tok = sum(len(g) for g in gen)
+    table_bytes = eng._dev_gtables.numel() * eng._dev_gtables.element_size()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  guided: {len(rids)} requests ({len(texts)} guided), {n_tok} "
+        f"tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s (serve phase "
+        f"{serve['tokens_per_s']:.1f}); {steps} decode steps in {windows} "
+        f"windows; guide table {table_bytes} B ({guide.n_states} states x "
+        f"{cfg.vocab} int32 x 32 slots), {uploads} upload(s), "
+        f"{uploads / max(windows, 1):.3f} per window; {good}/{len(texts)} "
+        f"guided answers parse to the schema; peak device memory "
+        f"{peak / 2**30:.3f} GiB; K1 {k1} [{smi}]")
+    log(f"  a guided answer: {texts[0]!r}")
+    if good != len(texts):
+        raise AssertionError(f"guided answers that do not parse: "
+                             f"{[t for t in texts if not parses_to_schema(t)]}")
+    if any(not 0 <= t < cfg.vocab for g in gen for t in g):
+        raise AssertionError("token out of vocabulary range")
+    if k1 != {"cuda": cfg.n_layers * steps, "plain": 0} or steps == 0:
+        raise AssertionError(f"guided: K1 {k1} for {steps} decode steps")
+    guided_exact(torch, guide, tok)
+    guided_no_sync_check(torch, eng, guide)
+    return dict(tokens_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak,
+                table_bytes=table_bytes, uploads=uploads, windows=windows)
+
+
+def guided_exact(torch, guide, tok):
+    """llama-125m in fp32: the engine's greedy tokens under the JSON guide
+    equal a masked-argmax loop over the port's `forward` (K2) that walks
+    the same DFA and stops at the EOS the guide allows."""
+    import numpy as np
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import configs, forward, init_params
+    from ray_tpu_torch.ops import attention as A
+    cfg = dataclasses.replace(configs.bench_125m(), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cuda")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (20, 57, 100)]
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=4, max_len=256,
+                                            prompt_buckets=(128,),
+                                            eos_token=tok.eos_id),
+                          params=params, device="cuda")
+    rids = [eng.add_request(p, max_new_tokens=48, temperature=0.0,
+                            guide=guide) for p in prompts]
+    while eng.has_work():
+        eng.step_window()
+    got = [eng.finished.pop(r).generated for r in rids]
+    table = torch.tensor(guide.table, device="cuda")
+    reset_counts()
+    want = []
+    with torch.no_grad():
+        for p in prompts:
+            seq, state, out = list(p), 0, []
+            while len(out) < 48:
+                logits = forward(params, torch.tensor([seq], device="cuda"),
+                                 cfg)[0, -1]
+                row = table[state]
+                t = int(torch.where(row >= 0, logits, -1e30).argmax())
+                out.append(t)
+                if t == tok.eos_id:
+                    break
+                state = max(int(row[t]), 0)
+                seq.append(t)
+            want.append(out)
+    k2 = dict(A.launches)
+    log(f"  fp32 guided greedy, {len(prompts)} prompts: engine == masked "
+        f"forward argmax {got == want}; K2 launches {k2}; answers "
+        f"{[tok.decode(g[:-1]) for g in got]}")
+    if got != want:
+        raise AssertionError(f"guided engine {got} != forward {want}")
+    if k2["cuda"] == 0 or k2["plain"]:
+        raise AssertionError(f"guided forward loop: K2 {k2}")
+
+
+def guided_no_sync_check(torch, eng, guide):
+    """A guided window never waits for the device: a 4-step
+    `decode_window` with the guide on every other slot (its state
+    advancing on the device) and temperature 0.7, under CUDA sync debug
+    mode "error"; every emitted token is one the guide allowed. (Writes
+    pages 1-32 of the engine's pool.)"""
+    import numpy as np
+    from ray_tpu_torch.llm.engine import decode_weights, decode_window
+    dev, B = eng.device, eng.e.max_slots
+    fused = decode_weights(eng.params, eng.c)
+    tab = np.zeros((B, guide.n_states, eng.c.vocab), np.int32)
+    tab[0::2] = guide.table
+    args = dict(
+        tokens=torch.arange(1, B + 1, dtype=torch.int32, device=dev),
+        lengths=torch.full((B,), 10, dtype=torch.int32, device=dev),
+        active=torch.ones(B, dtype=torch.bool, device=dev),
+        page_tables=torch.arange(1, B + 1, dtype=torch.int32,
+                                 device=dev)[:, None],
+        temps=torch.full((B,), 0.7, device=dev),
+        top_ps=torch.ones(B, device=dev),
+        top_ks=torch.zeros(B, dtype=torch.int64, device=dev),
+        gtables=torch.tensor(tab, device=dev),
+        gstates=torch.zeros(B, dtype=torch.int32, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _t, _l, _a, out, _lp = decode_window(
+            eng.params, eng.cache_k, eng.cache_v, generator=gen,
+            config=eng.c, eos_token=-1, n_steps=4, trunc=False, guided=True,
+            fused=fused, **args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = out.cpu().numpy()
+    for b in range(0, B, 2):
+        s = 0
+        for t in out[:, b]:
+            s = int(guide.table[s, t])
+            if s < 0:
+                raise AssertionError(f"guided window: slot {b} emitted "
+                                     f"disallowed {out[:, b]}")
+    log(f"  guided window: 4 steps, 16 guided and 16 free slots at "
+        f"temperature 0.7, every guided token allowed, no host "
+        f"synchronization (CUDA sync debug mode 'error')")
+
+
+def handoff_phase(torch, smi):
+    """Prefill engine -> KV handoff -> decode engine at llama-125m width:
+    in fp32, 3 prompts of 300 tokens (2 full pages of 128, bucket 512)
+    through `PrefillEngine.prefill_export`, then `add_request` with the
+    export as `kv_handoff` and the first token as `resume_token`: the
+    tokens equal the monolithic engine's, every handed-off prompt
+    prefix-hits, K1 runs. Then in bf16, 32 such requests x 64 tokens
+    timed (exports, then the decode engine), with prefix hits and peak
+    memory."""
+    import numpy as np
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine, PrefillEngine
+    from ray_tpu_torch.models import configs, init_params
+    from ray_tpu_torch.ops import paged_attention as PA
+    ecfg = EngineConfig(max_slots=32, max_len=1024, prompt_buckets=(512,),
+                        eos_token=-1)
+    rng = np.random.default_rng(5)
+    cfg = dataclasses.replace(configs.bench_125m(), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cuda")
+    prompts = [rng.integers(1, cfg.vocab, 300).tolist() for _ in range(3)]
+    mono = InferenceEngine(cfg, ecfg, params=params,
+                           device="cuda").generate(prompts, 16, 0.0)
+    pe = PrefillEngine(cfg, ecfg, params=params, device="cuda")
+    dec = InferenceEngine(cfg, ecfg, params=params, device="cuda")
+    reset_counts()
+    rids = []
+    for p in prompts:
+        first, ks, vs = pe.prefill_export(p, temperature=0.0)
+        if tuple(ks.shape) != (cfg.n_layers, 256, cfg.n_kv_heads,
+                               cfg.head_dim) or ks.device.type != "cpu":
+            raise AssertionError(f"export shape {tuple(ks.shape)} on "
+                                 f"{ks.device}")
+        rids.append(dec.add_request(p, 16, 0.0, resume_token=first,
+                                    kv_handoff=(ks, vs)))
+    while dec.has_work():
+        dec.step_window()
+    got = [dec.finished.pop(r).generated for r in rids]
+    k1 = dict(PA.launches)
+    hits = dec.kv_stats()["prefix_hits"]
+    log(f"  fp32 handoff, 3 x 300-token prompts: export + import + resume "
+        f"== monolithic engine {got == mono}; prefix hits {hits}; K1 {k1}")
+    if got != mono:
+        raise AssertionError(f"handoff {got} != monolithic {mono}")
+    if hits < len(prompts) or k1["cuda"] == 0 or k1["plain"]:
+        raise AssertionError(f"handoff: prefix hits {hits}, K1 {k1}")
+    del pe, dec, params
+
+    cfg = configs.bench_125m()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    prompts = [rng.integers(1, cfg.vocab, 300).tolist() for _ in range(32)]
+    pe = PrefillEngine(cfg, ecfg, params=params, device="cuda")
+    dec = InferenceEngine(cfg, ecfg, params=params, device="cuda")
+    pe.prefill_export(prompts[0])                  # warm library handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    exports = [pe.prefill_export(p) for p in prompts]
+    t1 = time.perf_counter()
+    rids = [dec.add_request(p, 64, 0.0, resume_token=f, kv_handoff=(k, v))
+            for p, (f, k, v) in zip(prompts, exports)]
+    while dec.has_work():
+        dec.step_window()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k1 = dict(PA.launches)
+    st = dec.kv_stats()
+    n_tok = sum(len(dec.finished.pop(r).generated) for r in rids)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  bf16 handoff, 32 x 300-token prompts x 64 tokens: exports "
+        f"{(t1 - t0) * 1e3:.1f} ms ({(t1 - t0) * 1e3 / 32:.2f} ms each, "
+        f"device -> host included); decode engine (import, suffix prefill, "
+        f"decode) {t2 - t1:.3f} s, {n_tok / (t2 - t1):.1f} tokens/s; end to "
+        f"end {n_tok / (t2 - t0):.1f} tokens/s; prefix hits "
+        f"{st['prefix_hits']}; {st['decode_steps']} decode steps; peak "
+        f"device memory {peak / 2**30:.3f} GiB; K1 {k1} [{smi}]")
+    if n_tok != 32 * 64 or st["prefix_hits"] < 32:
+        raise AssertionError(f"bf16 handoff: {n_tok} tokens, {st}")
+    if k1 != {"cuda": cfg.n_layers * st["decode_steps"], "plain": 0}:
+        raise AssertionError(f"bf16 handoff: K1 {k1}")
+    return dict(tokens_per_s=n_tok / (t2 - t1),
+                e2e_tokens_per_s=n_tok / (t2 - t0),
+                export_ms=(t1 - t0) * 1e3 / 32, prefix_hits=st["prefix_hits"],
+                peak_bytes=peak)
+
+
+def dense_phase(torch, smi, serve):
+    """kv_layout="dense" at llama-125m width: in fp32 its greedy tokens
+    must equal the paged engine's (3 prompts x 16 tokens); then the serve
+    phase's 32 prompts x 64 tokens in bf16 through the dense engine,
+    timed. Its attention is plain PyTorch, as the JAX engine's dense path
+    is plain jnp: no kernel runs."""
+    import numpy as np
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import configs, init_params
+    from ray_tpu_torch.ops import paged_attention as PA
+    cfg = dataclasses.replace(configs.bench_125m(), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (20, 57, 100)]
+    ecfg = dict(max_slots=4, max_len=256, prompt_buckets=(128,),
+                eos_token=-1)
+    dense = InferenceEngine(cfg, EngineConfig(kv_layout="dense", **ecfg),
+                            params=params, device="cuda").generate(
+        prompts, 16, 0.0)
+    paged = InferenceEngine(cfg, EngineConfig(**ecfg), params=params,
+                            device="cuda").generate(prompts, 16, 0.0)
+    diff = [(i, j, a, b) for i, (x, y) in enumerate(zip(dense, paged))
+            for j, (a, b) in enumerate(zip(x, y)) if a != b]
+    log(f"  fp32 greedy, 3 prompts x 16 tokens: dense == paged "
+        f"{dense == paged}" + (f"; first differences (prompt, position, "
+                                f"dense, paged) {diff[:4]}" if diff else ""))
+    if dense != paged:
+        raise AssertionError(f"dense {dense} != paged {paged}")
+    del params
+
+    cfg = configs.bench_125m()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    eng = InferenceEngine(cfg, EngineConfig(max_slots=32, max_len=1024,
+                                            prompt_buckets=(128,),
+                                            eos_token=-1, kv_layout="dense"),
+                          params=params, device="cuda")
+    eng.generate(serve["prompts"][:2], max_new_tokens=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(serve["prompts"][:32], 64, 0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(x) for x in out)
+    peak = torch.cuda.max_memory_allocated()
+    same = sum(a == b for a, b in zip(out, serve["tokens"][:32]))
+    log(f"  bf16 dense, 32 requests x 64 tokens: {n_tok / wall:.1f} tokens/s "
+        f"(wall {wall:.3f} s, one host readback per step; paged serve phase "
+        f"{serve['tokens_per_s']:.1f}); {same}/32 requests equal to the "
+        f"paged serve phase's (bf16, printed only); peak device memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches K1 {dict(PA.launches)} "
+        f"[{smi}]")
+    if n_tok != 32 * 64 or PA.launches["cuda"] or PA.launches["plain"]:
+        raise AssertionError(f"dense: {n_tok} tokens, K1 {PA.launches}")
+    return dict(tokens_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak)
+
+
+def time_head_dims(torch, root: str) -> int:
+    """--head-dim-times ROOT: with the package of the checkout at ROOT
+    (this one, or another, say the parent commit's), the device time of
+    each kernel in bf16 at head_dims 16, 32, 64, 80 and 128: K2 with lse,
+    K3 and K4 at [8, 1024, 16 heads, 8 kv heads] causal, K1 and K5 at 32
+    slots x 16/8 heads, lengths 128-191 (P = 2, S = 5 for K5); the
+    widths a checkout's wrappers refuse are reported as refused."""
+    sys.path.insert(0, root)
+    import ray_tpu_torch
+    if not os.path.abspath(ray_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"ray_tpu_torch imported from "
+                           f"{ray_tpu_torch.__file__}, not {root}")
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.ops import paged_attention as PA
+    _build.build_all()
+    smi = smi_line()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    lens_l = torch.randint(128, 192, (32,), generator=torch.Generator()
+                           .manual_seed(3)).tolist()
+    for hd in (16, 32, 64, 80, 128):
+        B, S, H, Hkv = 8, 1024, 16, 8
+        q, k, v, do = attn_case(torch, g, B, S, H, Hkv, hd, torch.bfloat16)
+        scale = hd ** -0.5
+        try:
+            o, lse = A.flash_attention_fwd(q, k, v, True, scale,
+                                           with_lse=True)
+        except ValueError as e:
+            log(f"  hd {hd}: refused ({e}) [{smi}]")
+            continue
+        delta = ((do.float() * o.float()).sum(-1).transpose(1, 2)
+                 .reshape(B * H, S).contiguous())
+        fwd = device_ms(torch, lambda i: A.flash_attention_fwd(
+            q, k, v, True, scale, with_lse=True), 20)
+        dq = device_ms(torch, lambda i: A.flash_bwd_dq(
+            q, k, v, do, lse, delta, True, scale), 20)
+        dkv = device_ms(torch, lambda i: A.flash_bwd_dkv(
+            q, k, v, do, lse, delta, True, scale), 20)
+        del q, k, v, do, o, lse, delta
+        qd, pk, pv, lens, tables = k1_case(torch, 32, H, Hkv, hd, 128, 2,
+                                           lens_l, torch.bfloat16, seed=4,
+                                           layers=12)
+        k1 = device_ms(torch, lambda i: PA.paged_decode_attention(
+            qd, pk[i % 12], pv[i % 12], lens, tables), 240)
+        qv, pk, pv, kn, vn, lens, tables = verify_case(
+            torch, 32, 5, H, Hkv, hd, 128, 2, lens_l, torch.bfloat16, seed=4,
+            layers=12, scratch_entries=False)
+        k5 = device_ms(torch, lambda i: PA.paged_verify_insert_attention(
+            qv, pk, pv, kn, vn, lens, tables, i % 12), 240)
+        log(f"  hd {hd}: K2 with lse {fwd * 1e3:.2f} us, K3 {dq * 1e3:.2f} us, "
+            f"K4 {dkv * 1e3:.2f} us at [{B},{S},{H}/{Hkv},{hd}] causal; K1 "
+            f"{k1 * 1e3:.2f} us, K5 {k5 * 1e3:.2f} us at 32 slots x "
+            f"{H}/{Hkv} heads, lengths 128-191 [{smi}]")
+        del qd, qv, pk, pv, kn, vn
+    return 0
+
+
 def serve_worker(root: str) -> int:
     """--serve-worker ROOT: import the port from the checkout at ROOT and
     run this script's serve phase once per line read from stdin, each
@@ -1535,12 +2124,20 @@ def main() -> int:
                     help="only time the serve phase against another checkout")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--serve-worker", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--head-dim-times", metavar="ROOT", nargs="?", const=ROOT,
+                    help="only time the kernels at head_dims 16-128, with "
+                    "the package of the checkout at ROOT (default: this)")
     args = ap.parse_args()
     if args.serve_worker:
         return serve_worker(os.path.abspath(args.serve_worker))
     if args.serve_ab:
         return serve_ab(args.serve_ab, args.pairs)
     import torch
+    if args.head_dim_times:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        return time_head_dims(torch, os.path.abspath(args.head_dim_times))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1554,13 +2151,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/9] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/13] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/9] build: {len(build_logs)} kernels in "
+    log(f"[2/13] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -1585,8 +2182,9 @@ def main() -> int:
             log(f"  SASS {fn}: {hg} HGMMA (wgmma), {hm} HMMA (mma.sync)")
         for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                        "flash_bwd_dq_wgmma_kernel"):
+            # D = 64 and 128, each for hd = D and padded (hd < D)
             found = [n for n in tc if n.startswith(kernel + " bf16")]
-            if len(found) != 2 or any(tc[n][0] == 0 for n in found):
+            if len(found) != 4 or any(tc[n][0] == 0 for n in found):
                 raise AssertionError(f"{kernel}: bf16 instantiations {found} "
                                      f"lack wgmma in their SASS")
         tf32 = [n for n in tc if " fp32 " in n and tc[n] != (0, 0)]
@@ -1596,15 +2194,16 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/9] kernels against their plain versions")
+    log("[3/13] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
     check_k3_k4(torch, results)
+    check_head_dims(torch, results)
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/9] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/13] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -1617,27 +2216,28 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/9] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/13] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
         f"{spec['tokens_per_s']:.1f} tokens/s vs plain "
         f"{serve['tokens_per_s']:.1f}, acceptance {spec['acceptance']:.3f}")
-    del eng
 
+    serve_params = eng.params
+    del eng
     t0 = time.perf_counter()
-    log("[6/9] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/13] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/9] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/13] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/9] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/13] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -1646,12 +2246,46 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/9] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/13] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
-    log(f"  train-exact phase {time.perf_counter() - t0:.1f} s; total "
-        f"{time.perf_counter() - t_all:.1f} s")
+    log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log("[10/13] tiny: configs.tiny() (head_dim 16) through the engine, the "
+        "speculative engine and the train step")
+    tiny_phase(torch)
+    log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[11/13] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+        "under a JSON-schema guide; fp32 against masked forward argmax")
+    guide = guided_phase(torch, smi, serve_params, serve)
+    log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
+        f"{guide['tokens_per_s']:.1f} tokens/s vs serve "
+        f"{serve['tokens_per_s']:.1f}, peak {guide['peak_bytes']} B")
+    del serve_params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("[12/13] handoff: prefill engine -> import_kv + resume_token, "
+        "llama-125m, 300-token prompts")
+    hand = handoff_phase(torch, smi)
+    log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
+        f"{hand['tokens_per_s']:.1f} tokens/s decode, "
+        f"{hand['e2e_tokens_per_s']:.1f} end to end, peak "
+        f"{hand['peak_bytes']} B")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("[13/13] dense: kv_layout='dense', llama-125m, fp32 against the "
+        "paged engine, bf16 timed")
+    dense = dense_phase(torch, smi, serve)
+    log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
+        f"{dense['tokens_per_s']:.1f} tokens/s, peak {dense['peak_bytes']} B")
+    torch.cuda.empty_cache()
+
+    log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         results[k] for k in ("paged_decode", "paged_verify",

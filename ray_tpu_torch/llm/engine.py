@@ -1,10 +1,13 @@
-"""Continuous-batching LLM inference engine over a paged KV pool.
+"""Continuous-batching LLM inference engine over a paged (or dense) KV
+cache.
 
-Counterpart of `ray_tpu/llm/engine.py` (paged layout). The scheduling is
-the JAX engine's, line for line where it can be: slot-based continuous
-batching, a page pool with an LRU of reusable prefix pages, prefix-cache
-hits, chunked prefill, recompute preemption, and decode windows that read
-tokens back once per window. What changes is the execution model:
+Counterpart of `ray_tpu/llm/engine.py`. The scheduling is the JAX engine's,
+line for line where it can be: slot-based continuous batching, a page pool
+with an LRU of reusable prefix pages, prefix-cache hits, chunked prefill,
+recompute preemption, decode windows that read tokens back once per
+window, guided decoding, the disaggregated prefill engine and its KV
+handoff, and the dense fixed-slot layout. What changes is the execution
+model:
 
 - PyTorch runs eagerly, so there are no compile buckets to share; the
   prompt, page-table and window buckets stay because they shape the
@@ -23,13 +26,18 @@ tokens back once per window. What changes is the execution model:
   iterations (`decode_window_spec`) whose history, tokens, lengths and
   generator stay on the device, with one readback per window; the verify
   forward's attention is the fused verify-insert CUDA kernel.
+- Guided decoding keeps the stacked per-slot token-transition tables
+  (`llm/guided.py`) on the device and carries the per-slot DFA state
+  through the window's loop, so a window never reads it back.
+- `PrefillEngine.prefill_export` returns CPU tensors of the model's dtype
+  (numpy has no bfloat16); `import_kv` takes those or numpy arrays.
 
 Pool layout: [L, hkv, num_pages, page, hd] (each token's head row
-contiguous; see `ops/csrc/paged_decode.cu`).
+contiguous; see `ops/csrc/paged_decode.cu`). Dense layout
+(`kv_layout="dense"`): [L, max_slots, max_len, hkv, hd], attended by plain
+PyTorch as the JAX engine attends it with plain jnp (no kernel).
 
-Not in this slice (each raises NotImplementedError when asked for): the
-dense `kv_layout`, guided decoding, KV handoff (`import_kv`,
-`PrefillEngine`, resume tokens) and tensor-parallel meshes.
+Not in this slice (raises NotImplementedError): tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.models.transformer import (ModelConfig, _mlp, _moe,
                                               init_params, layer_params,
                                               lm_head)
@@ -60,7 +69,7 @@ class EngineConfig:
     eos_token: int = 2
     default_max_new_tokens: int = 128
     default_temperature: float = 0.0  # 0 = greedy
-    kv_layout: str = "paged"       # only "paged" in this port
+    kv_layout: str = "paged"       # "paged" | "dense" (fixed slots)
     page_size: int = 128           # tokens per KV page
     num_pages: int | None = None   # pool size; None = slots*ceil(max_len/
     #                                page)+1
@@ -83,9 +92,18 @@ class Request:
     # sampled but never fed back. Re-admission resumes from it instead of
     # re-sampling the position.
     resume_token: int | None = None
+    # Guided decoding: a compiled TokenGuide (guided.py) and the host
+    # mirror of the slot's DFA state (advanced as tokens are read back;
+    # survives preemption and re-admission).
+    guide: object | None = None
+    guide_state: int = 0
     # OpenAI logprobs: log p(token) for each generated token.
     logprobs: bool = False
     token_logprobs: list = dataclasses.field(default_factory=list)
+    # Disaggregated serving: a (ks, vs) prompt-KV handoff exported by a
+    # prefill engine (PrefillEngine.prefill_export), imported into the
+    # prefix cache right before this request's admission.
+    kv_handoff: tuple | None = None
 
 
 def _not_in_slice(what: str):
@@ -158,6 +176,65 @@ def prefill(params, tokens, config: ModelConfig):
     """tokens [1, S] -> (logits [S, vocab], k/v [L, S, hkv, hd])."""
     logits, ks, vs = prefill_batch(params, tokens, config)
     return logits[0], ks[:, 0], vs[:, 0]
+
+
+def insert_kv(cache_k, cache_v, ks, vs, slot, length):
+    """Splice a prefill's KV into dense slot `slot`, in place. ks/vs
+    [L, S, hkv, hd]; the padded tail (positions >= length) is zeroed so
+    stale garbage cannot alias later positions. Returns the caches."""
+    S = ks.shape[1]
+    mask = (torch.arange(S, device=ks.device) < length)[None, :, None, None]
+    cache_k[:, slot, :S] = torch.where(mask, ks, 0).to(cache_k.dtype)
+    cache_v[:, slot, :S] = torch.where(mask, vs, 0).to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def decode_step(params, cache_k, cache_v, tokens, lengths, active,
+                config: ModelConfig, fused=None):
+    """One token for every slot of the dense cache [L, B, T, hkv, hd],
+    updated in place. tokens [B] (last sampled), lengths [B] (cache fill =
+    position of the new token), active [B] bool. Each slot's new K/V lands
+    at its position (clamped into the cache, as dynamic_update_slice
+    clamps); attention is plain PyTorch over positions <= lengths, scores
+    in the activation dtype, softmax in fp32, as in the JAX step. `fused`
+    is `decode_weights(params, config)`, built here when not given.
+    Returns (logits [B, vocab] fp32 with inactive rows masked, cache_k,
+    cache_v)."""
+    c = config
+    if fused is None:
+        fused = decode_weights(params, c)
+    B, T = cache_k.shape[1], cache_k.shape[2]
+    dev = tokens.device
+    n_rep = c.n_heads // c.n_kv_heads
+    x = params["embed"][tokens.long()][:, None, :]          # [B, 1, d]
+    sin, cos = rope(lengths[:, None], c.head_dim, c.rope_theta)
+    pos_mask = (torch.arange(T, device=dev)[None]
+                <= lengths[:, None])                        # [B, T]
+    rows = torch.arange(B, device=dev)
+    w_pos = lengths.long().clamp(0, T - 1)
+    for li in range(c.n_layers):
+        lp = layer_params(params, li)
+        q, k, v = _fused_qkv(rmsnorm(x, lp["attn_norm"], c.norm_eps), fused,
+                             li, c)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+        ck, cv = cache_k[li], cache_v[li]    # views: writes land in place
+        ck[rows, w_pos] = k[:, 0].to(ck.dtype)
+        cv[rows, w_pos] = v[:, 0].to(cv.dtype)
+        kk = ck.repeat_interleave(n_rep, dim=2) if n_rep > 1 else ck
+        vv = cv.repeat_interleave(n_rep, dim=2) if n_rep > 1 else cv
+        scores = torch.einsum("bqhd,bthd->bhqt", q, kk.to(q.dtype))[:, :, 0]
+        scores = scores / math.sqrt(c.head_dim)              # [B, h, T]
+        scores = torch.where(pos_mask[:, None], scores.float(),
+                             float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        attn = torch.einsum("bht,bthd->bhd", probs, vv.to(x.dtype))
+        attn = attn.reshape(B, 1, c.n_heads * c.head_dim)
+        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        x = _fused_mlp_block(h, lp, fused, li, c)
+    x = rmsnorm(x, params["final_norm"], c.norm_eps)
+    logits = torch.matmul(x[:, 0].float(), fused["head"])
+    return _mask_inactive(logits, active), cache_k, cache_v
 
 
 def prefill_with_prefix_batch(params, tokens, pool_k, pool_v,
@@ -319,24 +396,37 @@ def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
 
 
 def decode_window(params, pool_k, pool_v, tokens, lengths, active,
-                  page_tables, temps, top_ps, top_ks, generator,
-                  config: ModelConfig, eos_token: int, n_steps: int,
-                  trunc: bool, want_logp: bool = False, fused=None):
+                  page_tables, temps, top_ps, top_ks, gtables, gstates,
+                  generator, config: ModelConfig, eos_token: int,
+                  n_steps: int, trunc: bool, guided: bool,
+                  want_logp: bool = False, fused=None):
     """`n_steps` decode+sample steps with the sampled tokens, lengths and
     `active` flags staying on the device: nothing here waits for the
     device or copies to the host. EOS flips `active` on the device; the
     caller reads the [n_steps, B] token block back once and discards any
-    overshoot. `want_logp` also returns log p(sampled token) per step.
+    overshoot. `want_logp` also returns log p(sampled token) per step,
+    under the unmasked logits.
+
+    `guided`: constrained decoding. gtables [B, S, V] int32 stacked
+    per-slot token-transition tables (unguided slots: an all-zeros table,
+    every token allowed), gstates [B] int32 the per-slot DFA states, which
+    advance on the device from step to step (guided.py).
     Returns (tokens, lengths, active, out [n_steps, B], logps or None)."""
     outs, logps = [], []
-    toks, lens, act = tokens, lengths, active
+    toks, lens, act, gst = tokens, lengths, active, gstates
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
     for _ in range(n_steps):
         logits = decode_paged(params, pool_k, pool_v, toks, lens, act,
                               page_tables, config, fused)
+        mask = None
+        if guided:
+            row = gtables[rows, gst.long()]                 # [B, V]
+            mask = row >= 0
         if trunc:
-            nxt = sample(logits, temps, generator, top_p=top_ps, top_k=top_ks)
+            nxt = sample(logits, temps, generator, top_p=top_ps, top_k=top_ks,
+                         mask=mask)
         else:
-            nxt = sample(logits, temps, generator)
+            nxt = sample(logits, temps, generator, mask=mask)
         nxt = torch.where(act, nxt.to(torch.int32), 0)
         outs.append(torch.where(act, nxt, -1))  # -1 = slot emitted nothing
         if want_logp:
@@ -344,6 +434,9 @@ def decode_window(params, pool_k, pool_v, tokens, lengths, active,
                 1, nxt[:, None].long())[:, 0]
             logps.append(torch.where(act, lp, 0.0))
         lens = torch.where(act, lens + 1, lens)
+        if guided:
+            nxt_state = row.gather(1, nxt[:, None].long())[:, 0]
+            gst = torch.where(act, nxt_state.clamp_min(0), gst)
         if eos_token >= 0:
             act = act & (nxt != eos_token)
         toks = nxt
@@ -505,13 +598,18 @@ def decode_window_spec(params, pool_k, pool_v, tokens, lengths, active,
     return toks, lens, act, hst, torch.stack(outs)
 
 
-def sample(logits, temperature, generator, top_p=None, top_k=None):
+def sample(logits, temperature, generator, top_p=None, top_k=None,
+           mask=None):
     """Per-row temperature (0 = greedy) with optional nucleus (top_p) and
     top_k truncation, branch-free (no host sync).
 
     top_p/top_k are per-row tensors; top_p=1.0 / top_k=0 disable the
-    respective filter for that row. Sampling is Gumbel-max over the
-    truncated logits with uniforms drawn from `generator`."""
+    respective filter for that row. mask [B, V] bool (True = allowed)
+    constrains both the greedy and the stochastic paths (guided
+    decoding). Sampling is Gumbel-max over the truncated logits with
+    uniforms drawn from `generator`."""
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
     greedy = torch.argmax(logits, dim=-1)
     temp = torch.clamp_min(temperature, 1e-6)[:, None]
     scaled = logits / temp
@@ -540,7 +638,35 @@ def sample(logits, temperature, generator, top_p=None, top_k=None):
     return torch.where(temperature > 0, sampled, greedy)
 
 
+def _sample_one(logits_row, temperature: float, top_p: float, top_k: int,
+                generator) -> int:
+    """One token from one logits row [vocab] (a dense admission's or a
+    prefill engine's first token), read back to the host."""
+    dev = logits_row.device
+    temps = torch.tensor([temperature], dtype=torch.float32, device=dev)
+    if top_k == 0 and top_p >= 1.0:
+        tok = sample(logits_row[None], temps, generator)
+    else:
+        tok = sample(logits_row[None], temps, generator,
+                     top_p=torch.tensor([top_p], dtype=torch.float32,
+                                        device=dev),
+                     top_k=torch.tensor([top_k], dtype=torch.int64,
+                                        device=dev))
+    return int(tok[0])
+
+
 # ---------------- the engine ----------------
+
+
+def _resolve_params(c: ModelConfig, params, seed: int, device):
+    """Seeded random weights, or the caller's, on the engine's device
+    (shared by the decode engine and the prefill engine)."""
+    if params is None:
+        params = init_params(c, torch.Generator().manual_seed(seed), device)
+    if params["embed"].device != device:
+        raise ValueError(f"params live on {params['embed'].device}, the "
+                         f"engine on {device}")
+    return params
 
 
 def _prompt_bucket(e: EngineConfig, n: int) -> int:
@@ -570,21 +696,56 @@ class InferenceEngine:
         e = engine_config or EngineConfig()
         if mesh is not None:
             raise _not_in_slice("a tensor-parallel mesh")
-        if e.kv_layout != "paged":
-            raise _not_in_slice(f"kv_layout={e.kv_layout!r}")
         self.device = resolve_device(device)
         self.c = c = model_config
         self.e = e
-        if params is None:
-            params = init_params(c, torch.Generator().manual_seed(seed),
-                                 self.device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"engine on {self.device}")
-        self.params = params
-        self._fused = decode_weights(params, c)
+        self.params = _resolve_params(c, params, seed, self.device)
+        self._fused = decode_weights(self.params, c)
         dev = self.device
+        self.paged = e.kv_layout == "paged"
+        self.decode_steps = 0              # decode_paged/decode_step calls
+        self.verify_steps = 0              # verify_paged calls run
+        self._gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        if not self.paged:
+            # Dense fixed slots: [L, max_slots, max_len, hkv, hd].
+            kv_shape = (c.n_layers, e.max_slots, e.max_len, c.n_kv_heads,
+                        c.head_dim)
+            self.cache_k = torch.zeros(kv_shape, dtype=c.torch_dtype,
+                                       device=dev)
+            self.cache_v = torch.zeros(kv_shape, dtype=c.torch_dtype,
+                                       device=dev)
+        else:
+            self._init_paged()
 
+        # host-side slot state
+        B = e.max_slots
+        self.lengths = np.zeros(B, np.int32)
+        self.active = np.zeros(B, bool)
+        self.last_tokens = np.zeros(B, np.int32)
+
+        # Speculative decoding state (paged only). The host history mirror
+        # is written whatever the setting; its device twin lives only
+        # between speculative windows.
+        self._spec = self.paged and e.speculation == "ngram"
+        if self._spec and e.spec_k + 1 > e.page_size:
+            # a verify step's writes span at most 2 pages per slot
+            raise ValueError(
+                f"spec_k+1 ({e.spec_k + 1}) must not exceed "
+                f"page_size ({e.page_size})")
+        self.hist = np.zeros((B, e.max_len), np.int32)
+        self._dev_hist = None
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self._spec_alpha = 0.0  # acceptance-rate EMA (window sizing)
+        self.slot_req: list[Request | None] = [None] * B
+        self.queue: collections.deque[Request] = collections.deque()
+        self.finished: dict[int, Request] = {}
+        self._next_id = 0
+        self._lock = threading.Lock()
+        self._cancel_rids: set[int] = set()
+
+    def _init_paged(self):
+        c, e, dev = self.c, self.e, self.device
         # Paged pool: HBM tracks the pool size, not slots x max_len;
         # sequences grow page by page and shared prompt prefixes share
         # pages. Page 0 is reserved scratch (unused table entries).
@@ -606,8 +767,6 @@ class InferenceEngine:
         self.slot_pages: list[list[int]] = [[] for _ in range(e.max_slots)]
         self.prefix_hits = 0
         self.preemptions = 0
-        self.decode_steps = 0              # decode_paged calls run
-        self.verify_steps = 0              # verify_paged calls run
         # page-table buckets: powers of two up to the per-slot page bound
         pb, b = [], 1
         while b < self.pages_per_slot:
@@ -622,34 +781,9 @@ class InferenceEngine:
         self._dev_dirty = True
         self._dev_sampling = None  # (temps, top_ps, top_ks) on device
         self._dev_sampling_fp = None
-        self._gen = torch.Generator(device=dev).manual_seed(seed + 1)
-
-        # host-side slot state
-        B = e.max_slots
-        self.lengths = np.zeros(B, np.int32)
-        self.active = np.zeros(B, bool)
-        self.last_tokens = np.zeros(B, np.int32)
-
-        # Speculative decoding state. The host history mirror is written
-        # whatever the setting; its device twin lives only between
-        # speculative windows.
-        self._spec = e.speculation == "ngram"
-        if self._spec and e.spec_k + 1 > e.page_size:
-            # a verify step's writes span at most 2 pages per slot
-            raise ValueError(
-                f"spec_k+1 ({e.spec_k + 1}) must not exceed "
-                f"page_size ({e.page_size})")
-        self.hist = np.zeros((B, e.max_len), np.int32)
-        self._dev_hist = None
-        self.spec_drafted = 0
-        self.spec_accepted = 0
-        self._spec_alpha = 0.0  # acceptance-rate EMA (window sizing)
-        self.slot_req: list[Request | None] = [None] * B
-        self.queue: collections.deque[Request] = collections.deque()
-        self.finished: dict[int, Request] = {}
-        self._next_id = 0
-        self._lock = threading.Lock()
-        self._cancel_rids: set[int] = set()
+        self._dev_gtables = None   # stacked guide tables [B, S, V]
+        self._guide_fp = None
+        self.guide_uploads = 0     # stacked-table uploads
 
     def _upload(self, arr, dtype=None):
         # torch.tensor always copies: an aliasing upload (from_numpy /
@@ -664,14 +798,28 @@ class InferenceEngine:
                     top_k: int = 0, guide=None, logprobs: bool = False,
                     resume_token: int | None = None,
                     kv_handoff: tuple | None = None) -> int:
-        if guide is not None:
-            raise _not_in_slice("guided decoding")
-        if resume_token is not None or kv_handoff is not None:
-            raise _not_in_slice("decode-state resume / KV handoff")
+        """`resume_token`/`kv_handoff` serve disaggregated decoding:
+        resume_token is a token already sampled for this sequence (by a
+        prefill engine, or by a decode engine that stopped mid-stream):
+        decoding resumes from it without re-sampling its position;
+        kv_handoff is the exported prompt KV (`PrefillEngine.
+        prefill_export`), imported into the prefix cache at admission
+        (`import_kv`) so only the part it does not cover re-prefills."""
         # Validate at submission, in the caller's thread: an invalid prompt
         # must fail its own request, not the shared engine pump.
         if not (self._chunk_size() and len(prompt_tokens) < self.e.max_len):
             self._bucket(len(prompt_tokens))
+        if (guide is not None or logprobs) and not self.paged:
+            raise ValueError("guided decoding / logprobs require the "
+                             "paged KV layout")
+        if ((resume_token is not None or kv_handoff is not None)
+                and not self.paged):
+            raise ValueError("decode-state resume / KV handoff require "
+                             "the paged KV layout")
+        if guide is not None and guide.table.shape[1] != self.c.vocab:
+            raise ValueError(
+                f"guide compiled for vocab {guide.table.shape[1]}, "
+                f"model vocab is {self.c.vocab}")
         with self._lock:
             rid = self._next_id
             self._next_id += 1
@@ -680,7 +828,13 @@ class InferenceEngine:
             max_new_tokens or self.e.default_max_new_tokens,
             self.e.default_temperature if temperature is None
             else temperature, top_p=float(top_p), top_k=int(top_k),
-            logprobs=bool(logprobs))
+            guide=guide, logprobs=bool(logprobs), kv_handoff=kv_handoff)
+        if resume_token is not None:
+            # The preemption-resume contract: the token is already part of
+            # the sequence (it counts against max_new_tokens) and seeds
+            # decoding without re-sampling its position.
+            req.generated.append(int(resume_token))
+            req.resume_token = int(resume_token)
         self.queue.append(req)
         return rid
 
@@ -715,14 +869,66 @@ class InferenceEngine:
             self.finished[req.request_id] = req
             self.active[i] = False
             self.slot_req[i] = None
-            self._release_slot(i)
+            if self.paged:
+                self._release_slot(i)
             self._dev_dirty = True
 
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any())
 
     def import_kv(self, prompt_tokens, ks, vs) -> int:
-        raise _not_in_slice("import_kv (disaggregated KV handoff)")
+        """Splice a handed-off prompt KV (`PrefillEngine.prefill_export`'s:
+        [L, S, hkv, hd] CPU tensors, or numpy arrays as
+        `params_from_numpy` takes them; K post-RoPE at absolute positions)
+        into the paged pool as prefix-cache pages. Full pages only, and a
+        page-aligned prompt leaves its last page out (at least one token
+        always re-prefills: its logits seed sampling). The pages land ref-0
+        in the eviction LRU, like pages a finished request released, so
+        the next admission of this prompt (or of any prompt sharing the
+        prefix) pins them through the prefix-hit path and prefills only
+        the tail. Returns the pages imported. Call it from the thread that
+        steps the engine (`add_request(kv_handoff=...)` routes it there)."""
+        if not (self.paged and self.e.prefix_cache):
+            return 0
+        page = self.e.page_size
+        prompt = list(map(int, prompt_tokens))
+        full = len(prompt) // page
+        if full * page == len(prompt):
+            full -= 1
+        full = min(full, int(ks.shape[1]) // page)
+        if full <= 0:
+            return 0
+        hit = len(self._find_prefix(prompt))
+        if hit >= full:
+            return 0  # everything the handoff covers is already cached
+        new_pages: list[int] = []
+        for _ in range(full - hit):
+            pid = self._alloc_page()
+            if pid is None:
+                break  # pool full of pinned pages: a partial import is fine
+            new_pages.append(pid)
+        if not new_pages:
+            return 0
+        if not isinstance(ks, torch.Tensor):
+            kv = params_from_numpy({"k": ks, "v": vs}, device=self.device)
+            ks, vs = kv["k"], kv["v"]
+        n_tab = len(new_pages)
+        seg = slice(hit * page, (hit + n_tab) * page)
+        dev = self.device
+        insert_pages_batch(
+            self.cache_k, self.cache_v, ks[:, seg].to(dev)[:, None],
+            vs[:, seg].to(dev)[:, None],
+            self._upload(np.asarray(new_pages, np.int64)[None]),
+            self._upload([n_tab * page]))
+        for i, pid in enumerate(new_pages):
+            self.page_refs[pid] = 1
+            h = self._prefix_hash(prompt[:(hit + i + 1) * page])
+            if h not in self.page_hash:
+                self.page_hash[h] = pid
+                self.hash_of_page[pid] = h
+            # ref 0 -> cached_lru (evictable) via the standard release path
+            self._decref_page(pid)
+        return len(new_pages)
 
     # ---- scheduling ----
 
@@ -731,7 +937,7 @@ class InferenceEngine:
         prompts longer than every bucket prefill one chunk per engine
         step, registering each chunk's pages in the prefix cache so the
         next admission resumes where this one stopped."""
-        if not self.e.prefix_cache:
+        if not (self.paged and self.e.prefix_cache):
             return 0
         page = self.e.page_size
         usable = [b for b in self.e.prompt_buckets if b <= self.e.max_len]
@@ -787,7 +993,7 @@ class InferenceEngine:
     def _find_prefix(self, prompt: list) -> list[int]:
         """Longest run of already-cached full prompt pages (at least one
         token is always left to prefill — its logits seed sampling)."""
-        if not self.e.prefix_cache:
+        if not (self.paged and self.e.prefix_cache):
             return []
         page = self.e.page_size
         full = len(prompt) // page
@@ -834,7 +1040,7 @@ class InferenceEngine:
 
     def _admit(self) -> dict[int, int]:
         self._apply_cancels()
-        return self._admit_paged()
+        return self._admit_paged() if self.paged else self._admit_dense()
 
     def _admit_paged(self) -> dict[int, int]:
         admitted: dict[int, int] = {}
@@ -850,6 +1056,14 @@ class InferenceEngine:
             req = self.queue.popleft()
             slot = free[0]
             n = len(req.prompt)
+            if req.kv_handoff is not None:
+                # Disaggregated handoff: splice the prefill engine's KV
+                # into the prefix cache now (page bookkeeping is
+                # single-threaded here), so _find_prefix below hits it
+                # and only the tail re-prefills.
+                ks_h, vs_h = req.kv_handoff
+                req.kv_handoff = None
+                self.import_kv(req.prompt, ks_h, vs_h)
             pre_pages = self._find_prefix(req.prompt)
             hit = len(pre_pages)
             suffix = req.prompt[hit * page:]
@@ -987,15 +1201,16 @@ class InferenceEngine:
             reqs = [r for _s, r, _l in pending]
             temps = self._upload([r.temperature for r in reqs],
                                  torch.float32)
+            mask = self._host_guide_mask(reqs)
             if all(r.top_k == 0 and r.top_p >= 1.0 for r in reqs):
-                toks_d = sample(stacked, temps, self._gen)
+                toks_d = sample(stacked, temps, self._gen, mask=mask)
             else:
                 toks_d = sample(
                     stacked, temps, self._gen,
                     top_p=self._upload([r.top_p for r in reqs],
                                        torch.float32),
                     top_k=self._upload([r.top_k for r in reqs],
-                                       torch.int64))
+                                       torch.int64), mask=mask)
             toks = toks_d.cpu().numpy()  # one readback for the burst
             p_logps = None
             if any(r.logprobs for r in reqs):
@@ -1009,11 +1224,38 @@ class InferenceEngine:
                 admitted[req.request_id] = first
                 self.last_tokens[slot] = first
                 self.hist[slot, self.lengths[slot]] = first
+                self._advance_guide(req, first)
                 self._maybe_finish(slot, first)
+        return admitted
+
+    def _admit_dense(self) -> dict[int, int]:
+        admitted: dict[int, int] = {}
+        free = [i for i in range(self.e.max_slots) if not self.active[i]]
+        while free and self.queue:
+            req = self.queue.popleft()
+            slot = free.pop(0)
+            n = len(req.prompt)
+            toks = np.zeros((1, self._bucket(n)), np.int64)
+            toks[0, :n] = req.prompt
+            logits, ks, vs = prefill(self.params, self._upload(toks), self.c)
+            first = _sample_one(logits[n - 1], req.temperature, req.top_p,
+                                req.top_k, self._gen)
+            insert_kv(self.cache_k, self.cache_v, ks, vs, slot, n)
+            req.generated.append(first)
+            admitted[req.request_id] = first
+            self.slot_req[slot] = req
+            self.lengths[slot] = n
+            self.active[slot] = True
+            self.last_tokens[slot] = first
+            self.hist[slot, :n] = req.prompt
+            self.hist[slot, n] = first
+            self._maybe_finish(slot, first)
         return admitted
 
     def kv_stats(self) -> dict:
         """Pool accounting for tests and the smoke run."""
+        if not self.paged:
+            return {"layout": "dense", "decode_steps": self.decode_steps}
         return {
             "layout": "paged", "num_pages": self.num_pages,
             "free_pages": len(self.free_pages),
@@ -1026,6 +1268,7 @@ class InferenceEngine:
             "verify_steps": self.verify_steps,
             "spec_drafted": self.spec_drafted,
             "spec_accepted": self.spec_accepted,
+            "guide_uploads": self.guide_uploads,
         }
 
     def _maybe_finish(self, slot: int, token: int):
@@ -1038,7 +1281,8 @@ class InferenceEngine:
             self.finished[req.request_id] = req
             self.active[slot] = False
             self.slot_req[slot] = None
-            self._release_slot(slot)
+            if self.paged:
+                self._release_slot(slot)
 
     def _sampling_arrays(self):
         e = self.e
@@ -1061,16 +1305,24 @@ class InferenceEngine:
         if not self.active.any():
             return emitted
         temps, top_ps, top_ks = self._sampling_arrays()
-        logits = self._decode_paged_step()
-        if logits is None:  # every active slot was preempted
-            return emitted
+        if self.paged:
+            logits = self._decode_paged_step()
+            if logits is None:  # every active slot was preempted
+                return emitted
+        else:
+            self.decode_steps += 1
+            logits, _, _ = decode_step(
+                self.params, self.cache_k, self.cache_v,
+                self._upload(self.last_tokens), self._upload(self.lengths),
+                self._upload(self.active), self.c, self._fused)
         temps_d = self._upload(temps)
+        mask = self._host_guide_mask(self.slot_req)
         if (top_ks == 0).all() and (top_ps >= 1.0).all():
-            tokens_d = sample(logits, temps_d, self._gen)
+            tokens_d = sample(logits, temps_d, self._gen, mask=mask)
         else:
             tokens_d = sample(logits, temps_d, self._gen,
                               top_p=self._upload(top_ps),
-                              top_k=self._upload(top_ks))
+                              top_k=self._upload(top_ks), mask=mask)
         tokens = tokens_d.cpu().numpy()
         logps = None
         if any(r is not None and r.logprobs for r in self.slot_req):
@@ -1089,6 +1341,7 @@ class InferenceEngine:
             self.last_tokens[i] = tok
             if self.lengths[i] < self.e.max_len:
                 self.hist[i, self.lengths[i]] = tok
+            self._advance_guide(req, tok)
             self._maybe_finish(i, tok)
         self._dev_dirty = True  # single-step path mutates host-side state
         return emitted
@@ -1169,6 +1422,52 @@ class InferenceEngine:
                 self._dev_hist = self._upload(self.hist)
             self._dev_dirty = False
 
+    def _sync_guides(self):
+        """(guided?, stacked tables [B, S, V] int32, states [B] int32) for
+        a window. The stacked table uploads only when the slot -> guide
+        map changes; the [B] states upload every window. Unguided slots
+        get an all-zeros table: every token allowed, state pinned to 0."""
+        reqs = self.slot_req
+        # Keyed on the guide's monotonic serial, not id(): a guide compiled
+        # after another was freed can reuse its id() on the same slot, and
+        # the stale device table would keep enforcing the old constraint.
+        fp = tuple((i, r.guide.serial) for i, r in enumerate(reqs)
+                   if r is not None and r.guide is not None)
+        if not fp:
+            return False, None, None
+        if fp != self._guide_fp or self._dev_gtables is None:
+            S = max(r.guide.n_states for r in reqs
+                    if r is not None and r.guide is not None)
+            tab = np.zeros((self.e.max_slots, S, self.c.vocab), np.int32)
+            for i, r in enumerate(reqs):
+                if r is not None and r.guide is not None:
+                    tab[i, :r.guide.table.shape[0]] = r.guide.table
+            self._dev_gtables = self._upload(tab)
+            self._guide_fp = fp
+            self.guide_uploads += 1
+        states = self._upload(
+            [r.guide_state if (r is not None and r.guide is not None)
+             else 0 for r in reqs], torch.int32)
+        return True, self._dev_gtables, states
+
+    def _host_guide_mask(self, reqs):
+        """Bool mask [len(reqs), vocab] on the device for a host-side
+        sample call over these requests (None: an empty slot), from each
+        guide's current state; None when no request is guided."""
+        if not any(r is not None and r.guide is not None for r in reqs):
+            return None
+        m = np.ones((len(reqs), self.c.vocab), bool)
+        for j, r in enumerate(reqs):
+            if r is not None and r.guide is not None:
+                m[j] = r.guide.table[r.guide_state] >= 0
+        return self._upload(m)
+
+    @staticmethod
+    def _advance_guide(req: Request, tok: int):
+        if req.guide is not None:
+            req.guide_state = max(int(req.guide.table[req.guide_state,
+                                                      tok]), 0)
+
     def _sync_sampling(self) -> bool:
         temps, top_ps, top_ks = self._sampling_arrays()
         fp = (temps.tobytes(), top_ps.tobytes(), top_ks.tobytes())
@@ -1214,6 +1513,7 @@ class InferenceEngine:
             # Pool-starved slot: its room is a hard bound — round DOWN.
             k_bucket = max(b for b in self._win_buckets if b <= limit)
         trunc = self._sync_sampling()
+        guided, gtables_d, gstates_d = self._sync_guides()
         want_logp = any(
             self.slot_req[i] is not None and self.slot_req[i].logprobs
             for i in range(e.max_slots) if self.active[i])
@@ -1223,9 +1523,10 @@ class InferenceEngine:
         temps_d, tps_d, tks_d = self._dev_sampling
         toks_d, lens_d, act_d, out_d, logp_d = decode_window(
             self.params, self.cache_k, self.cache_v, toks_d, lens_d, act_d,
-            tables, temps_d, tps_d, tks_d, self._gen, self.c,
-            eos_token=int(e.eos_token), n_steps=k_bucket, trunc=trunc,
-            want_logp=want_logp, fused=self._fused)
+            tables, temps_d, tps_d, tks_d, gtables_d, gstates_d, self._gen,
+            self.c, eos_token=int(e.eos_token), n_steps=k_bucket,
+            trunc=trunc, guided=guided, want_logp=want_logp,
+            fused=self._fused)
         self.decode_steps += k_bucket
         self._dev = (toks_d, lens_d, act_d)
         out = out_d.cpu().numpy()  # one readback per window
@@ -1245,6 +1546,7 @@ class InferenceEngine:
                 self.last_tokens[i] = tok
                 if self.lengths[i] < e.max_len:
                     self.hist[i, self.lengths[i]] = tok
+                self._advance_guide(req, tok)
                 self._maybe_finish(i, tok)
                 if not self.active[i] and tok != e.eos_token:
                     # Finished by max_new/max_len: the device still thinks
@@ -1258,15 +1560,16 @@ class InferenceEngine:
     def _spec_applicable(self) -> bool:
         """Speculation serves greedy and plain-temperature slots (delta-
         proposal rejection sampling keeps sampled outputs exact); top-k /
-        top-p truncation and logprobs route the window to the plain
-        path."""
+        top-p truncation, guided decoding and logprobs route the window to
+        the plain path."""
         if not self._spec:
             return False
         for i in range(self.e.max_slots):
             r = self.slot_req[i]
             if not self.active[i] or r is None:
                 continue
-            if r.top_k != 0 or r.top_p < 1.0 or r.logprobs:
+            if (r.top_k != 0 or r.top_p < 1.0 or r.guide is not None
+                    or r.logprobs):
                 return False
         return True
 
@@ -1356,7 +1659,9 @@ class InferenceEngine:
     def step_window(self) -> dict[int, int]:
         """Admit queued prompts, then decode a whole window: speculative
         when the engine speculates and every active request allows it,
-        else plain."""
+        else plain (the dense layout: one `step`)."""
+        if not self.paged:
+            return self.step()
         emitted = self._admit()
         if self.active.any():
             upd = (self._run_window_spec() if self._spec_applicable()
@@ -1387,8 +1692,52 @@ class InferenceEngine:
 
 
 class PrefillEngine:
-    """The disaggregated serving plane's prefill-only engine; not in this
-    slice of the port."""
+    """Prefill-only engine of disaggregated serving: runs the bucketed
+    prefill, samples the first continuation token and exports the prompt
+    KV for a decode engine's `import_kv`; it owns no decode cache, slots
+    or pages. The exported K is post-RoPE at absolute positions, so the
+    decode engine splices it in verbatim."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_in_slice("PrefillEngine (disaggregated serving)")
+    def __init__(self, model_config: ModelConfig,
+                 engine_config: EngineConfig | None = None, *,
+                 params=None, mesh=None, seed: int = 0, device="cuda"):
+        if mesh is not None:
+            raise _not_in_slice("a tensor-parallel mesh")
+        self.device = resolve_device(device)
+        self.c = model_config
+        self.e = engine_config or EngineConfig()
+        self.params = _resolve_params(model_config, params, seed,
+                                      self.device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def prefill_export(self, prompt_tokens, temperature=None,
+                       top_p: float = 1.0, top_k: int = 0,
+                       want_logp: bool = False):
+        """-> (first_token, ks, vs[, first_logp]): the sampled
+        continuation token and the prompt's full-page KV as CPU tensors of
+        the model's dtype, [L, S, hkv, hd] with S the page-aligned prefix
+        length (0 when the prompt spans less than one full page, and a
+        page-aligned prompt's last page left out: the decode side always
+        re-prefills at least one token). Greedy picks equal the decode
+        engine's. `want_logp` also returns log p(first_token) under the
+        unmasked distribution."""
+        ids = list(map(int, prompt_tokens))
+        n = len(ids)
+        toks = np.zeros((1, _prompt_bucket(self.e, n)), np.int64)
+        toks[0, :n] = ids
+        logits, ks, vs = prefill(
+            self.params, torch.tensor(toks, device=self.device), self.c)
+        row = logits[n - 1]
+        first = _sample_one(row, self.e.default_temperature
+                            if temperature is None else temperature,
+                            top_p, top_k, self._gen)
+        page = self.e.page_size
+        full = n // page
+        if full * page == n:
+            full -= 1
+        cut = max(full, 0) * page
+        ks_out, vs_out = ks[:, :cut].cpu(), vs[:, :cut].cpu()
+        if not want_logp:
+            return first, ks_out, vs_out
+        return (first, ks_out, vs_out,
+                float(torch.log_softmax(row, dim=-1)[first]))

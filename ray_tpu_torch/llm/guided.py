@@ -1,0 +1,623 @@
+"""Guided (constrained) decoding: regex / JSON-schema token masks (a copy
+of `ray_tpu/llm/guided.py`, which imports numpy only).
+
+The constraint compiles ahead of decoding into a dense token-transition
+table `[n_states, vocab]` (next state, -1 = token disallowed). The engine
+keeps the stacked per-slot tables on the device and the per-slot DFA state
+rides the decode window's loop, so enforcing the constraint adds one
+gather and one `where` per step and never waits for the host.
+
+Pipeline: regex (or JSON schema -> regex) -> Thompson NFA -> subset DFA
+over BYTES -> prune states that cannot reach an accepting state (a model
+must never be allowed to walk into a dead end it cannot complete) ->
+token-level table by running each tokenizer piece through the byte DFA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+
+import numpy as np
+
+# ---------------- regex parsing (byte alphabet) ----------------
+
+_SPECIALS = set("()[]{}|*+?.\\^$")
+
+_CLASSES = {
+    "d": set(range(0x30, 0x3A)),
+    "w": (set(range(0x30, 0x3A)) | set(range(0x41, 0x5B))
+          | set(range(0x61, 0x7B)) | {0x5F}),
+    "s": {0x20, 0x09, 0x0A, 0x0D, 0x0C, 0x0B},
+}
+_CLASSES["D"] = set(range(256)) - _CLASSES["d"]
+_CLASSES["W"] = set(range(256)) - _CLASSES["w"]
+_CLASSES["S"] = set(range(256)) - _CLASSES["s"]
+
+_ESCAPES = {"n": 0x0A, "t": 0x09, "r": 0x0D, "f": 0x0C, "v": 0x0B,
+            "0": 0x00}
+
+# AST nodes: ("lit", frozenset[bytes]) | ("cat", [..]) | ("alt", [..])
+#            | ("star", node) | ("plus", node) | ("opt", node)
+#            | ("rep", node, m, n)  n = None for unbounded
+
+
+class _Parser:
+    def __init__(self, pattern: str):
+        # Work on utf-8 bytes so multi-byte literals become byte chains.
+        self.data = pattern
+        self.i = 0
+
+    def peek(self):
+        return self.data[self.i] if self.i < len(self.data) else None
+
+    def eat(self):
+        ch = self.data[self.i]
+        self.i += 1
+        return ch
+
+    def parse(self):
+        node = self._alt()
+        if self.i != len(self.data):
+            raise ValueError(f"trailing input at {self.i} in regex")
+        return node
+
+    def _alt(self):
+        branches = [self._cat()]
+        while self.peek() == "|":
+            self.eat()
+            branches.append(self._cat())
+        return branches[0] if len(branches) == 1 else ("alt", branches)
+
+    def _cat(self):
+        parts = []
+        while self.peek() is not None and self.peek() not in "|)":
+            parts.append(self._repeat())
+        if not parts:
+            return ("cat", [])
+        return parts[0] if len(parts) == 1 else ("cat", parts)
+
+    def _repeat(self):
+        node = self._atom()
+        while True:
+            ch = self.peek()
+            if ch == "*":
+                self.eat()
+                node = ("star", node)
+            elif ch == "+":
+                self.eat()
+                node = ("plus", node)
+            elif ch == "?":
+                self.eat()
+                node = ("opt", node)
+            elif ch == "{":
+                node = self._braces(node)
+            else:
+                return node
+
+    def _braces(self, node):
+        self.eat()  # {
+        spec = ""
+        while self.peek() is not None and self.peek() != "}":
+            spec += self.eat()
+        if self.peek() != "}":
+            raise ValueError("unterminated {m,n}")
+        self.eat()
+        if "," in spec:
+            lo, hi = spec.split(",", 1)
+            m = int(lo)
+            n = int(hi) if hi.strip() else None
+        else:
+            m = n = int(spec)
+        return ("rep", node, m, n)
+
+    def _atom(self):
+        ch = self.eat()
+        if ch in "^$":
+            # Anchors are zero-width no-ops: the DFA enforces FULL-match
+            # semantics already (outlines-style), and vLLM users routinely
+            # write "^...$" patterns — treating these as literals would
+            # force literal ^/$ characters into the generated text.
+            return ("cat", [])
+        if ch == "(":
+            node = self._alt()
+            if self.peek() != ")":
+                raise ValueError("unbalanced (")
+            self.eat()
+            return node
+        if ch == "[":
+            return self._char_class()
+        if ch == ".":
+            return ("lit", frozenset(set(range(256)) - {0x0A}))
+        if ch == "\\":
+            return self._escape()
+        if ch in _SPECIALS:
+            raise ValueError(f"unexpected {ch!r}")
+        b = ch.encode("utf-8")
+        if len(b) == 1:
+            return ("lit", frozenset({b[0]}))
+        return ("cat", [("lit", frozenset({x})) for x in b])
+
+    def _escape(self):
+        ch = self.eat()
+        if ch in _CLASSES:
+            return ("lit", frozenset(_CLASSES[ch]))
+        if ch in _ESCAPES:
+            return ("lit", frozenset({_ESCAPES[ch]}))
+        if ch == "x":
+            hx = self.eat() + self.eat()
+            return ("lit", frozenset({int(hx, 16)}))
+        return ("lit", frozenset({ord(ch) & 0xFF}))
+
+    def _class_atom(self):
+        """One element inside [...]: a byte value, or a whole class set
+        (for \\d etc., which cannot anchor a range)."""
+        ch = self.eat()
+        if ch != "\\":
+            return ord(ch) & 0xFF, None
+        nxt = self.eat()
+        if nxt in _CLASSES:
+            return None, _CLASSES[nxt]
+        if nxt == "x":
+            return int(self.eat() + self.eat(), 16), None
+        return _ESCAPES.get(nxt, ord(nxt) & 0xFF), None
+
+    def _char_class(self):
+        negate = False
+        if self.peek() == "^":
+            self.eat()
+            negate = True
+        chars: set[int] = set()
+        first = True
+        while True:
+            ch = self.peek()
+            if ch is None:
+                raise ValueError("unterminated [ ]")
+            if ch == "]" and not first:
+                self.eat()
+                break
+            first = False
+            lo, cls = self._class_atom()
+            if cls is not None:
+                chars |= cls
+                continue
+            if self.peek() == "-" and self.i + 1 < len(self.data) \
+                    and self.data[self.i + 1] != "]":
+                self.eat()  # -
+                hi, hcls = self._class_atom()
+                if hcls is not None:
+                    raise ValueError("class shorthand cannot end a range")
+                chars |= set(range(lo, hi + 1))
+            else:
+                chars.add(lo)
+        if negate:
+            chars = set(range(256)) - chars
+        return ("lit", frozenset(chars))
+
+
+# ---------------- NFA (Thompson) ----------------
+
+
+class _NFA:
+    """States are ints; eps[s] = set of eps-targets; trans[s] = list of
+    (byteset, target)."""
+
+    def __init__(self):
+        self.eps: list[set[int]] = []
+        self.trans: list[list[tuple[frozenset, int]]] = []
+
+    def new_state(self) -> int:
+        self.eps.append(set())
+        self.trans.append([])
+        return len(self.eps) - 1
+
+    def build(self, node) -> tuple[int, int]:
+        kind = node[0]
+        if kind == "lit":
+            s, t = self.new_state(), self.new_state()
+            self.trans[s].append((node[1], t))
+            return s, t
+        if kind == "cat":
+            parts = node[1]
+            if not parts:
+                s = self.new_state()
+                return s, s
+            s, t = self.build(parts[0])
+            for p in parts[1:]:
+                s2, t2 = self.build(p)
+                self.eps[t].add(s2)
+                t = t2
+            return s, t
+        if kind == "alt":
+            s, t = self.new_state(), self.new_state()
+            for br in node[1]:
+                bs, bt = self.build(br)
+                self.eps[s].add(bs)
+                self.eps[bt].add(t)
+            return s, t
+        if kind == "star":
+            s, t = self.new_state(), self.new_state()
+            bs, bt = self.build(node[1])
+            self.eps[s] |= {bs, t}
+            self.eps[bt] |= {bs, t}
+            return s, t
+        if kind == "plus":
+            return self.build(("cat", [node[1], ("star", node[1])]))
+        if kind == "opt":
+            s, t = self.new_state(), self.new_state()
+            bs, bt = self.build(node[1])
+            self.eps[s] |= {bs, t}
+            self.eps[bt].add(t)
+            return s, t
+        if kind == "rep":
+            _, inner, m, n = node
+            parts = [inner] * m
+            if n is None:
+                parts.append(("star", inner))
+            else:
+                parts.extend([("opt", inner)] * (n - m))
+            return self.build(("cat", parts))
+        raise AssertionError(kind)
+
+    def eps_closure(self, states: frozenset) -> frozenset:
+        stack, seen = list(states), set(states)
+        while stack:
+            s = stack.pop()
+            for t in self.eps[s]:
+                if t not in seen:
+                    seen.add(t)
+                    stack.append(t)
+        return frozenset(seen)
+
+
+# ---------------- DFA ----------------
+
+
+@dataclasses.dataclass
+class ByteDFA:
+    """delta[s][b] = next state or -1; state 0 is the start state."""
+
+    delta: np.ndarray          # [n_states, 256] int32
+    accepting: np.ndarray      # [n_states] bool
+
+    @property
+    def n_states(self) -> int:
+        return self.delta.shape[0]
+
+    def matches(self, data: bytes) -> bool:
+        s = 0
+        for b in data:
+            s = int(self.delta[s, b])
+            if s < 0:
+                return False
+        return bool(self.accepting[s])
+
+    def valid_prefix(self, data: bytes) -> bool:
+        s = 0
+        for b in data:
+            s = int(self.delta[s, b])
+            if s < 0:
+                return False
+        return True
+
+
+def compile_byte_dfa(pattern: str) -> ByteDFA:
+    """regex -> pruned byte DFA. Every reachable state can still reach an
+    accepting state (no dead ends a generator could get stuck in)."""
+    nfa = _NFA()
+    start, final = nfa.build(_Parser(pattern).parse())
+    d0 = nfa.eps_closure(frozenset({start}))
+    dfa_of: dict[frozenset, int] = {d0: 0}
+    delta_rows: list[np.ndarray] = [np.full(256, -1, np.int32)]
+    accepting: list[bool] = [final in d0]
+    work = [d0]
+    while work:
+        cur = work.pop()
+        si = dfa_of[cur]
+        # byte -> union of NFA targets
+        targets: dict[int, set[int]] = {}
+        for s in cur:
+            for byteset, t in nfa.trans[s]:
+                for b in byteset:
+                    targets.setdefault(b, set()).add(t)
+        for b, tset in targets.items():
+            nxt = nfa.eps_closure(frozenset(tset))
+            ti = dfa_of.get(nxt)
+            if ti is None:
+                ti = len(delta_rows)
+                dfa_of[nxt] = ti
+                delta_rows.append(np.full(256, -1, np.int32))
+                accepting.append(final in nxt)
+                work.append(nxt)
+            delta_rows[si][b] = ti
+    delta = np.stack(delta_rows)
+    acc = np.asarray(accepting)
+    # Prune states that cannot reach an accepting state (co-accessible
+    # restriction): transitions into pruned states become -1.
+    n = delta.shape[0]
+    reach = acc.copy()
+    changed = True
+    while changed:
+        changed = False
+        for s in range(n):
+            if reach[s]:
+                continue
+            nz = delta[s][delta[s] >= 0]
+            if nz.size and reach[nz].any():
+                reach[s] = True
+                changed = True
+    if not reach[0]:
+        raise ValueError(f"regex {pattern!r} matches nothing")
+    keep = np.where(reach)[0]
+    remap = np.full(n, -1, np.int32)
+    remap[keep] = np.arange(len(keep), dtype=np.int32)
+    delta = delta[keep]
+    delta = np.where(delta >= 0, remap[np.clip(delta, 0, n - 1)], -1)
+    return ByteDFA(delta.astype(np.int32), acc[keep])
+
+
+# ---------------- token-level table ----------------
+
+
+_guide_serial = itertools.count(1)
+
+
+@dataclasses.dataclass
+class TokenGuide:
+    """table[s, tok] = next DFA state, or -1 when `tok` is disallowed in
+    state s. The EOS column is `s` itself where s accepts (generation may
+    stop) and -1 elsewhere (the model cannot stop mid-constraint)."""
+
+    table: np.ndarray          # [n_states, vocab] int32
+    pattern: str
+    # Process-wide monotonic identity: device-table upload fingerprints
+    # key on this instead of id() — after an LRU eviction a newly compiled
+    # guide can land on a reused id() and silently keep enforcing the old
+    # constraint (engine._sync_guides).
+    serial: int = dataclasses.field(
+        default_factory=lambda: next(_guide_serial))
+
+    @property
+    def n_states(self) -> int:
+        return self.table.shape[0]
+
+
+def _token_bytes(tokenizer, vocab: int) -> list[bytes | None]:
+    """Byte string of every token id; None = special/unmappable."""
+    out: list[bytes | None] = [None] * vocab
+    if hasattr(tokenizer, "bos_id"):  # ByteTokenizer
+        for i in range(min(256, vocab)):
+            out[i] = bytes([i])
+        return out
+    # HF-style: decode each id individually.
+    for i in range(vocab):
+        try:
+            s = tokenizer.decode([i])
+        except Exception:
+            continue
+        if s:
+            out[i] = s.encode("utf-8")
+    return out
+
+
+def compile_token_guide(pattern: str, tokenizer, vocab: int,
+                        eos_id: int) -> TokenGuide:
+    """Walk every token's byte string through the byte DFA from every
+    state. vocab = the MODEL's vocab (>= tokenizer's); out-of-tokenizer
+    ids are always disallowed."""
+    dfa = compile_byte_dfa(pattern)
+    toks = _token_bytes(tokenizer, vocab)
+    S = dfa.n_states
+    table = np.full((S, vocab), -1, np.int32)
+    for tid, bs in enumerate(toks):
+        if bs is None or tid == eos_id:
+            continue
+        # state-by-state walk; byte chains short-circuit on -1
+        for s in range(S):
+            cur = s
+            for b in bs:
+                cur = int(dfa.delta[cur, b])
+                if cur < 0:
+                    break
+            if cur >= 0:
+                table[s, tid] = cur
+    if 0 <= eos_id < vocab:
+        for s in range(S):
+            if dfa.accepting[s]:
+                table[s, eos_id] = s
+    # A state with no moves at all would strand the sampler; pruning
+    # guarantees byte-level liveness, but a tokenizer might not cover the
+    # needed byte. Fail loudly at compile time instead of decode time.
+    dead = [s for s in range(S) if (table[s] < 0).all()]
+    if dead:
+        raise ValueError(
+            f"guide for {pattern!r}: DFA states {dead} have no allowed "
+            f"token under this tokenizer")
+    return TokenGuide(table, pattern)
+
+
+# ---------------- JSON schema -> regex ----------------
+
+_JSON_STRING = r'"[^"\\\x00-\x1f]*"'
+_JSON_INT = r"-?(0|[1-9][0-9]*)"
+_JSON_NUMBER = _JSON_INT + r"(\.[0-9]+)?([eE][+-]?[0-9]+)?"
+
+
+def _esc_literal(text: str) -> str:
+    return "".join("\\" + c if c in _SPECIALS else c for c in text)
+
+
+# ---- exact bounded-integer interval automata ----
+#
+# The old digit-count approximation admitted every value sharing the
+# bound's digit count (maximum=500 admitted 999). These builders emit the
+# EXACT language: canonical decimal integers (no leading zeros, no -0)
+# inside the interval. Both-bounded intervals stay finite (greedy decoding
+# cannot loop on a digit forever); a single bound is inherently infinite
+# on its open side, matching the schema's semantics.
+
+
+def _digit_range(a: int, b: int) -> str:
+    return str(a) if a == b else f"[{a}-{b}]"
+
+
+def _fixed_width_range(lo: str, hi: str) -> str:
+    """Regex for decimal strings of width len(lo)==len(hi) in [lo, hi]
+    (numeric order == lexicographic order at fixed width)."""
+    if lo == hi:
+        return lo
+    a0, b0 = int(lo[0]), int(hi[0])
+    if len(lo) == 1:
+        return _digit_range(a0, b0)
+    rest = len(lo) - 1
+    if a0 == b0:
+        return lo[0] + _fixed_width_range(lo[1:], hi[1:])
+    parts = []
+    if lo[1:] == "0" * rest:
+        lo_first = a0  # lo's subtree is the full block
+    else:
+        parts.append(lo[0] + _fixed_width_range(lo[1:], "9" * rest))
+        lo_first = a0 + 1
+    if hi[1:] == "9" * rest:
+        hi_first = b0  # hi's subtree is the full block
+        hi_part = None
+    else:
+        hi_first = b0 - 1
+        hi_part = hi[0] + _fixed_width_range("0" * rest, hi[1:])
+    if lo_first <= hi_first:
+        parts.append(_digit_range(lo_first, hi_first)
+                     + f"[0-9]{{{rest}}}")
+    if hi_part is not None:
+        parts.append(hi_part)
+    return "(" + "|".join(parts) + ")"
+
+
+def _nonneg_range(lo: int, hi: int) -> str:
+    """Regex for canonical decimals of every value in [lo, hi], 0<=lo<=hi.
+    Split by digit count so leading-zero-free widths compose."""
+    if lo > hi:
+        raise ValueError(f"empty integer interval [{lo}, {hi}]")
+    parts = []
+    for width in range(len(str(lo)), len(str(hi)) + 1):
+        w_lo = max(lo, 0 if width == 1 else 10 ** (width - 1))
+        w_hi = min(hi, 10 ** width - 1)
+        if w_lo > w_hi:
+            continue
+        parts.append(_fixed_width_range(str(w_lo).zfill(width)[-width:],
+                                        str(w_hi)))
+    return parts[0] if len(parts) == 1 else "(" + "|".join(parts) + ")"
+
+
+def _nonneg_at_least(n: int) -> str:
+    """Canonical decimals of every value >= n >= 0 (unbounded above)."""
+    width = len(str(n))
+    longer = f"[1-9][0-9]{{{width},}}"
+    if n == 0:
+        return "(0|[1-9][0-9]*)"
+    same = _fixed_width_range(str(n), "9" * width)
+    return f"({same}|{longer})"
+
+
+def _int_interval_regex(lo: int | None, hi: int | None) -> str:
+    """Exact regex for canonical JSON integers in [lo, hi]; either side
+    may be open (None)."""
+    parts = []
+    # Negative half, emitted as '-' + magnitude (magnitude bounds flip):
+    # magnitudes m satisfy m >= max(1, -hi) and (lo set) m <= -lo.
+    if lo is None or lo <= -1:
+        mag_lo = 1 if (hi is None or hi >= -1) else -hi
+        if lo is None:
+            parts.append("-" + _nonneg_at_least(mag_lo))
+        elif mag_lo <= -lo:
+            parts.append("-" + _nonneg_range(mag_lo, -lo))
+    # Non-negative half.
+    if hi is None or hi >= 0:
+        nn_lo = 0 if lo is None else max(lo, 0)
+        if hi is None:
+            parts.append(_nonneg_at_least(nn_lo))
+        elif nn_lo <= hi:
+            parts.append(_nonneg_range(nn_lo, hi))
+    if not parts:
+        raise ValueError(f"empty integer interval [{lo}, {hi}]")
+    return parts[0] if len(parts) == 1 else "(" + "|".join(parts) + ")"
+
+
+def json_schema_to_regex(schema: dict) -> str:
+    """Canonical (whitespace-free) JSON matching the schema subset:
+    object/array/string/integer/number/boolean/null/enum/const. Object
+    properties emit in declaration order, all required (the outlines
+    canonicalization — generators produce one canonical layout)."""
+    if "enum" in schema:
+        opts = "|".join(_esc_literal(_json_dump(v)) for v in schema["enum"])
+        return f"({opts})"
+    if "const" in schema:
+        return _esc_literal(_json_dump(schema["const"]))
+    t = schema.get("type")
+    if t == "string":
+        if "pattern" in schema:
+            return '"' + schema["pattern"] + '"'
+        lo = schema.get("minLength", 0)
+        hi = schema.get("maxLength")
+        if hi is not None or lo:
+            rep = (f"{{{lo},{hi}}}" if hi is not None else f"{{{lo},}}")
+            return '"' + r'[^"\\\x00-\x1f]' + rep + '"'
+        return _JSON_STRING
+    if t == "integer":
+        lo, hi = schema.get("minimum"), schema.get("maximum")
+        if lo is None and hi is None:
+            return "-?(0|[1-9][0-9]*)"
+        return _int_interval_regex(
+            None if lo is None else int(lo),
+            None if hi is None else int(hi))
+    if t == "number":
+        return _JSON_NUMBER
+    if t == "boolean":
+        return "(true|false)"
+    if t == "null":
+        return "null"
+    if t == "array":
+        item = json_schema_to_regex(schema.get("items", {}))
+        lo = schema.get("minItems", 0)
+        hi = schema.get("maxItems")
+        if hi is not None:
+            if lo == 0:
+                body = f"({item}(,{item}){{0,{max(hi - 1, 0)}}})?" \
+                    if hi > 0 else ""
+            else:
+                body = f"{item}(,{item}){{{lo - 1},{hi - 1}}}"
+        elif lo > 0:
+            body = f"{item}(,{item}){{{lo - 1},}}"
+        else:
+            body = f"({item}(,{item})*)?"
+        return r"\[" + body + r"\]"
+    if t == "object" or "properties" in schema:
+        props = schema.get("properties", {})
+        if not props:
+            if schema.get("additionalProperties", True):
+                # Free-form object (response_format json_object): flat
+                # object of scalar values — regexes cannot express
+                # arbitrarily NESTED JSON (not a regular language), so
+                # depth 1 is the documented approximation.
+                scalar = (f"({_JSON_STRING}|{_JSON_NUMBER}"
+                          f"|true|false|null)")
+                member = f"{_JSON_STRING}:{scalar}"
+                return r"\{(" + member + f"(,{member})*" + r")?\}"
+            return r"\{\}"
+        parts = []
+        for name, sub in props.items():
+            parts.append(f'"{_esc_literal(name)}":'
+                         + json_schema_to_regex(sub))
+        return r"\{" + ",".join(parts) + r"\}"
+    # Unconstrained: any scalar JSON value.
+    return (f"({_JSON_STRING}|{_JSON_NUMBER}|true|false|null)")
+
+
+def _json_dump(v) -> str:
+    import json
+    return json.dumps(v, separators=(",", ":"))
+
+
+def compile_json_guide(schema: dict, tokenizer, vocab: int,
+                       eos_id: int) -> TokenGuide:
+    return compile_token_guide(json_schema_to_regex(schema), tokenizer,
+                               vocab, eos_id)

@@ -29,6 +29,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("paged_decode", "paged_verify", "flash_fwd", "flash_bwd")
 # The `dtype` argument of every C entry point.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The head_dims every kernel takes: the multiples of 8 (the JAX package's
+# Pallas condition, `hd % 8 == 0`) up to 128.
+HEAD_DIMS = range(8, 129, 8)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -109,6 +112,14 @@ def load(name: str) -> ctypes.CDLL:
         lib.rt_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
         return lib
+
+
+def check_head_dim(what: str, hd: int) -> None:
+    """Raise ValueError, naming the accepted set, for a head_dim no kernel
+    takes (each kernel source maps an accepted one to its instantiation)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: the kernels take a head_dim that is a "
+                         f"multiple of 8 from 8 to 128, got {hd}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -8,7 +8,9 @@ hand-written kernels: the forward (`csrc/flash_fwd.cu`, K2) and, when a
 gradient is needed, the dQ and dK/dV backward (`csrc/flash_bwd.cu`, K3
 and K4) behind one `torch.autograd.Function`, the port's `custom_vjp`.
 The kernels mask a ragged S themselves rather than padding to a tile
-multiple. The ring/ulysses sequence-parallel paths belong to a later slice.
+multiple, and take every head_dim that is a multiple of 8 up to 128 (the
+JAX package's Pallas condition; `_build.check_head_dim`). The ring/ulysses
+sequence-parallel paths belong to a later slice.
 """
 
 from __future__ import annotations
@@ -188,9 +190,6 @@ def _check_inputs(what, q, k, v, *more):
     """Device, dtype, shape and contiguity checks shared by the kernel
     wrappers; `more` are further [B, S, H, D] tensors of q's dtype.
     Returns (B, S, H, Hkv, D)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: the kernel path needs CUDA tensors, got "
-                         f"{q.device}")
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     if (q.dtype not in _build.DTYPE_CODES
@@ -201,9 +200,10 @@ def _check_inputs(what, q, k, v, *more):
             or any(t.shape != q.shape for t in more)):
         raise ValueError(f"{what}: bad shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"{what}: the kernel supports head_dim 64 or 128, "
-                         f"got {D}")
+    _build.check_head_dim(what, D)
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel path needs CUDA tensors, got "
+                         f"{q.device}")
     if any(t.device != q.device for t in (k, v, *more)):
         raise ValueError(f"{what}: inputs must be on one device")
     if not all(t.is_contiguous() for t in (q, k, v, *more)):

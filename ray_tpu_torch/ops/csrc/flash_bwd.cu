@@ -13,8 +13,12 @@
 // dQ and dK products, as the TPU kernels do; accumulators are fp32 and the
 // outputs are written in the input dtype.
 //
-// Layout: q/dO/dQ [B, S, H, D], k/v/dK/dV [B, S, Hkv, D], lse/delta flat
-// [B*H, S] fp32 (row b*H + h). GQA: query head h reads kv head
+// Layout: q/dO/dQ [B, S, H, hd], k/v/dK/dV [B, S, Hkv, hd], lse/delta flat
+// [B*H, S] fp32 (row b*H + h). head_dim: any multiple of 8 up to 128; each
+// body is compiled at D = 64 and 128, and a smaller hd is zero-filled up
+// to D in shared memory (zero columns add nothing to a score or to dP, and
+// no output column is stored past hd) by the PAD instantiations; hd 64 and
+// 128 run bodies with hd known at compile time. GQA: query head h reads kv head
 // h / (H / Hkv) through strides (no repeat, no transpose). K4's block owns
 // one k tile of one kv head and loops over the g = H / Hkv query heads of
 // its group itself, so the GQA sum of dK/dV happens in registers: no
@@ -80,18 +84,21 @@ struct Tiles {
   static constexpr int dkv_bytes = (4 * tile + 2 * BQ * LDT + 2 * BQ) * 4;
 };
 
-// rows [r0, r0 + 64) of a [S, stride] tensor, D columns from `src`, as
-// fp32 into dst[64][LD]; rows at or beyond S are zero.
+// rows [r0, r0 + 64) of a [S, stride] tensor, hd (<= D) columns from
+// `src`, as fp32 into dst[64][LD]; rows at or beyond S and columns at or
+// beyond hd are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          size_t stride, int r0, int S) {
+                                          size_t stride, int r0, int S,
+                                          int hd) {
   constexpr int LD = D + 4;
   constexpr int C4 = D / 4;
   for (int idx = threadIdx.x; idx < 64 * C4; idx += kThreads) {
     const int r = idx / C4, c = (idx % C4) * 4;
     const int s = r0 + r;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s < S) rt::VecLoad<T, 4>::run(src + (size_t)s * stride + c, x);
+    if (s < S && c < hd)
+      rt::VecLoad<T, 4>::run(src + (size_t)s * stride + c, x);
     *reinterpret_cast<float4*>(&dst[r * LD + c]) =
         make_float4(x[0], x[1], x[2], x[3]);
   }
@@ -166,14 +173,16 @@ __device__ __forceinline__ void accumulate(const float* W, const float* X,
 
 // K3: one block per (q tile, b * H + h); walks the k tiles up to the
 // causal diagonal.
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, int Hkv, int causal, float scale) {
+                    int S, int H, int Hkv, int hd_arg, int causal,
+                    float scale) {
   using L = Tiles<D>;
+  const int hd = PAD ? hd_arg : D;  // the head_dim (<= D)
   constexpr int CW = D / 16;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -190,13 +199,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / Hkv);
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
-  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * hd;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * hd;
 
-  load_tile<T, D>(Qs, q + q_off, q_stride, q0, S);
-  load_tile<T, D>(dOs, dout + q_off, q_stride, q0, S);
+  load_tile<T, D>(Qs, q + q_off, q_stride, q0, S, hd);
+  load_tile<T, D>(dOs, dout + q_off, q_stride, q0, S, hd);
   float row_lse[4], row_delta[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -218,8 +227,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, S);
-    load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, S);
+    load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, S, hd);
+    load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, S, hd);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -246,21 +255,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= S) continue;
     T* o = dq + q_off + (size_t)qi * q_stride + cg * CW;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) o[c] = rt::from_float<T>(acc[i][c]);
+    for (int c = 0; c < CW; ++c)
+      if (cg * CW + c < hd) o[c] = rt::from_float<T>(acc[i][c]);
   }
 }
 
 // K4: one block per (k tile, b * Hkv + kv head); loops over the g query
 // heads of the group and over the q tiles from the causal diagonal on.
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int Hkv, int causal,
-                     float scale) {
+                     T* __restrict__ dv, int S, int H, int Hkv, int hd_arg,
+                     int causal, float scale) {
   using L = Tiles<D>;
+  const int hd = PAD ? hd_arg : D;  // the head_dim (<= D)
   constexpr int CW = D / 16;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
@@ -279,12 +290,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BK;
   const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
   const int g = H / Hkv;
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * hd;
 
-  load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, S);
-  load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, S);
+  load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, S, hd);
+  load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, S, hd);
   float acc_k[4][CW], acc_v[4][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -296,12 +307,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int hh = 0; hh < g; ++hh) {
     const int h = kvh * g + hh;
     const size_t bh = (size_t)b * H + h;
-    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
+    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * hd;
     for (int qt = first; qt < nq; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(Qs, q + q_off, q_stride, q0, S);
-      load_tile<T, D>(dOs, dout + q_off, q_stride, q0, S);
+      load_tile<T, D>(Qs, q + q_off, q_stride, q0, S, hd);
+      load_tile<T, D>(dOs, dout + q_off, q_stride, q0, S, hd);
       if (tid < BQ) {
         const int qi = q0 + tid;
         lse_s[tid] = qi < S ? lse[bh * S + qi] : 0.f;
@@ -343,6 +354,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = kv_off + (size_t)kj * kv_stride + cg * CW;
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
+      if (cg * CW + c >= hd) continue;
       dk[off + c] = rt::from_float<T>(acc_k[i][c]);
       dv[off + c] = rt::from_float<T>(acc_v[i][c]);
     }
@@ -368,7 +380,7 @@ struct DkvTiles {
   static constexpr int bytes = 2 * kv + 2 * stage + 1024;  // + align slack
 };
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -377,8 +389,10 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int S, int H, int Hkv, int causal, float scale) {
+                           int S, int H, int Hkv, int hd_arg, int causal,
+                           float scale) {
   using L = DkvTiles<D>;
+  const int hd = PAD ? hd_arg : D;  // the head_dim (<= D)
   constexpr int BQ = L::BQ;
   constexpr int SR = BQ / 2;  // score accumulator registers
   constexpr int DR = D / 2;   // dK / dV accumulator registers
@@ -393,9 +407,9 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   const int k0 = blockIdx.x * BK;
   const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
   const int g = H / Hkv;
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * hd;
   const int first = causal ? k0 / BQ : 0;
   const int nqt = (S + BQ - 1) / BQ - first;  // q tiles per head
   const int n = g * nqt;
@@ -404,18 +418,18 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   auto fetch = [&](int it, uint32_t st) {
     const int h = kvh * g + it / nqt;
     const int q0 = (first + it % nqt) * BQ;
-    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
-    hop::load_tile<BQ, D, kThreads>(st, q + q_off, q_stride, q0, S);
+    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * hd;
+    hop::load_tile<BQ, D, kThreads>(st, q + q_off, q_stride, q0, S, hd);
     hop::load_tile<BQ, D, kThreads>(st + L::qt, dout + q_off, q_stride, q0,
-                                    S);
+                                    S, hd);
     const int j = tid % BQ, qi = q0 + j;
     const float* row = (tid < BQ ? lse : delta) + ((size_t)b * H + h) * S;
     if (tid < 2 * BQ)
       hop::cp_async4(st + 2 * L::qt + 4 * tid, row + (qi < S ? qi : 0),
                      qi < S);
   };
-  hop::load_tile<BK, D, kThreads>(sK, k + kv_off, kv_stride, k0, S);
-  hop::load_tile<BK, D, kThreads>(sV, v + kv_off, kv_stride, k0, S);
+  hop::load_tile<BK, D, kThreads>(sK, k + kv_off, kv_stride, k0, S, hd);
+  hop::load_tile<BK, D, kThreads>(sV, v + kv_off, kv_stride, k0, S, hd);
   fetch(0, sStage);
   hop::cp_async_commit();
 
@@ -493,6 +507,7 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
     const size_t off = kv_off + (size_t)kj * kv_stride + 2 * (tid & 3);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= hd) continue;
       const int i = 4 * j + 2 * r;
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
           __floats2bfloat162_rn(acc_k[i], acc_k[i + 1]);
@@ -514,7 +529,7 @@ struct DqTiles {
   static constexpr int bytes = 2 * qt + 4 * kv + 1024;
 };
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -523,8 +538,9 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dq, int S, int H, int Hkv,
-                          int causal, float scale) {
+                          int hd_arg, int causal, float scale) {
   using L = DqTiles<D>;
+  const int hd = PAD ? hd_arg : D;  // the head_dim (<= D)
   constexpr int BQ = L::BQ, BK = L::BK;
   constexpr int SR = BK / 2;  // score accumulator registers
   constexpr int DR = D / 2;   // dQ accumulator registers
@@ -538,21 +554,21 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / Hkv);
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * D;
-  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * hd;
+  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * hd;
+  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * hd;
 
   int nk = (S + BK - 1) / BK;
   if (causal) {
     const int last = (q0 + BQ - 1) / BK + 1;
     nk = nk < last ? nk : last;
   }
-  hop::load_tile<BQ, D, kThreads>(sQ, q + q_off, q_stride, q0, S);
-  hop::load_tile<BQ, D, kThreads>(sdO, dout + q_off, q_stride, q0, S);
-  hop::load_tile<BK, D, kThreads>(sKV, kb, kv_stride, 0, S);
-  hop::load_tile<BK, D, kThreads>(sKV + L::kv, vb, kv_stride, 0, S);
+  hop::load_tile<BQ, D, kThreads>(sQ, q + q_off, q_stride, q0, S, hd);
+  hop::load_tile<BQ, D, kThreads>(sdO, dout + q_off, q_stride, q0, S, hd);
+  hop::load_tile<BK, D, kThreads>(sKV, kb, kv_stride, 0, S, hd);
+  hop::load_tile<BK, D, kThreads>(sKV + L::kv, vb, kv_stride, 0, S, hd);
   hop::cp_async_commit();
 
   // lse (in log2 units, negated) and delta of this thread's two rows;
@@ -578,8 +594,9 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
     __syncthreads();  // tile kt landed; every reader of the other stage done
     if (kt + 1 < nk) {
       const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * L::kv;
-      hop::load_tile<BK, D, kThreads>(nK, kb, kv_stride, k0 + BK, S);
-      hop::load_tile<BK, D, kThreads>(nK + L::kv, vb, kv_stride, k0 + BK, S);
+      hop::load_tile<BK, D, kThreads>(nK, kb, kv_stride, k0 + BK, S, hd);
+      hop::load_tile<BK, D, kThreads>(nK + L::kv, vb, kv_stride, k0 + BK, S,
+                                      hd);
       hop::cp_async_commit();
     }
 
@@ -629,8 +646,9 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
     bf16* row = dq + q_off + (size_t)qi * q_stride + 2 * (tid & 3);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      if (8 * j < hd)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
@@ -650,35 +668,38 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *out0, *out1;  // dq; or dk, dv
-  int B, S, H, Hkv, causal;
+  int B, S, H, Hkv, hd, causal;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch_dq(const Args& a) {
   static bool attr = false;
   const int bytes = Tiles<D>::dq_bytes;
-  if (int e = allow_smem(flash_bwd_dq_kernel<T, D>, bytes, &attr)) return e;
+  if (int e = allow_smem(flash_bwd_dq_kernel<T, D, PAD>, bytes, &attr))
+    return e;
   dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
+  flash_bwd_dq_kernel<T, D, PAD><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.out0), a.S, a.H, a.Hkv, a.causal, a.scale);
+      a.delta, static_cast<T*>(a.out0), a.S, a.H, a.Hkv, a.hd, a.causal,
+      a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch_dkv(const Args& a) {
   static bool attr = false;
   const int bytes = Tiles<D>::dkv_bytes;
-  if (int e = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes, &attr)) return e;
+  if (int e = allow_smem(flash_bwd_dkv_kernel<T, D, PAD>, bytes, &attr))
+    return e;
   dim3 grid((a.S + BK - 1) / BK, a.B * a.Hkv);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, a.stream>>>(
+  flash_bwd_dkv_kernel<T, D, PAD><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.H,
-      a.Hkv, a.causal, a.scale);
+      a.Hkv, a.hd, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -692,87 +713,117 @@ bool misaligned(const Args& a) {
 }
 
 // K4 in bf16: the tensor-core body.
-template <int D>
+template <int D, bool PAD>
 int launch_dkv_wgmma(const Args& a) {
   using wg::bf16;
   if (misaligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   static bool attr = false;
   const int bytes = wg::DkvTiles<D>::bytes;
-  if (int e = allow_smem(wg::flash_bwd_dkv_wgmma_kernel<D>, bytes, &attr))
+  if (int e = allow_smem(wg::flash_bwd_dkv_wgmma_kernel<D, PAD>, bytes,
+                         &attr))
     return e;
   dim3 grid((a.S + wg::BK - 1) / wg::BK, a.B * a.Hkv);
-  wg::flash_bwd_dkv_wgmma_kernel<D><<<grid, wg::kThreads, bytes, a.stream>>>(
+  wg::flash_bwd_dkv_wgmma_kernel<D, PAD>
+      <<<grid, wg::kThreads, bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
       a.delta, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.S,
-      a.H, a.Hkv, a.causal, a.scale);
+      a.H, a.Hkv, a.hd, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K3 in bf16: the tensor-core body.
-template <int D>
+template <int D, bool PAD>
 int launch_dq_wgmma(const Args& a) {
   using wg::bf16;
   using L = wg::DqTiles<D>;
   if (misaligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   static bool attr = false;
-  if (int e = allow_smem(wg::flash_bwd_dq_wgmma_kernel<D>, L::bytes, &attr))
+  if (int e = allow_smem(wg::flash_bwd_dq_wgmma_kernel<D, PAD>, L::bytes,
+                         &attr))
     return e;
   dim3 grid((a.S + L::BQ - 1) / L::BQ, a.B * a.H);
-  wg::flash_bwd_dq_wgmma_kernel<D><<<grid, wg::kThreads, L::bytes,
+  wg::flash_bwd_dq_wgmma_kernel<D, PAD><<<grid, wg::kThreads, L::bytes,
                                      a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, static_cast<bf16*>(a.out0), a.S, a.H, a.Hkv, a.causal,
+      a.delta, static_cast<bf16*>(a.out0), a.S, a.H, a.Hkv, a.hd, a.causal,
       a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DKV, typename T, int D>
+template <bool DKV, typename T, int D, bool PAD>
 int run(const Args& a) {
   if constexpr (DKV && std::is_same_v<T, __nv_bfloat16>) {
-    return launch_dkv_wgmma<D>(a);
+    return launch_dkv_wgmma<D, PAD>(a);
   } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_dq_wgmma<D>(a);
+    return launch_dq_wgmma<D, PAD>(a);
   } else if constexpr (DKV) {
-    return launch_dkv<T, D>(a);
+    return launch_dkv<T, D, PAD>(a);
   } else {
-    return launch_dq<T, D>(a);
+    return launch_dq<T, D, PAD>(a);
   }
 }
 
+// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8 from 8 to 128):
+// the body compiled at D = 64 for hd <= 64, else at 128, with PAD when
+// hd < D (its tile columns past hd zero-filled). hd 64 and 128 run the
+// bodies with hd known to the compiler.
+template <int D_, bool PAD_>
+struct Width {
+  static constexpr int D = D_;
+  static constexpr bool PAD = PAD_;
+};
+
+template <typename F>
+int by_width(int hd, F f) {
+  if (hd == 64) return f(Width<64, false>{});
+  if (hd == 128) return f(Width<128, false>{});
+  if (hd < 8 || hd > 128 || hd % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return hd < 64 ? f(Width<64, true>{}) : f(Width<128, true>{});
+}
+
+
 template <bool DKV>
-int dispatch(int D, int dtype, const Args& a) {
-  if (dtype == 0 && D == 64) return run<DKV, float, 64>(a);
-  if (dtype == 0 && D == 128) return run<DKV, float, 128>(a);
-  if (dtype == 1 && D == 64) return run<DKV, __nv_bfloat16, 64>(a);
-  if (dtype == 1 && D == 128) return run<DKV, __nv_bfloat16, 128>(a);
+int dispatch(int dtype, const Args& a) {
+  if (dtype == 0)
+    return by_width(a.hd, [&](auto w) {
+      using W = decltype(w);
+      return run<DKV, float, W::D, W::PAD>(a);
+    });
+  if (dtype == 1)
+    return by_width(a.hd, [&](auto w) {
+      using W = decltype(w);
+      return run<DKV, __nv_bfloat16, W::D, W::PAD>(a);
+    });
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q/dout/dq [B, S, H, D]; k/v [B, S, Hkv, D]; lse/delta [B*H, S] fp32.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// q/dout/dq [B, S, H, hd]; k/v [B, S, Hkv, hd]; lse/delta [B*H, S] fp32;
+// hd a multiple of 8 from 8 to 128. dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t.
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int B, int S,
-                               int H, int Hkv, int D, int causal, float scale,
-                               int dtype, void* stream) {
+                               int H, int Hkv, int hd, int causal,
+                               float scale, int dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, B, S, H, Hkv,
-               causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(D, dtype, a);
+               hd, causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(dtype, a);
 }
 
-// As above; writes dk and dv [B, S, Hkv, D].
+// As above; writes dk and dv [B, S, Hkv, hd].
 extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, int B,
-                                int S, int H, int Hkv, int D, int causal,
+                                int S, int H, int Hkv, int hd, int causal,
                                 float scale, int dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dk, dv, B, S, H, Hkv,
+               static_cast<const float*>(delta), dk, dv, B, S, H, Hkv, hd,
                causal, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(D, dtype, a);
+  return dispatch<true>(dtype, a);
 }

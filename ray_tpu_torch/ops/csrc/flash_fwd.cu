@@ -7,10 +7,14 @@
 // optional per-row logsumexp (flat [B*H, S] fp32, not the TPU's
 // 128-lane copy).
 //
-// Layout: q/out [B, S, H, D], k/v [B, S, Hkv, D] (GQA: head i reads kv
+// Layout: q/out [B, S, H, hd], k/v [B, S, Hkv, hd] (GQA: head i reads kv
 // head i / (H / Hkv)). The kernel reads the model's layout through
 // strides, so no transpose or head repeat is materialized, and it masks a
-// ragged S itself instead of padding to a tile multiple.
+// ragged S itself instead of padding to a tile multiple. head_dim: any
+// multiple of 8 up to 128; each body is compiled at D = 64 and 128, and a
+// smaller hd is zero-filled up to D in shared memory (zero columns add
+// nothing to a score and no output column is stored past hd) by the PAD
+// instantiations; hd 64 and 128 run bodies with hd known at compile time.
 //
 // What bounds it: at [8, 1024, 12, 64] causal bf16 the work is ~12.9
 // GFLOP against ~50 MB of q/k/v/out; at the H100 data sheet's rates
@@ -56,13 +60,14 @@ struct Smem {
   static constexpr int bytes = floats * 4;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, int Hkv, int causal,
-                 float scale) {
+                 float* __restrict__ lse, int S, int H, int Hkv, int hd_arg,
+                 int causal, float scale) {
   using L = Smem<D>;
+  const int hd = PAD ? hd_arg : D;  // the head_dim (<= D)
   constexpr int CW = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -79,16 +84,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / Hkv);
-  const size_t q_stride = (size_t)H * D;    // between sequence positions
-  const size_t kv_stride = (size_t)Hkv * D;
-  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * D;
-  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const size_t q_stride = (size_t)H * hd;    // between sequence positions
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * hd;
+  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * hd;
+  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * hd;
 
   for (int idx = tid; idx < BQ * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
     const int s = q0 + r;
-    QsT[d * L::LDQ + r] = s < S ? rt::to_float(qb[s * q_stride + d]) : 0.f;
+    QsT[d * L::LDQ + r] =
+        s < S && d < hd ? rt::to_float(qb[s * q_stride + d]) : 0.f;
   }
 
   float m[4], l[4], acc[4][CW];
@@ -111,7 +117,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BK * D; idx += kThreads) {
       const int j = idx / D, d = idx % D;
       const int s = k0 + j;
-      const bool ok = s < S;
+      const bool ok = s < S && d < hd;
       KsT[d * L::LDK + j] = ok ? rt::to_float(kb[s * kv_stride + d]) : 0.f;
       Vs[j * L::LDV + d] = ok ? rt::to_float(vb[s * kv_stride + d]) : 0.f;
     }
@@ -197,32 +203,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + 4 * rg + i;
     if (qi >= S) continue;
     const float ls = fmaxf(l[i], 1e-30f);
-    T* o = out + (size_t)b * S * q_stride + qi * q_stride + (size_t)h * D +
+    T* o = out + (size_t)b * S * q_stride + qi * q_stride + (size_t)h * hd +
            kg * CW;
 #pragma unroll
-    for (int c = 0; c < CW; ++c) o[c] = rt::from_float<T>(acc[i][c] / ls);
+    for (int c = 0; c < CW; ++c)
+      if (kg * CW + c < hd) o[c] = rt::from_float<T>(acc[i][c] / ls);
     if (lse != nullptr && kg == 0) lse[(size_t)bh * S + qi] = m[i] + logf(ls);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int S, int H, int Hkv, int causal, float scale,
+           int B, int S, int H, int Hkv, int hd, int causal, float scale,
            cudaStream_t stream) {
   using L = Smem<D>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::bytes);
+        flash_fwd_kernel<T, D, PAD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, L::bytes, stream>>>(
+  flash_fwd_kernel<T, D, PAD><<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv, hd,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,13 +251,14 @@ struct Smem {
   static constexpr int bytes = 5 * tile + 1024;
 };
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, int S, int H, int Hkv,
-                       int causal, float scale) {
+                       int hd_arg, int causal, float scale) {
   using L = Smem<D>;
+  const int hd = PAD ? hd_arg : D;  // the head_dim (<= D)
   constexpr int OR = D / 2;  // output accumulator registers
   extern __shared__ uint8_t smem[];
   const uint32_t sQ = (hop::smem_addr(smem) + 1023) & ~1023u;
@@ -261,20 +269,20 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / Hkv);
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)Hkv * D;
-  const bf16* qb = q + (size_t)b * S * q_stride + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * D;
-  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const bf16* qb = q + (size_t)b * S * q_stride + (size_t)h * hd;
+  const bf16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * hd;
+  const bf16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * hd;
 
   int nk = (S + BK - 1) / BK;
   if (causal) {
     const int last = (q0 + BQ - 1) / BK + 1;
     nk = nk < last ? nk : last;
   }
-  hop::load_tile<BQ, D, kThreads>(sQ, qb, q_stride, q0, S);
-  hop::load_tile<BK, D, kThreads>(sKV, kb, kv_stride, 0, S);
-  hop::load_tile<BK, D, kThreads>(sKV + L::tile, vb, kv_stride, 0, S);
+  hop::load_tile<BQ, D, kThreads>(sQ, qb, q_stride, q0, S, hd);
+  hop::load_tile<BK, D, kThreads>(sKV, kb, kv_stride, 0, S, hd);
+  hop::load_tile<BK, D, kThreads>(sKV + L::tile, vb, kv_stride, 0, S, hd);
   hop::cp_async_commit();
 
   const float sl2 = scale * kLog2e;  // scores in log2 units
@@ -292,9 +300,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // tile kt landed; every reader of the other stage done
     if (kt + 1 < nk) {
       const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * L::tile;
-      hop::load_tile<BK, D, kThreads>(nK, kb, kv_stride, k0 + BK, S);
+      hop::load_tile<BK, D, kThreads>(nK, kb, kv_stride, k0 + BK, S, hd);
       hop::load_tile<BK, D, kThreads>(nK + L::tile, vb, kv_stride, k0 + BK,
-                                      S);
+                                      S, hd);
       hop::cp_async_commit();
     }
 
@@ -349,7 +357,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     hop::fence_regs(o);
   }
 
-  bf16* ob = out + (size_t)b * S * q_stride + (size_t)h * D;
+  bf16* ob = out + (size_t)b * S * q_stride + (size_t)h * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + hop::acc_row(tid, 2 * r);
@@ -359,16 +367,18 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* row = ob + (size_t)qi * q_stride + 2 * (tid & 3);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
-          o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (8 * j < hd)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                  o[4 * j + 2 * r + 1] * inv);
     if (lse != nullptr && (tid & 3) == 0)
       lse[(size_t)bh * S + qi] = m[r] * kLn2 + logf(ls);
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int S, int H, int Hkv, int causal, float scale,
+           int B, int S, int H, int Hkv, int hd, int causal, float scale,
            cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
@@ -377,39 +387,63 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wgmma_kernel<D>,
+        flash_fwd_wgmma_kernel<D, PAD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, Smem<D>::bytes, stream>>>(
+  flash_fwd_wgmma_kernel<D, PAD><<<grid, kThreads, Smem<D>::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, Hkv,
-      causal, scale);
+      hd, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
 
+// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8 from 8 to 128):
+// the body compiled at D = 64 for hd <= 64, else at 128, with PAD when
+// hd < D (its tile columns past hd zero-filled). hd 64 and 128 run the
+// bodies with hd known to the compiler.
+template <int D_, bool PAD_>
+struct Width {
+  static constexpr int D = D_;
+  static constexpr bool PAD = PAD_;
+};
+
+template <typename F>
+int by_width(int hd, F f) {
+  if (hd == 64) return f(Width<64, false>{});
+  if (hd == 128) return f(Width<128, false>{});
+  if (hd < 8 || hd > 128 || hd % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return hd < 64 ? f(Width<64, true>{}) : f(Width<128, true>{});
+}
+
 }  // namespace
 
-// q/out [B, S, H, D]; k/v [B, S, Hkv, D]; lse [B*H, S] fp32 or null.
+// q/out [B, S, H, hd]; k/v [B, S, Hkv, hd]; lse [B*H, S] fp32 or null.
+// hd: a multiple of 8 from 8 to 128 (run at D = 64 up to 64, else 128).
 // dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body).
 // Returns a cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int H,
-                            int Hkv, int D, int causal, float scale,
+                            int Hkv, int hd, int causal, float scale,
                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
-  if (dtype == 1 && D == 64)
-    return wg::launch<64>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
-  if (dtype == 1 && D == 128)
-    return wg::launch<128>(q, k, v, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == 0)
+    return by_width(hd, [&](auto w) {
+      using W = decltype(w);
+      return launch<float, W::D, W::PAD>(q, k, v, out, l, B, S, H, Hkv, hd,
+                                         causal, scale, s);
+    });
+  if (dtype == 1)
+    return by_width(hd, [&](auto w) {
+      using W = decltype(w);
+      return wg::launch<W::D, W::PAD>(q, k, v, out, l, B, S, H, Hkv, hd,
+                                      causal, scale, s);
+    });
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@
 //
 // Tile layout. A [rows][D] bf16 tile sits in shared memory as D / 64
 // column blocks of [rows][64], one after the other (one block for D = 64,
-// two for D = 128). A 64-element row is 128 bytes; in each group of 8
+// two for D = 128). A head_dim below D is zero-filled up to it
+// (load_tile). A 64-element row is 128 bytes; in each group of 8
 // rows (a 1024-byte swizzle atom) the 16-byte chunk c of row r is stored
 // at chunk c ^ (r % 8). This is the layout wgmma reads in its 128-byte
 // swizzle mode, both as a K-major operand (rows = M or N, columns = K)
@@ -216,21 +217,25 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// Copy rows [r0, r0 + ROWS) of a [S, stride] bf16 tensor, D columns from
-// `src`, into the swizzled tile at `dst` with NT threads; rows at or
-// beyond S are zero.
+// Copy rows [r0, r0 + ROWS) of a [S, stride] bf16 tensor, hd columns from
+// `src`, into the swizzled [ROWS][D] tile at `dst` with NT threads; rows at
+// or beyond S and columns at or beyond hd (a multiple of 8, <= D) are
+// zero. A head_dim below the tile's width D is zero-filled up to it: zero
+// columns add nothing to a product over the head dimension.
 template <int ROWS, int D, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
-                                          size_t stride, int r0, int S) {
+                                          size_t stride, int r0, int S,
+                                          int hd) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
   static_assert(ROWS * CH % NT == 0, "tile chunks must split evenly");
 #pragma unroll
   for (int it = 0; it < ROWS * CH / NT; ++it) {
     const int idx = it * NT + threadIdx.x;
     const int r = idx / CH, c = idx % CH;
-    const bool ok = r0 + r < S;
-    const __nv_bfloat16* p = src + (size_t)(ok ? r0 + r : 0) * stride + c * 8;
+    const bool ok = r0 + r < S && c * 8 < hd;
+    const __nv_bfloat16* p = src + (size_t)(ok ? r0 + r : 0) * stride +
+                             (c * 8 < hd ? c * 8 : 0);
     cp_async16(dst + (c / 8) * (ROWS * 128) + swz(r, c % 8), p, ok);
   }
 }

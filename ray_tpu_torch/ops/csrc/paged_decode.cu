@@ -57,6 +57,14 @@
 // P * page); a slot with length <= 0 returns zeros; table entries of
 // scratch page 0 are read like any page; a split with nothing to attend
 // contributes (m = -inf, l = 0).
+//
+// head_dim: any multiple of 8 up to 128 (a row is then a multiple of 16
+// bytes, as the bulk copies need). hd 64 and 128 have instantiations of
+// their own (HD = hd, every loop bound known to the compiler); every other
+// hd runs the HD = 0 instantiation, the same body with hd read at run
+// time. Shared memory holds the real rows (a chunk is still one contiguous
+// run of n x hd elements); the PV items are (4 columns, key split) pairs
+// of the real hd, threads past the last whole key split idle in PV.
 #include <cfloat>
 
 #include "common.cuh"
@@ -70,39 +78,44 @@ constexpr int kMaxChunk = kThreads;  // a thread per key of a chunk
 constexpr float kNeg = -0.7f * FLT_MAX;
 
 // Shared memory of a block: the ring of K/V stages (reused at the end for
-// the key splits' partials, [kThreads / (HD / 4)][RT][HD] fp32 = 2 KB x
-// RT), q [RT][HD] fp32, the chunk's P [RT][chunk] fp32 and, read in rank
-// 0 only, the cluster's partial accs [splits][RT][HD] fp32.
-template <typename T, int HD, int RT>
-__host__ __device__ inline size_t ring_bytes(int chunk, int stages) {
-  const size_t ring = (size_t)stages * 2 * chunk * HD * sizeof(T);
+// the key splits' partials, [kThreads / (hd / 4)][RT][hd] fp32 <= 2 KB x
+// RT), q [RT][hd] fp32, the chunk's P [RT][chunk] fp32 and, read in rank
+// 0 only, the cluster's partial accs [splits][RT][hd] fp32.
+template <typename T, int RT>
+__host__ __device__ inline size_t ring_bytes(int hd, int chunk, int stages) {
+  const size_t ring = (size_t)stages * 2 * chunk * hd * sizeof(T);
   const size_t red = (size_t)kThreads * 4 * RT * 4;
   return ring > red ? ring : red;
 }
 
-template <typename T, int HD, int RT>
-__host__ __device__ inline size_t smem_bytes(int chunk, int stages,
+template <typename T, int RT>
+__host__ __device__ inline size_t smem_bytes(int hd, int chunk, int stages,
                                              int splits) {
-  return ring_bytes<T, HD, RT>(chunk, stages) +
-         (size_t)RT * (HD + chunk + splits * HD) * 4;
+  return ring_bytes<T, RT>(hd, chunk, stages) +
+         (size_t)RT * (hd + chunk + splits * hd) * 4;
 }
 
 // RT: rows (query heads) a block holds, padded to a power of two; the
-// block's real rows are `rows` (the last row group may hold fewer).
+// block's real rows are `rows` (the last row group may hold fewer). HD:
+// the head_dim, or 0 for one read from `hd_arg` at run time.
 template <typename T, int HD, int RT>
 __global__ void __launch_bounds__(kThreads, RT <= 2 ? 12 : 6)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tables, T* __restrict__ out,
-                    int G, int rows, int num_pages, int page, int P,
-                    int split_len, int chunk, int stages, float scale) {
+                    int G, int rows, int hd_arg, int num_pages, int page,
+                    int P, int split_len, int chunk, int stages,
+                    float scale) {
   constexpr int E = hop::Vec16<T>::N;  // elements per 16 bytes
-  constexpr int CH = HD / E;           // 16-byte pieces per row
-  constexpr int Q4 = HD / 4;           // 4-column slices per row
-  constexpr int KS = kThreads / Q4;    // key splits of the PV sum
+  const int hd = HD ? HD : hd_arg;
+  const int CH = hd / E;               // 16-byte pieces per row
+  const int Q4 = hd / 4;               // 4-column slices per row
+  const int KS = kThreads / Q4;        // key splits of the PV sum
   constexpr int NW = kThreads / 32;
-  static_assert(kThreads % Q4 == 0 && E % 4 == 0, "layout");
+  // a compiled head_dim's column slices divide the threads evenly
+  static_assert((HD == 0 || kThreads % (HD / 4) == 0) && E % 4 == 0,
+                "layout");
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ uint64_t bars[2];
   __shared__ float warp_m[NW][RT], warp_s[NW][RT];  // per-warp max, sum
@@ -133,10 +146,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   T* ring = reinterpret_cast<T*>(smem);
   float* qs = reinterpret_cast<float*>(
-      smem + ring_bytes<T, HD, RT>(chunk, stages));  // [RT][HD]
-  float* sc = qs + RT * HD;                          // [RT][chunk]
-  float* gacc = sc + RT * chunk;                     // [splits][RT][HD]
-  const size_t stage_elems = (size_t)chunk * HD;     // one chunk of K (or V)
+      smem + ring_bytes<T, RT>(hd, chunk, stages));  // [RT][hd]
+  float* sc = qs + RT * hd;                          // [RT][chunk]
+  float* gacc = sc + RT * chunk;                     // [splits][RT][hd]
+  const size_t stage_elems = (size_t)chunk * hd;     // one chunk of K (or V)
   const size_t head_base = (size_t)kvh * num_pages;
 
   // Thread 0: move chunk c (positions s0 + c chunk ..., within one page)
@@ -146,9 +159,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const int n = min(chunk, s0 + n_tok - t0);
     const int st = c % stages;
     const uint32_t bar = hop::smem_addr(&bars[st]);
-    const uint32_t bytes = n * HD * sizeof(T);
+    const uint32_t bytes = n * hd * sizeof(T);
     const int pid = c == 0 ? pid0 : tables[(size_t)b * P + t0 / page];
-    const size_t off = ((head_base + pid) * page + t0 % page) * HD;
+    const size_t off = ((head_base + pid) * page + t0 % page) * hd;
     const uint32_t dst = hop::smem_addr(ring + st * 2 * stage_elems);
     hop::mbar_expect_tx(bar, 2 * bytes);
     hop::bulk_copy_g2s(dst, k_pages + off, bytes, bar);
@@ -161,10 +174,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     hop::mbar_init_fence();
     for (int c = 0; c < nc && c < stages; ++c) fetch(c);
   }
-  for (int i = tid; i < RT * HD; i += kThreads) {
-    const int r = i / HD;
-    qs[i] = r < nr ? rt::to_float(q[((size_t)b * h + head0 + r) * HD +
-                                    i % HD])
+  for (int i = tid; i < RT * hd; i += kThreads) {
+    const int r = i / hd;
+    qs[i] = r < nr ? rt::to_float(q[((size_t)b * h + head0 + r) * hd +
+                                    i % hd])
                    : 0.f;
   }
   __syncthreads();
@@ -181,7 +194,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int y = 0; y < 4; ++y) acc[r][y] = 0.f;
   }
   const int warp = tid / 32, lane = tid % 32;
+  // threads past the last whole key split (hd / 4 not dividing kThreads)
+  // take no PV item
   const int dq = tid % Q4 * 4, ks = tid / Q4;
+  const bool pv_item = HD || ks < KS;
 
   for (int c = 0; c < nc; ++c) {
     const int n = min(chunk, n_tok - c * chunk);
@@ -195,7 +211,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
     for (int r = 0; r < RT; ++r) s[r] = 0.f;
     if (tid < n) {
-      const T* krow = Ks + tid * HD;
+      const T* krow = Ks + tid * hd;
 #pragma unroll 4
       for (int p = 0; p < CH; ++p) {
         const int e = ((p + tid) % CH) * E;
@@ -206,7 +222,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
           for (int x = 0; x < E; x += 4) {
             const float4 qv =
-                *reinterpret_cast<const float4*>(qs + r * HD + e + x);
+                *reinterpret_cast<const float4*>(qs + r * hd + e + x);
             s[r] = fmaf(qv.x, kf[x], s[r]);
             s[r] = fmaf(qv.y, kf[x + 1], s[r]);
             s[r] = fmaf(qv.z, kf[x + 2], s[r]);
@@ -250,9 +266,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       for (int y = 0; y < 4; ++y) acc[r][y] *= alpha[r];
     }
 #pragma unroll 2
-    for (int kk = ks; kk < n; kk += KS) {
+    for (int kk = pv_item ? ks : n; kk < n; kk += KS) {
       float vf[4];
-      rt::VecLoad<T, 4>::run(Vs + kk * HD + dq, vf);
+      rt::VecLoad<T, 4>::run(Vs + kk * hd + dq, vf);
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
         const float p = sc[r * chunk + kk];
@@ -270,18 +286,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   // The key splits' partials through the (now idle) ring, summed in a
   // fixed order and stored, with the rows' (max, sum), into slot `split`
   // of rank 0's shared memory.
-  float* red = reinterpret_cast<float*>(smem);  // [KS][RT][HD]
+  float* red = reinterpret_cast<float*>(smem);  // [KS][RT][hd]
+  if (pv_item) {
 #pragma unroll
-  for (int r = 0; r < RT; ++r)
-    *reinterpret_cast<float4*>(red + (ks * RT + r) * HD + dq) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    for (int r = 0; r < RT; ++r)
+      *reinterpret_cast<float4*>(red + (ks * RT + r) * hd + dq) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
   __syncthreads();
   hop::cluster_wait();  // rank 0 has started
-  for (int i = tid; i < RT * HD; i += kThreads) {
+  for (int i = tid; i < RT * hd; i += kThreads) {
     float x = 0.f;
 #pragma unroll
-    for (int j = 0; j < KS; ++j) x += red[j * RT * HD + i];
-    hop::st_cluster(hop::map_rank(&gacc[split * RT * HD + i], 0), x);
+    for (int j = 0; j < KS; ++j) x += red[j * RT * hd + i];
+    hop::st_cluster(hop::map_rank(&gacc[split * RT * hd + i], 0), x);
   }
   if (tid == 0) {
 #pragma unroll
@@ -294,17 +312,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   if (split != 0) return;  // nothing reads this block's shared memory
 
   // Rank 0 merges the splits in rank order.
-  for (int i = tid; i < nr * HD; i += kThreads) {
-    const int r = i / HD;
+  for (int i = tid; i < nr * hd; i += kThreads) {
+    const int r = i / hd;
     float mx = kNeg;
     for (int j = 0; j < splits; ++j) mx = fmaxf(mx, gm[j][r]);
     float lsum = 0.f, x = 0.f;
     for (int j = 0; j < splits; ++j) {
       const float f = expf(gm[j][r] - mx);
       lsum += gl[j][r] * f;
-      x += gacc[j * RT * HD + i] * f;
+      x += gacc[j * RT * hd + i] * f;
     }
-    out[((size_t)b * h + head0) * HD + i] =
+    out[((size_t)b * h + head0) * hd + i] =
         rt::from_float<T>(lsum > 0.f ? x / lsum : 0.f);
   }
 }
@@ -327,13 +345,14 @@ struct Args {
   const int* lengths;
   const int* tables;
   void* out;
-  int B, hkv, G, rows, num_pages, page, P, split_len, splits, chunk, stages;
+  int B, hkv, G, rows, hd, num_pages, page, P, split_len, splits, chunk,
+      stages;
   float scale;
 };
 
 template <typename T, int HD, int RT>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<T, HD, RT>(a.chunk, a.stages, a.splits);
+  const size_t bytes = smem_bytes<T, RT>(a.hd, a.chunk, a.stages, a.splits);
   static int allowed = 0;
   auto kernel = paged_decode_kernel<T, HD, RT>;
   if (int e = allow_smem(kernel, (int)bytes, &allowed)) return e;
@@ -353,8 +372,8 @@ int launch(const Args& a, cudaStream_t stream) {
   cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(a.q),
       static_cast<const T*>(a.k_pages), static_cast<const T*>(a.v_pages),
-      a.lengths, a.tables, static_cast<T*>(a.out), a.G, a.rows, a.num_pages,
-      a.page, a.P, a.split_len, a.chunk, a.stages, a.scale);
+      a.lengths, a.tables, static_cast<T*>(a.out), a.G, a.rows, a.hd,
+      a.num_pages, a.page, a.P, a.split_len, a.chunk, a.stages, a.scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -368,17 +387,18 @@ int dispatch_rows(const Args& a, cudaStream_t s) {
 }
 
 template <typename T>
-int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
-  if (hd == 64) return dispatch_rows<T, 64>(a, s);
-  if (hd == 128) return dispatch_rows<T, 128>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_hd(const Args& a, cudaStream_t s) {
+  if (a.hd == 64) return dispatch_rows<T, 64>(a, s);
+  if (a.hd == 128) return dispatch_rows<T, 128>(a, s);
+  return dispatch_rows<T, 0>(a, s);
 }
 
 }  // namespace
 
 // q [B, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (16-byte
-// aligned: the bulk copies; else cudaErrorMisalignedAddress); lengths [B] int32; tables [B, P] int32; out
-// [B, hkv*G, hd]. The plan (decode_plan in paged_attention.py): `rows`
+// aligned: the bulk copies; else cudaErrorMisalignedAddress); lengths [B]
+// int32; tables [B, P] int32; out [B, hkv*G, hd]; hd a multiple of 8 from
+// 8 to 128. The plan (decode_plan in paged_attention.py): `rows`
 // (1-8) query heads a block, `splits` (1-8) blocks a cluster, each over
 // `split_len` positions in chunks of `chunk` tokens (a chunk never
 // crosses a page: page % chunk == 0) through `stages` (1-2) stages.
@@ -391,6 +411,7 @@ extern "C" int rt_paged_decode(const void* q, const void* k_pages,
                                int chunk, int stages, float scale, int dtype,
                                void* stream) {
   if (B < 1 || hkv < 1 || G < 1 || P < 1 || rows < 1 || rows > 8 ||
+      hd < 8 || hd > 128 || hd % 8 ||
       splits < 1 || splits > kMaxSplits ||
       (splits - 1) * split_len >= P * page || splits * split_len < P * page ||
       chunk < 1 || chunk > kMaxChunk ||
@@ -401,11 +422,11 @@ extern "C" int rt_paged_decode(const void* q, const void* k_pages,
   if ((reinterpret_cast<uintptr_t>(k_pages) |
        reinterpret_cast<uintptr_t>(v_pages)) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const Args a{q,    k_pages,   v_pages, lengths, tables,    out,
-               B,    hkv,       G,       rows,    num_pages, page,
-               P,    split_len, splits,  chunk,   stages,    scale};
+  const Args a{q,    k_pages, v_pages,   lengths, tables, out,   B,
+               hkv,  G,       rows,      hd,      num_pages, page, P,
+               split_len,     splits,    chunk,   stages, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_hd<float>(hd, a, s);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(hd, a, s);
+  if (dtype == 0) return dispatch_hd<float>(a, s);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

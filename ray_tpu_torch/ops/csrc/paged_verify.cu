@@ -64,6 +64,12 @@
 // >= P is dropped, as in the TPU kernel. Only scratch page 0 can be
 // written by several blocks at once (inactive slots, all-zero table
 // rows), which its garbage-by-contract allows.
+//
+// head_dim: any multiple of 8 up to 128 (a row is then a multiple of 16
+// bytes, as the bulk copies need). hd 64 and 128 have instantiations of
+// their own (HD = hd); every other hd runs the HD = 0 instantiation, the
+// same body with hd read at run time, on the real rows (stage, q and
+// partials all hd wide).
 #include <cfloat>
 
 #include "common.cuh"
@@ -88,41 +94,47 @@ struct Plan {
 };
 
 // Bytes of the ring: its stages, and at least the PV partials that reuse
-// it at the end: [KS][Rp][HD] fp32, at most 20 * kThreads floats when
-// KS > 1 (KS * Rp * HD <= 4 * RB * kThreads) and kMaxRows * HD when KS = 1.
-template <typename T, int HD>
-__host__ __device__ inline size_t ring_bytes(int chunk, int stages) {
-  const size_t ring = (size_t)stages * 2 * chunk * HD * sizeof(T);
-  const size_t red = (size_t)(kMaxRows * HD > 20 * kThreads ? kMaxRows * HD
+// it at the end: [KS][Rp][hd] fp32, at most 20 * kThreads floats when
+// KS > 1 (KS * Rp * hd <= 4 * RB * kThreads) and kMaxRows * hd when KS = 1.
+template <typename T>
+__host__ __device__ inline size_t ring_bytes(int hd, int chunk, int stages) {
+  const size_t ring = (size_t)stages * 2 * chunk * hd * sizeof(T);
+  const size_t red = (size_t)(kMaxRows * hd > 20 * kThreads ? kMaxRows * hd
                                                             : 20 * kThreads) *
                      4;
   return ring > red ? ring : red;
 }
 
-template <typename T, int HD>
-Plan plan(int page) {
+// A chunk is at most kChunkBytes of K and at most 128 tokens (a chunk's
+// scores sit in shared memory, [Rp][chunk] fp32).
+template <typename T>
+Plan plan(int hd, int page) {
   Plan p;
-  p.chunk = kChunkBytes / (HD * (int)sizeof(T));
+  p.chunk = kChunkBytes / (hd * (int)sizeof(T));
+  if (p.chunk > 128) p.chunk = 128;
   if (page < p.chunk) p.chunk = page;
-  p.stages = kRingBytes / (2 * p.chunk * HD * (int)sizeof(T));
+  p.stages = kRingBytes / (2 * p.chunk * hd * (int)sizeof(T));
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   return p;
 }
 
 // Rows are padded to Rp, a multiple of RB (the verify step's S = 5 rows
-// per query head fill it, for any g).
+// per query head fill it, for any g). HD: the head_dim, or 0 for one read
+// from `hd_arg` at run time.
 template <typename T, int HD, bool INSERT, typename PoolPtr>
 __device__ __forceinline__ void verify_body(
     const T* __restrict__ q, PoolPtr k_pages, PoolPtr v_pages,
     const T* __restrict__ knew, const T* __restrict__ vnew,
     const int* __restrict__ lengths, const int* __restrict__ tables,
-    T* __restrict__ out, int S, int G, int rows, int num_pages, int page,
-    int P, float scale, int chunk, int stages) {
+    T* __restrict__ out, int S, int G, int rows, int hd_arg, int num_pages,
+    int page, int P, float scale, int chunk, int stages) {
   constexpr int E = hop::Vec16<T>::N;  // elements per 16 bytes
-  constexpr int CH = HD / E;      // 16-byte pieces per row
-  constexpr int C4 = HD / 4;      // 4-column slices per row
-  constexpr int NI =  // PV items per thread, at most
-      ((kMaxRows + RB - 1) / RB * C4 + kThreads - 1) / kThreads;
+  const int hd = HD ? HD : hd_arg;
+  const int CH = hd / E;      // 16-byte pieces per row
+  const int C4 = hd / 4;      // 4-column slices per row
+  constexpr int NI =  // PV items per thread, at most (hd <= 128)
+      ((kMaxRows + RB - 1) / RB * ((HD ? HD : 128) / 4) + kThreads - 1) /
+      kThreads;
   static_assert(E % 4 == 0, "q pieces are read as float4");
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ uint64_t bars[kMaxStages];
@@ -145,11 +157,11 @@ __device__ __forceinline__ void verify_body(
   const int base = INSERT ? len - 1 : cap;
   const size_t head_base = (size_t)kvh * num_pages;
 
-  const int stage_elems = chunk * HD;  // one chunk of K (or V)
+  const int stage_elems = chunk * hd;  // one chunk of K (or V)
   T* ring = reinterpret_cast<T*>(smem);
   float* qs =
-      reinterpret_cast<float*>(smem + ring_bytes<T, HD>(chunk, stages));
-  float* sc = qs + Rp * HD;                          // [Rp][chunk]
+      reinterpret_cast<float*>(smem + ring_bytes<T>(hd, chunk, stages));
+  float* sc = qs + Rp * hd;                          // [Rp][chunk]
   int* tab = reinterpret_cast<int*>(sc + Rp * chunk);  // used pages
 
   // The last row attends the most: positions < eff.
@@ -164,10 +176,10 @@ __device__ __forceinline__ void verify_body(
   pool_end = pool_end < 0 ? 0 : pool_end;
 
   for (int i = tid; i < np; i += kThreads) tab[i] = tables[(size_t)b * P + i];
-  for (int i = tid; i < Rp * HD; i += kThreads) {
-    const int r = row0 + i / HD, d = i % HD;
+  for (int i = tid; i < Rp * hd; i += kThreads) {
+    const int r = row0 + i / hd, d = i % hd;
     qs[i] = r < row0 + R ? rt::to_float(q[(((size_t)b * S + r % S) * h +
-                                            kvh * G + r / S) * HD + d])
+                                            kvh * G + r / S) * hd + d])
                          : 0.f;
   }
   if (tid < Rp) {  // padded rows attend nothing
@@ -200,11 +212,11 @@ __device__ __forceinline__ void verify_body(
     const uint32_t bar = hop::smem_addr(&bars[st]);
     int nb = pool_end - t0 < n ? pool_end - t0 : n;
     nb = nb < 0 ? 0 : nb;
-    const uint32_t bytes = nb * HD * sizeof(T);
+    const uint32_t bytes = nb * hd * sizeof(T);
     hop::mbar_expect_tx(bar, 2 * bytes);
     if (bytes) {
       const size_t off =
-          ((head_base + tab[t0 / page]) * page + t0 % page) * HD;
+          ((head_base + tab[t0 / page]) * page + t0 % page) * hd;
       const uint32_t dst = hop::smem_addr(ring + (size_t)st * 2 * stage_elems);
       hop::bulk_copy_g2s(dst, k_pages + off, bytes, bar);
       hop::bulk_copy_g2s(dst + stage_elems * sizeof(T), v_pages + off, bytes,
@@ -241,8 +253,8 @@ __device__ __forceinline__ void verify_body(
         for (int i = tid; i < (t0 + n - f0) * CH; i += kThreads) {
           const int t = f0 + i / CH, e = (i % CH) * E;
           const size_t src =
-              (((size_t)b * S + (t - base)) * hkv + kvh) * HD + e;
-          T* dst = Ks + (t - t0) * HD + e;
+              (((size_t)b * S + (t - base)) * hkv + kvh) * hd + e;
+          T* dst = Ks + (t - t0) * hd + e;
           *reinterpret_cast<uint4*>(dst) =
               *reinterpret_cast<const uint4*>(knew + src);
           *reinterpret_cast<uint4*>(dst + stage_elems) =
@@ -257,7 +269,7 @@ __device__ __forceinline__ void verify_body(
     for (int it = tid; it < chunk * (Rp / RB); it += kThreads) {
       const int kk = it % chunk, r0 = (it / chunk) * RB;
       if (kk >= n) continue;
-      const T* krow = Ks + kk * HD;
+      const T* krow = Ks + kk * hd;
       float s[RB];
 #pragma unroll
       for (int i = 0; i < RB; ++i) s[i] = 0.f;
@@ -271,7 +283,7 @@ __device__ __forceinline__ void verify_body(
 #pragma unroll
           for (int x = 0; x < E; x += 4) {
             const float4 qv =
-                *reinterpret_cast<const float4*>(qs + (r0 + i) * HD + e + x);
+                *reinterpret_cast<const float4*>(qs + (r0 + i) * hd + e + x);
             s[i] = fmaf(qv.x, kf[x], s[i]);
             s[i] = fmaf(qv.y, kf[x + 1], s[i]);
             s[i] = fmaf(qv.z, kf[x + 2], s[i]);
@@ -327,7 +339,7 @@ __device__ __forceinline__ void verify_body(
 #pragma unroll 2
         for (int kk = ks; kk < n; kk += KS) {
           float vf[4];
-          rt::VecLoad<T, 4>::run(Vs + kk * HD + d, vf);
+          rt::VecLoad<T, 4>::run(Vs + kk * hd + d, vf);
 #pragma unroll
           for (int j = 0; j < RB; ++j) {
             const float p = pr[j * chunk + kk];
@@ -350,7 +362,7 @@ __device__ __forceinline__ void verify_body(
 
   // Sum the key splits' partials through the (now idle) ring, then
   // divide by the row sums.
-  float* red = reinterpret_cast<float*>(smem);  // [KS][Rp][HD]
+  float* red = reinterpret_cast<float*>(smem);  // [KS][Rp][hd]
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
     const int it = tid + i * kThreads;
@@ -358,18 +370,18 @@ __device__ __forceinline__ void verify_body(
       const int ks = it / pairs, r0 = it % pairs / C4 * RB, d = it % C4 * 4;
 #pragma unroll
       for (int j = 0; j < RB; ++j)
-        *reinterpret_cast<float4*>(red + (ks * Rp + r0 + j) * HD + d) =
+        *reinterpret_cast<float4*>(red + (ks * Rp + r0 + j) * hd + d) =
             make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2],
                         acc[i][j][3]);
     }
   }
   __syncthreads();
-  for (int i = tid; i < R * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, rr = row0 + r;
+  for (int i = tid; i < R * hd; i += kThreads) {
+    const int r = i / hd, d = i % hd, rr = row0 + r;
     float x = 0.f;
-    for (int ks = 0; ks < KS; ++ks) x += red[ks * Rp * HD + i];
+    for (int ks = 0; ks < KS; ++ks) x += red[ks * Rp * hd + i];
     const float l = row_l[r];
-    out[(((size_t)b * S + rr % S) * h + kvh * G + rr / S) * HD + d] =
+    out[(((size_t)b * S + rr % S) * h + kvh * G + rr / S) * hd + d] =
         rt::from_float<T>(l > 0.f ? x / l : 0.f);
   }
 
@@ -382,8 +394,8 @@ __device__ __forceinline__ void verify_body(
       const int pos = base + j;
       if (pos < 0 || pos >= cap) continue;
       const size_t dst =
-          ((head_base + tab[pos / page]) * page + pos % page) * HD + e;
-      const size_t src = (((size_t)b * S + j) * hkv + kvh) * HD + e;
+          ((head_base + tab[pos / page]) * page + pos % page) * hd + e;
+      const size_t src = (((size_t)b * S + j) * hkv + kvh) * hd + e;
       *reinterpret_cast<uint4*>(k_pages + dst) =
           *reinterpret_cast<const uint4*>(knew + src);
       *reinterpret_cast<uint4*>(v_pages + dst) =
@@ -399,10 +411,10 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tables, T* __restrict__ out,
-                    int S, int G, int rows, int num_pages, int page,
+                    int S, int G, int rows, int hd, int num_pages, int page,
                     int P, float scale, int chunk, int stages) {
   verify_body<T, HD, false>(q, k_pages, v_pages, nullptr, nullptr, lengths,
-                            tables, out, S, G, rows, num_pages, page, P,
+                            tables, out, S, G, rows, hd, num_pages, page, P,
                             scale, chunk, stages);
 }
 
@@ -415,11 +427,11 @@ paged_verify_insert_kernel(const T* __restrict__ q, T* k_pages, T* v_pages,
                            const int* __restrict__ lengths,
                            const int* __restrict__ tables,
                            T* __restrict__ out, int S, int G, int rows,
-                           int num_pages, int page, int P, float scale,
-                           int chunk, int stages) {
+                           int hd, int num_pages, int page, int P,
+                           float scale, int chunk, int stages) {
   verify_body<T, HD, true>(q, k_pages, v_pages, knew, vnew, lengths, tables,
-                           out, S, G, rows, num_pages, page, P, scale, chunk,
-                           stages);
+                           out, S, G, rows, hd, num_pages, page, P, scale,
+                           chunk, stages);
 }
 
 struct Args {
@@ -431,7 +443,7 @@ struct Args {
   const int* lengths;
   const int* tables;
   void* out;
-  int B, S, hkv, G, rows, num_pages, page, P;
+  int B, S, hkv, G, rows, hd, num_pages, page, P;
   float scale;
   bool insert;
 };
@@ -449,10 +461,10 @@ int allow_smem(Kernel kernel, int bytes, int* allowed) {
 
 template <typename T, int HD>
 int launch(const Args& a, cudaStream_t stream) {
-  const Plan pl = plan<T, HD>(a.page);
+  const Plan pl = plan<T>(a.hd, a.page);
   const int Rp = (a.rows + RB - 1) / RB * RB;
-  const size_t bytes = ring_bytes<T, HD>(pl.chunk, pl.stages) +
-                       (size_t)Rp * HD * 4 + (size_t)Rp * pl.chunk * 4 +
+  const size_t bytes = ring_bytes<T>(a.hd, pl.chunk, pl.stages) +
+                       (size_t)Rp * a.hd * 4 + (size_t)Rp * pl.chunk * 4 +
                        (size_t)a.P * 4;
   if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(a.B, a.hkv, (a.G * a.S + a.rows - 1) / a.rows);
@@ -466,25 +478,25 @@ int launch(const Args& a, cudaStream_t stream) {
     paged_verify_insert_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         q, static_cast<T*>(a.k_pages), static_cast<T*>(a.v_pages),
         static_cast<const T*>(a.knew), static_cast<const T*>(a.vnew),
-        a.lengths, a.tables, out, a.S, a.G, a.rows, a.num_pages, a.page,
-        a.P, a.scale, pl.chunk, pl.stages);
+        a.lengths, a.tables, out, a.S, a.G, a.rows, a.hd, a.num_pages,
+        a.page, a.P, a.scale, pl.chunk, pl.stages);
   } else {
     static int allowed = 0;
     if (int e = allow_smem(paged_verify_kernel<T, HD>, (int)bytes, &allowed))
       return e;
     paged_verify_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         q, static_cast<const T*>(a.k_pages), static_cast<const T*>(a.v_pages),
-        a.lengths, a.tables, out, a.S, a.G, a.rows, a.num_pages, a.page,
-        a.P, a.scale, pl.chunk, pl.stages);
+        a.lengths, a.tables, out, a.S, a.G, a.rows, a.hd, a.num_pages,
+        a.page, a.P, a.scale, pl.chunk, pl.stages);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
-  if (hd == 64) return launch<T, 64>(a, s);
-  if (hd == 128) return launch<T, 128>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_hd(const Args& a, cudaStream_t s) {
+  if (a.hd == 64) return launch<T, 64>(a, s);
+  if (a.hd == 128) return launch<T, 128>(a, s);
+  return launch<T, 0>(a, s);
 }
 
 }  // namespace
@@ -492,7 +504,8 @@ int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
 // q [B, S, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (one
 // layer); knew/vnew [B, S, hkv, hd] (read only when insert != 0);
 // lengths [B] int32 (the causal limit of query 0); tables [B, P] int32;
-// out [B, S, hkv*G, hd]. Pointers 16-byte aligned (the bulk copies).
+// out [B, S, hkv*G, hd]; hd a multiple of 8 from 8 to 128. Pointers
+// 16-byte aligned (the bulk copies).
 // `rows` (1-40): query rows a block, from the plan (verify_plan in
 // paged_attention.py); the grid takes ceil(G*S / rows) row groups.
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
@@ -504,13 +517,14 @@ extern "C" int rt_paged_verify(const void* q, void* k_pages, void* v_pages,
                                int P, float scale, int dtype, int insert,
                                void* stream) {
   if (S < 1 || G < 1 || rows < 1 || rows > kMaxRows || page < 1 ||
+      hd < 8 || hd > 128 || hd % 8 ||
       (G * S + rows - 1) / rows > 65535 || (insert && (!knew || !vnew)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,    k_pages,   v_pages, knew, vnew, lengths, tables, out,
-               B,    S,         hkv,     G,    rows, num_pages, page,   P,
-               scale, insert != 0};
+  const Args a{q,    k_pages, v_pages, knew, vnew,      lengths, tables,
+               out,  B,       S,       hkv,  G,         rows,    hd,
+               num_pages,     page,    P,    scale,     insert != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_hd<float>(hd, a, s);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(hd, a, s);
+  if (dtype == 0) return dispatch_hd<float>(a, s);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

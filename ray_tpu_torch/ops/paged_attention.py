@@ -9,7 +9,8 @@ Layouts (the port's pool layout, see `csrc/paged_decode.cu`):
   lengths          [B] int32, attend positions < lengths (verify: query j
                    attends positions < lengths + j)
   page_tables      [B, P] int32 page ids in position order (0 = scratch)
-Returns q's shape.
+Returns q's shape. head_dim: a multiple of 8 from 8 to 128 (the JAX
+package's Pallas condition, `hd % 8 == 0`; `_build.check_head_dim`).
 
 A slot attends at most P pages, and a query row with nothing to attend
 returns zeros (the TPU kernel's semantics; its dense JAX reference gives
@@ -117,7 +118,8 @@ def decode_plan(P: int, page: int, hd: int, itemsize: int, g: int,
                < FILL_BLOCKS and cap >= 2 * splits * MIN_SPLIT):
             splits *= 2
     split_len = 1 << (-(-cap // min(splits, MAX_SPLITS)) - 1).bit_length()
-    chunk = min(split_len, CHUNK_BYTES // (hd * itemsize), MAX_CHUNK,
+    fit = CHUNK_BYTES // (hd * itemsize)   # tokens of CHUNK_BYTES of K
+    chunk = min(split_len, 1 << (fit.bit_length() - 1), MAX_CHUNK,
                 page & -page)          # the largest power of two in page
     return DecodePlan(split_len=split_len, splits=-(-cap // split_len),
                       chunk=chunk, stages=1 if chunk == split_len else 2,
@@ -152,10 +154,10 @@ def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables,
             f"paged_decode: bad shapes q {tuple(q.shape)} pools "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} lengths "
             f"{tuple(lengths.shape)} tables {tuple(page_tables.shape)}")
-    if hd not in (64, 128) or B < 1 or h < 1 or page_tables.shape[1] < 1:
-        raise ValueError(f"paged_decode: kernel supports head_dim 64/128 and "
-                         f"non-empty inputs, got hd={hd}, B={B}, h={h}, "
-                         f"P={page_tables.shape[1]}")
+    _build.check_head_dim("paged_decode", hd)
+    if B < 1 or h < 1 or page_tables.shape[1] < 1:
+        raise ValueError(f"paged_decode: kernel supports non-empty inputs, "
+                         f"got B={B}, h={h}, P={page_tables.shape[1]}")
     ts = (q, k_pages, v_pages, lengths, page_tables)
     if any(t.device != q.device for t in ts):
         raise ValueError("paged_decode: all inputs must be on one device")
@@ -329,10 +331,10 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} new K/V "
             f"{[tuple(t.shape) for t in news]} lengths "
             f"{tuple(lengths.shape)} tables {tuple(page_tables.shape)}")
-    if hd not in (64, 128) or B < 1 or S < 1 or h < 1:
-        raise ValueError(f"{what}: kernel supports head_dim 64/128 and "
-                         f"non-empty inputs, got hd={hd}, B={B}, S={S}, "
-                         f"h={h}")
+    _build.check_head_dim(what, hd)
+    if B < 1 or S < 1 or h < 1:
+        raise ValueError(f"{what}: kernel supports non-empty inputs, got "
+                         f"B={B}, S={S}, h={h}")
     if page_tables.shape[1] > MAX_VERIFY_PAGES:
         raise ValueError(f"{what}: kernel supports page tables of at most "
                          f"{MAX_VERIFY_PAGES} pages per slot, got "

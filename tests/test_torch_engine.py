@@ -12,8 +12,9 @@ import torch
 from ray_tpu.llm import EngineConfig as JEngineConfig
 from ray_tpu.llm import InferenceEngine as JInferenceEngine
 from ray_tpu.models import forward as j_forward
-from ray_tpu_torch.llm import EngineConfig, InferenceEngine
-from ray_tpu_torch.llm.engine import (decode_paged, decode_weights,
+from ray_tpu_torch.llm import EngineConfig, InferenceEngine, PrefillEngine
+from ray_tpu_torch.llm.engine import (decode_paged, decode_step,
+                                      decode_weights, insert_kv,
                                       insert_pages_batch, prefill,
                                       prefill_batch, sample)
 from ray_tpu_torch.models import ModelConfig, forward, params_from_numpy
@@ -288,19 +289,91 @@ def test_decode_step_writes_kv_and_matches_prefill(params):
 
 
 def test_not_in_slice_raises(params):
+    """A tensor-parallel mesh is not in this slice (NotImplementedError,
+    for the decode and the prefill engine); guided decoding, logprobs,
+    resume tokens and KV handoff need the paged layout (ValueError, as in
+    the JAX engine); an over-long prompt fails its own request."""
     _, pt = params
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,),
-                kv_layout="dense")
+    for cls in (InferenceEngine, PrefillEngine):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            cls(TINY, EngineConfig(), params=pt, mesh=object(), device="cpu")
+    dense = _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,),
+                    kv_layout="dense")
+    for kw in (dict(guide=object()), dict(logprobs=True),
+               dict(resume_token=3), dict(kv_handoff=(None, None))):
+        with pytest.raises(ValueError, match="paged KV layout"):
+            dense.add_request([1, 2], **kw)
     eng = _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,))
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2], guide=object())
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2], kv_handoff=(None, None))
-    with pytest.raises(NotImplementedError):
-        eng.import_kv([1, 2], None, None)
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(TINY, EngineConfig(), params=pt, mesh=object(),
-                        device="cpu")
     with pytest.raises(ValueError, match="exceeds"):
         eng.add_request(list(range(40)))
+
+
+# ---- the dense layout ----
+
+
+def test_dense_decode_step_matches_jax(params):
+    """One dense decode step on the same random caches, tokens and
+    lengths: logits within 1e-4 of the JAX `decode_step` (both fp32, summed
+    in another order), the new K/V rows written at each slot's position
+    within 1e-5, every other cache entry unchanged, inactive rows carrying
+    the mask logits exactly."""
+    from ray_tpu.llm.engine import decode_step as j_decode_step
+    pj, pt = params
+    rng = np.random.default_rng(11)
+    L, B, T = TINY.n_layers, 3, 24
+    shape = (L, B, T, TINY.n_kv_heads, TINY.head_dim)
+    ck, cv = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
+    tokens = np.array([5, 17, 250], np.int32)
+    lengths = np.array([0, 9, 23], np.int32)
+    active = np.array([True, False, True])
+    jl, jk, jv = j_decode_step(pj, jnp.asarray(ck), jnp.asarray(cv),
+                               jnp.asarray(tokens), jnp.asarray(lengths),
+                               jnp.asarray(active), _jax_cfg())
+    tk, tv = torch.tensor(ck), torch.tensor(cv)
+    tl, ok, ov = decode_step(pt, tk, tv, torch.tensor(tokens),
+                             torch.tensor(lengths), torch.tensor(active),
+                             TINY)
+    assert ok is tk and ov is tv                    # updated in place
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
+    assert tl[1, 0] == 0 and (tl[1, 1:] == -1e30).all()
+    for got, want, old in ((tk, jk, ck), (tv, jv, cv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+        keep = np.ones(shape[:3], bool)
+        keep[:, np.arange(B), lengths] = False
+        assert np.array_equal(got.numpy()[keep], old[keep])
+
+
+def test_dense_insert_kv_zeroes_the_padded_tail(params):
+    """insert_kv splices a prefill's K/V into one slot and zeroes the
+    bucket's positions past the prompt, as the JAX insert does."""
+    from ray_tpu.llm.engine import insert_kv as j_insert_kv
+    rng = np.random.default_rng(12)
+    shape = (2, 3, 16, 2, 16)
+    ck = rng.standard_normal(shape).astype(np.float32)
+    ks = rng.standard_normal((2, 8, 2, 16)).astype(np.float32)
+    jk, _ = j_insert_kv(jnp.asarray(ck), jnp.asarray(ck), jnp.asarray(ks),
+                        jnp.asarray(ks), 1, 5)
+    tk = torch.tensor(ck)
+    insert_kv(tk, tk.clone(), torch.tensor(ks), torch.tensor(ks), 1, 5)
+    assert np.array_equal(tk.numpy(), np.asarray(jk))
+
+
+def test_dense_greedy_matches_jax_dense_engine(params):
+    """The dense layout's greedy tokens equal the JAX dense engine's and
+    the port's paged engine's, token for token, with more prompts than
+    slots (slots are reused) and the single-step path."""
+    pj, pt = params
+    ecfg = dict(max_slots=2, max_len=64, prompt_buckets=(16,), eos_token=-1)
+    prompts = [[5, 6, 7], [9, 10, 11, 12, 13], [3, 1, 4, 1, 5, 9, 2, 6]]
+    eng = _engine(pt, kv_layout="dense", **ecfg)
+    got = eng.generate(prompts, max_new_tokens=8, temperature=0.0)
+    jeng = JInferenceEngine(_jax_cfg(), JEngineConfig(kv_layout="dense",
+                                                      **ecfg), params=pj)
+    want = jeng.generate(prompts, max_new_tokens=8, temperature=0.0)
+    assert got == want
+    assert got == _engine(pt, **ecfg).generate(prompts, 8, 0.0)
+    # two prompts decode side by side for 7 steps, then the third for 7
+    assert eng.kv_stats() == {"layout": "dense", "decode_steps": 14}
+    assert eng.cache_k.shape == (TINY.n_layers, 2, 64, TINY.n_kv_heads,
+                                 TINY.head_dim)

@@ -257,7 +257,8 @@ def test_split_kv_merge_model_matches_jax_kernel(dtype, splits):
 @pytest.mark.parametrize("P,page,hd,itemsize,g", [
     (2, 128, 64, 2, 1), (8, 128, 64, 2, 1), (2, 128, 128, 2, 8),
     (8, 128, 128, 4, 7), (1, 128, 64, 2, 16), (3, 24, 64, 2, 12),
-    (16, 128, 64, 2, 1), (4096, 16, 128, 4, 3), (4, 8, 16, 4, 2)])
+    (16, 128, 64, 2, 1), (4096, 16, 128, 4, 3), (4, 8, 16, 4, 2),
+    (2, 128, 80, 2, 2), (8, 128, 120, 4, 4), (3, 128, 24, 2, 1)])
 def test_decode_plan_covers_every_position_once(P, page, hd, itemsize, g):
     """K1's launch plan, from the shapes alone (it takes no lengths), for
     1 to 4096 (slot, kv head) pairs, by the rule and by request: the
@@ -368,14 +369,15 @@ def test_flash_attention_impl_contract():
 
 def test_kernel_wrappers_validate_before_launch():
     """The CUDA wrappers refuse what the kernels do not take, before any
-    build or launch (checked here on meta tensors: no card needed)."""
-    q = torch.empty(2, 4, 32, device="meta")
-    pages = torch.empty(2, 3, 8, 32, device="meta")
+    build or launch (checked here on meta tensors: no card needed): a
+    head_dim past 128."""
+    q = torch.empty(2, 4, 136, device="meta")
+    pages = torch.empty(2, 3, 8, 136, device="meta")
     with pytest.raises((TypeError, ValueError)):
         t_paged._paged_decode_cuda(
             q, pages, pages, torch.empty(2, dtype=torch.int32, device="meta"),
             torch.empty(2, 1, dtype=torch.int32, device="meta"))
-    x = torch.empty(1, 8, 2, 32, device="meta")
+    x = torch.empty(1, 8, 2, 136, device="meta")
     with pytest.raises(ValueError):
         t_attention.flash_attention_fwd(x, x, x, True, 1.0)
     rows = torch.empty(2, 8, device="meta")
@@ -636,3 +638,65 @@ def test_flash_attention_lse_only_when_grad_is_needed(monkeypatch):
     flash_attention(xg, x, x).sum().backward()
     assert asked == [False, False, True]
     assert xg.grad is not None and xg.grad.shape == x.shape
+
+
+# ---- head_dims: every multiple of 8 up to 128 ----
+
+
+def _wrapper_calls(hd):
+    """The six CUDA kernel wrappers (K1, K1', K5, K2, K3, K4) called on
+    meta tensors of head_dim `hd` whose other checks all pass."""
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    x = torch.empty(1, 8, 4, hd, **meta)
+    rows = torch.empty(4, 8, **meta)
+    pages = torch.empty(2, 3, 16, hd, **meta)
+    q_v = torch.empty(2, 3, 4, hd, **meta)
+    new = torch.empty(2, 3, 2, hd, **meta)
+    lens, tabs = torch.empty(2, **i32), torch.empty(2, 2, **i32)
+    return {
+        "paged_decode": lambda: t_paged._paged_decode_cuda(
+            torch.empty(2, 4, hd, **meta), pages, pages, lens, tabs),
+        "paged_verify": lambda: t_paged._verify_cuda(
+            q_v, pages, pages, None, None, lens, tabs, "paged_verify"),
+        "paged_verify_insert": lambda: t_paged._verify_cuda(
+            q_v, pages, pages, new, new, lens, tabs, "paged_verify_insert"),
+        "flash_fwd": lambda: t_attention.flash_attention_fwd(
+            x, x[:, :, :2], x[:, :, :2].contiguous(), True, 1.0),
+        "flash_bwd_dq": lambda: t_attention.flash_bwd_dq(
+            x, x, x, x, rows, rows, True, 1.0),
+        "flash_bwd_dkv": lambda: t_attention.flash_bwd_dkv(
+            x, x, x, x, rows, rows, True, 1.0),
+    }
+
+
+@pytest.mark.parametrize("hd", [136, 12])
+@pytest.mark.parametrize("kernel", ["paged_decode", "paged_verify",
+                                    "paged_verify_insert", "flash_fwd",
+                                    "flash_bwd_dq", "flash_bwd_dkv"])
+def test_wrappers_refuse_head_dims_the_kernels_do_not_take(kernel, hd):
+    """A head_dim past 128 or not a multiple of 8 raises a ValueError that
+    names the accepted set, before any build or launch (meta tensors)."""
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+        _wrapper_calls(hd)[kernel]()
+
+
+def test_every_accepted_head_dim_has_a_kernel_plan():
+    """`check_head_dim` takes exactly the multiples of 8 from 8 to 128 (the
+    JAX package's Pallas condition, capped at the widest instantiation)
+    and raises for every other head_dim; at each accepted one K1's plan
+    keeps the C launcher's terms: a power-of-two chunk that divides the
+    page, within CHUNK_BYTES."""
+    from ray_tpu_torch.ops import _build
+    accepted = [hd for hd in range(0, 260) if hd % 8 == 0 and 8 <= hd <= 128]
+    assert list(_build.HEAD_DIMS) == accepted
+    for hd in range(0, 260):
+        if hd not in accepted:
+            with pytest.raises(ValueError, match="multiple of 8"):
+                _build.check_head_dim("k", hd)
+            continue
+        _build.check_head_dim("k", hd)
+        for page, itemsize in ((16, 4), (128, 2), (128, 4)):
+            pl = t_paged.decode_plan(2, page, hd, itemsize, 2, 64)
+            assert pl.chunk & (pl.chunk - 1) == 0 and page % pl.chunk == 0
+            assert pl.chunk * hd * itemsize <= t_paged.CHUNK_BYTES

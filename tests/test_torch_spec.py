@@ -228,16 +228,16 @@ def test_verify_wrappers_validate_before_launch():
     """The K1'/K5 CUDA wrappers take any number of query rows per kv head
     (44 go as two row groups) and refuse what the kernel does not take
     (checked on meta tensors, before any build or launch): a head_dim
-    other than 64/128, a dtype mismatch of the new K/V."""
+    that is not a multiple of 8, a dtype mismatch of the new K/V."""
     meta = dict(device="meta")
     pages = torch.empty(2, 3, 8, 64, **meta)
     lens = torch.empty(2, dtype=torch.int32, **meta)
     tabs = torch.empty(2, 1, dtype=torch.int32, **meta)
     assert t_paged.verify_plan(4, 11) == (2, 22)    # g = 4, S = 11: 44 rows
-    q32 = torch.empty(2, 2, 4, 32, **meta)
+    q12 = torch.empty(2, 2, 4, 12, **meta)
     with pytest.raises(ValueError):
-        t_paged._verify_cuda(q32, torch.empty(2, 3, 8, 32, **meta),
-                             torch.empty(2, 3, 8, 32, **meta), None, None,
+        t_paged._verify_cuda(q12, torch.empty(2, 3, 8, 12, **meta),
+                             torch.empty(2, 3, 8, 12, **meta), None, None,
                              lens, tabs, "paged_verify")
     q = torch.empty(2, 2, 4, 64, **meta)
     new = torch.empty(2, 2, 2, 64, dtype=torch.bfloat16, **meta)
