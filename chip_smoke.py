@@ -7,7 +7,7 @@
                                      # against another, in alternation
     python3 chip_smoke.py --head-dim-times ../parent
                                      # only the kernels' times at head_dims
-                                     # 16-128, of the package at ../parent
+                                     # 16-256, of the package at ../parent
 
 Phases (each raises on failure, so the script exits non-zero and prints
 no result line):
@@ -34,8 +34,8 @@ no result line):
               query rows per kv head (two row groups); K2 and K3/K4 also
               at S = 1, 63, 65, 129 and 1000 (the edges of their 64-row
               tiles) in bf16; then every kernel at head_dims 16, 32, 80,
-              8 and 120 (the reference's kernels take any multiple of 8;
-              the port's up to 128), bf16 and fp32;
+              8, 120, 136, 192 and 256 (the reference's kernels take any
+              multiple of 8; the port's up to 256), bf16 and fp32;
  4. serve   — the engine at full Llama-125M width (bf16, seeded random
               weights): 32 requests of 127 tokens plus 4 sharing a
               128-token prefix, 64 greedy tokens each; the paged-decode
@@ -87,7 +87,25 @@ no result line):
               equal the monolithic engine's, with prefix hits; in bf16 32
               such requests timed;
 13. dense   — kv_layout="dense": fp32 greedy tokens equal the paged
-              engine's; the serve phase's requests in bf16 timed.
+              engine's; the serve phase's requests in bf16 timed;
+14. sharded-train — the train phase's step through the sharded code
+              (`make_train_step(mesh=...)`, params as DTensors, each layer
+              gathered over the data axes) over a mesh of one CUDA device
+              (fsdp = 1, a process group of one): bf16 16 x 1024, 3
+              warm-up and 10 timed steps beside the unsharded step, K2-K4
+              12 launches a step each and no plain run; fp32 2 x 256, 3
+              AdamW steps held to the unsharded step's losses (1e-5) and
+              params (2e-4);
+15. checkpoint — that bf16 state after step 5 saved through the
+              manifest path (torch.distributed.checkpoint, MANIFEST.json),
+              found by latest_committed, restored into a fresh state: the
+              next 3 losses equal the uninterrupted run's bit for bit; an
+              uncommitted directory stays until gc_uncommitted removes it;
+16. tp-serve — tp = 2 as two processes on the one card over gloo:
+              llama-125m, 6 heads and 6 kv heads a rank; fp32 greedy
+              tokens equal the tp = 1 engine's and a forward argmax, plain
+              and speculative; bf16, the serve phase's 32 requests x 64
+              tokens timed; K1 12 launches per decode step on each rank.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -834,13 +852,18 @@ def check_k3_k4(torch, results):
             library_ms=lib_ms)
 
 
-def check_head_dims(torch, results):
+HEAD_DIMS = (16, 32, 80, 8, 120, 136, 192, 256)
+
+
+def check_head_dims(torch, results, hds=HEAD_DIMS):
     """Every kernel at head_dims other than 64 and 128 (the reference's
     Pallas kernels take any multiple of 8): hd 16 and 32 (configs.tiny()
     and the engine tests' models), 80 (not a power of two), 8 and 120 (the
-    ends of the two instantiations), bf16 and fp32, against the plain
-    versions within TOL: K1 under its plan and under 8 splits, K1' and K5
-    (K5's written pools bit-equal to the plain insert's), K2 causal and
+    ends of the two narrow instantiations), 136, 192 and 256 (the D = 256
+    bodies, 256 the head width of Gemma-2-class models), bf16 and fp32,
+    against the plain versions within TOL: K1 under its plan and under 8
+    splits, K1' and K5 (K5's written pools bit-equal to the plain
+    insert's), K2 causal and
     full at S = 1, 65 and 300, K3/K4 at S = 65 and 300. Their errors join
     each kernel's max_abs_err."""
     from ray_tpu_torch.ops import attention as A
@@ -850,7 +873,7 @@ def check_head_dims(torch, results):
                             "flash_bwd_dq", "flash_bwd_dkv")}
     lens_l = [0, 1, 15, 16, 17, 127, 128, 129, 300, 511, 512, 600]
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for hd in (16, 32, 80, 8, 120):
+    for hd in hds:
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
@@ -1954,13 +1977,338 @@ def dense_phase(torch, smi, serve):
     return dict(tokens_per_s=n_tok / wall, wall_s=wall, peak_bytes=peak)
 
 
+# ---------------- phases 14-16: the sharded slice ----------------
+
+
+def _sharded_step(torch, cfg, lr, mesh):
+    """(init_fn, step) of the sharded train step on `mesh`."""
+    from ray_tpu_torch.models import loss_fn, param_logical_axes
+    from ray_tpu_torch.train import adamw, make_train_step
+    init_fn, step, _, _ = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg, mesh), adamw(lr), mesh,
+        param_logical_axes(cfg), device="cuda")
+    return init_fn, step
+
+
+def sharded_train_phase(torch, smi, train, mesh):
+    """The train phase's step through the sharded code over a mesh of one
+    CUDA device (fsdp = 1, a process group of one): the params are
+    DTensors placed by the rules table, every layer is gathered over the
+    data axes before use and its gradient comes back through the gather's
+    backward. bf16 at 16 x 1024 timed beside the unsharded step; fp32 at
+    2 x 256 held to the unsharded step."""
+    import numpy as np
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import adamw, make_train_step
+    from ray_tpu_torch.train.optim import tree_leaves
+    cfg = configs.bench_125m()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    init_fn, step = _sharded_step(torch, cfg, 3e-4, mesh)
+    state = init_fn(init_params(cfg, torch.Generator().manual_seed(0),
+                                "cuda"))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (B, S + 1)),
+                                    dtype=torch.int32, device="cuda")}
+    for _ in range(3):
+        state, first = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    n = 10
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    wall = time.perf_counter() - t0
+    counts = bwd_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / n * 1e3
+    tps = B * S / (wall / n)
+    mfu = flops_per_token(cfg, S) * tps / PEAK_FLOPS["bfloat16"]
+    log(f"  sharded, {n} steps of {B} x {S} tokens: {step_ms:.2f} ms/step, "
+        f"{tps:.1f} tokens/s, MFU {100 * mfu:.2f} %, peak device memory "
+        f"{peak / 2**30:.3f} GiB; unsharded (train phase): "
+        f"{train['step_ms']:.2f} ms/step, {train['tokens_per_s']:.1f} "
+        f"tokens/s, MFU {100 * train['mfu']:.2f} %, peak "
+        f"{train['peak_bytes'] / 2**30:.3f} GiB [{smi}]")
+    log(f"  launches over the {n} steps: K2 {counts['fwd']}, K3 "
+        f"{counts['dq']}, K4 {counts['dkv']}; losses " +
+        ", ".join(f"{x:.4f}" for x in losses))
+    want = cfg.n_layers * n
+    for key in ("fwd", "dq", "dkv"):
+        if counts[key] != {"cuda": want, "plain": 0}:
+            raise AssertionError(f"sharded step ran {key} {counts[key]}, "
+                                 f"want {want} kernel launches, 0 plain")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < first:
+        raise AssertionError(f"sharded losses {losses} (first {first})")
+    del state
+
+    # fp32, the train-exact shape: 3 AdamW steps sharded and unsharded
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (2, 257)),
+                                    dtype=torch.int32, device="cuda")}
+    runs = []
+    for sharded in (True, False):
+        params = init_params(cfg32, torch.Generator().manual_seed(1), "cuda")
+        if sharded:
+            init_fn, step = _sharded_step(torch, cfg32, 3e-4, mesh)
+        else:
+            init_fn, step, _, _ = make_train_step(
+                lambda p, b: loss_fn(p, b, cfg32), adamw(3e-4),
+                device="cuda")
+        state = init_fn(params)
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, batch)
+            losses.append(loss)
+        leaves = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                  for x in tree_leaves(state.params)]
+        runs.append((torch.stack(losses).tolist(), leaves))
+        del state
+    (ls, ps), (lu, pu) = runs
+    far = max((a - b).abs().max().item() for a, b in zip(ps, pu))
+    log(f"  fp32 2 x 256, 3 AdamW steps: losses sharded {ls}, unsharded "
+        f"{lu}; params: largest difference {far:.3e} (tol 2e-4)")
+    if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(ls, lu)) or far > 2e-4:
+        raise AssertionError("sharded-train: the sharded step disagrees "
+                             "with the unsharded one")
+    return dict(step_ms=step_ms, tokens_per_s=tps, mfu=mfu, peak_bytes=peak)
+
+
+def checkpoint_phase(torch, smi, mesh):
+    """The full-width bf16 sharded state after step 5 saved through the
+    manifest path (torch.distributed.checkpoint + MANIFEST.json), found by
+    latest_committed and restored into a fresh state: its next 3 losses
+    equal the uninterrupted run's bit for bit. An uncommitted directory is
+    left in place until gc_uncommitted removes it."""
+    import numpy as np
+    from ray_tpu_torch.models import configs, init_params
+    from ray_tpu_torch.train import (gc_uncommitted, latest_committed,
+                                     restore_state, save_checkpoint)
+    from ray_tpu_torch.train.checkpoint import step_dir, write_shard
+    cfg = configs.bench_125m()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    storage = os.path.join(ROOT, "tmp", "chip_smoke_ckpt")
+    shutil.rmtree(storage, ignore_errors=True)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (B, S + 1)),
+                                    dtype=torch.int32, device="cuda")}
+    init_fn, step = _sharded_step(torch, cfg, 3e-4, mesh)
+
+    def fresh():
+        return init_fn(init_params(cfg, torch.Generator().manual_seed(2),
+                                   "cuda"))
+
+    state = fresh()
+    for _ in range(5):
+        state, _loss = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = save_checkpoint(state, storage, 5, mesh=mesh)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(os.path.getsize(os.path.join(ckpt.path, f))
+                 for f in os.listdir(ckpt.path))
+    straight = []
+    for _ in range(3):
+        state, loss = step(state, batch)
+        straight.append(loss)
+    straight = torch.stack(straight).tolist()
+    del state
+    found = latest_committed(storage)
+    target = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_state(found, target)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    resumed = []
+    for _ in range(3):
+        target, loss = step(target, batch)
+        resumed.append(loss)
+    resumed = torch.stack(resumed).tolist()
+    torn = step_dir(storage, 6)
+    write_shard({"partial": np.zeros(4)}, torn, 0, 2)
+    still = latest_committed(storage)
+    removed = gc_uncommitted(storage)
+    log(f"  saved step {ckpt.manifest()['step']} ({nbytes} bytes in "
+        f"{len(os.listdir(ckpt.path))} files) in {save_ms:.1f} ms, restored "
+        f"in {restore_ms:.1f} ms [{smi}]; next 3 losses uninterrupted "
+        f"{straight}, restored {resumed}; latest_committed "
+        f"{os.path.basename(found)}, with an uncommitted step 6 beside it "
+        f"{os.path.basename(still)}; gc_uncommitted removed "
+        f"{[os.path.basename(p) for p in removed]}")
+    if found != ckpt.path or still != ckpt.path or removed != [torn]:
+        raise AssertionError("checkpoint: the manifest protocol misfired")
+    if int(target.step) != 8 or resumed != straight:
+        raise AssertionError(f"checkpoint: restored losses {resumed} != "
+                             f"uninterrupted {straight}")
+    shutil.rmtree(storage, ignore_errors=True)
+    return dict(save_ms=save_ms, restore_ms=restore_ms, bytes=nbytes)
+
+
+TP_SERVE_PROMPTS = 3   # fp32 exactness prompts (16 greedy tokens each)
+
+
+def tp_serve_worker(rank, world, port, prompts, out):
+    """One rank of the tp-serve phase: a gloo process group over
+    localhost on the one card, a tp mesh, and the engines on this rank's
+    heads (every rank draws the same seeded params and calls alike)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=300))
+        from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+        from ray_tpu_torch.models import configs, init_params
+        from ray_tpu_torch.ops import paged_attention as PA
+        from ray_tpu_torch.parallel import MeshConfig, make_mesh
+        mesh = make_mesh(MeshConfig(fsdp=1, tp=world))
+        res = {}
+        cfg32 = dataclasses.replace(configs.bench_125m(), dtype="float32")
+        p32 = init_params(cfg32, torch.Generator().manual_seed(1), "cuda")
+        exact = prompts[:TP_SERVE_PROMPTS]
+        ecfg = dict(max_slots=4, max_len=256, prompt_buckets=(128,),
+                    eos_token=-1)
+        eng = InferenceEngine(cfg32, EngineConfig(**ecfg), params=p32,
+                              mesh=mesh, device="cuda")
+        res["fp32"] = eng.generate(exact, 16, 0.0)
+        res["kv_heads"] = eng.cache_k.shape[1]
+        spec = InferenceEngine(cfg32, EngineConfig(**ecfg,
+                                                   speculation="ngram",
+                                                   spec_k=4),
+                               params=p32, mesh=mesh, device="cuda")
+        res["fp32_spec"] = spec.generate(exact, 16, 0.0)
+        del eng, spec, p32
+        cfg = configs.bench_125m()
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+        eng = InferenceEngine(cfg, EngineConfig(
+            max_slots=32, max_len=1024, prompt_buckets=(128,), eos_token=-1),
+            params=params, mesh=mesh, seed=0, device="cuda")
+        eng.generate(prompts[:2], max_new_tokens=4)
+        torch.cuda.synchronize()
+        dist.barrier()
+        steps0 = eng.decode_steps
+        reset_counts()
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=64, temperature=0.0)
+                for p in prompts]
+        while eng.has_work():
+            eng.step_window()
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        res["tokens"] = [eng.finished[r].generated for r in rids]
+        res["decode_steps"] = eng.decode_steps - steps0
+        res["k1"] = dict(PA.launches)
+        dist.barrier()
+        out.put((rank, "ok", res))
+    except BaseException:  # noqa: BLE001 — the parent reports it and fails
+        import traceback
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_serve_phase(torch, smi, serve):
+    """tp = 2 as two processes on the one card over gloo (NCCL refuses two
+    ranks on one device; gloo's all-reduce and all-gather take CUDA
+    tensors, through the host): llama-125m, 6 of the 12 heads and kv
+    heads on each rank. fp32 greedy tokens equal the tp = 1 engine's and
+    an argmax loop over `forward`, plain and speculative; bf16, the serve
+    phase's 32 requests x 64 tokens timed (a correctness path: every
+    collective goes through the host)."""
+    import multiprocessing as mp
+    import queue
+    import socket
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import configs, init_params
+    world = 2
+    prompts = serve["prompts"][:32]
+    cfg32 = dataclasses.replace(configs.bench_125m(), dtype="float32")
+    p32 = init_params(cfg32, torch.Generator().manual_seed(1), "cuda")
+    exact = prompts[:TP_SERVE_PROMPTS]
+    tp1 = InferenceEngine(cfg32, EngineConfig(
+        max_slots=4, max_len=256, prompt_buckets=(128,), eos_token=-1),
+        params=p32, device="cuda").generate(exact, 16, 0.0)
+    argmax = forward_argmax(torch, p32, cfg32, exact, 16)
+    del p32
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=tp_serve_worker,
+                         args=(r, world, port, prompts, out))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        while len(got) + len(errors) < world:
+            try:
+                rank, status, value = out.get(timeout=10)
+            except queue.Empty:
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("tp-serve: no result in 600 s")
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError("tp-serve: a rank died")
+                continue
+            (got.__setitem__(rank, value) if status == "ok"
+             else errors.append(f"rank {rank}: {value}"))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if errors:
+        raise AssertionError("tp-serve failed:\n" + "\n".join(errors))
+    cfg = configs.bench_125m()
+    r0 = got[0]
+    n_tok = sum(len(x) for x in r0["tokens"])
+    tps = n_tok / r0["wall_s"]
+    log(f"  tp=2 on one card over gloo, {r0['kv_heads']} kv heads a rank; "
+        f"fp32 {TP_SERVE_PROMPTS} prompts x 16 greedy tokens: tp2 == tp1 "
+        f"{r0['fp32'] == tp1}, == forward argmax {r0['fp32'] == argmax}, "
+        f"speculative tp2 == tp1 {r0['fp32_spec'] == tp1}")
+    log(f"  bf16 {len(prompts)} requests x 64 tokens: {tps:.1f} tokens/s "
+        f"({r0['wall_s']:.3f} s, {r0['decode_steps']} decode steps) vs the "
+        f"serve phase's {serve['tokens_per_s']:.1f} tokens/s at tp=1; K1 "
+        f"launches per rank {[got[r]['k1'] for r in range(world)]}; phase "
+        f"wall {time.perf_counter() - t0:.1f} s [{smi}]")
+    for r in range(world):
+        g = got[r]
+        if g["fp32"] != tp1 or g["fp32"] != argmax or g["fp32_spec"] != tp1:
+            raise AssertionError(f"tp-serve rank {r}: fp32 tokens differ")
+        if g["kv_heads"] != cfg.n_kv_heads // world:
+            raise AssertionError(f"rank {r} holds {g['kv_heads']} kv heads")
+        if g["tokens"] != r0["tokens"] or any(len(x) != 64
+                                              for x in g["tokens"]):
+            raise AssertionError(f"tp-serve rank {r}: bf16 streams differ")
+        if (g["k1"] != {"cuda": cfg.n_layers * g["decode_steps"], "plain": 0}
+                or g["decode_steps"] == 0):
+            raise AssertionError(f"rank {r}: K1 launches {g['k1']} for "
+                                 f"{g['decode_steps']} decode steps")
+    return dict(tokens_per_s=tps)
+
+
+
 def time_head_dims(torch, root: str) -> int:
     """--head-dim-times ROOT: with the package of the checkout at ROOT
     (this one, or another, say the parent commit's), the device time of
-    each kernel in bf16 at head_dims 16, 32, 64, 80 and 128: K2 with lse,
-    K3 and K4 at [8, 1024, 16 heads, 8 kv heads] causal, K1 and K5 at 32
-    slots x 16/8 heads, lengths 128-191 (P = 2, S = 5 for K5); the
-    widths a checkout's wrappers refuse are reported as refused."""
+    each kernel in bf16 at head_dims 16, 32, 64, 80, 128 and 256: K2 with
+    lse, K3 and K4 at [8, 1024, 16 heads, 8 kv heads] causal, K1, K1' and
+    K5 at 32 slots x 16/8 heads, lengths 128-191 (P = 2, S = 5 for K1'
+    and K5), each beside its bound (the bytes each input is read and each
+    output written once, or its products, at the card's data-sheet rates);
+    the widths a checkout's wrappers refuse are reported as refused."""
     sys.path.insert(0, root)
     import ray_tpu_torch
     if not os.path.abspath(ray_tpu_torch.__file__).startswith(root + os.sep):
@@ -1974,7 +2322,7 @@ def time_head_dims(torch, root: str) -> int:
     g = torch.Generator(device="cuda").manual_seed(8)
     lens_l = torch.randint(128, 192, (32,), generator=torch.Generator()
                            .manual_seed(3)).tolist()
-    for hd in (16, 32, 64, 80, 128):
+    for hd in (16, 32, 64, 80, 128, 256):
         B, S, H, Hkv = 8, 1024, 16, 8
         q, k, v, do = attn_case(torch, g, B, S, H, Hkv, hd, torch.bfloat16)
         scale = hd ** -0.5
@@ -2001,12 +2349,38 @@ def time_head_dims(torch, root: str) -> int:
         qv, pk, pv, kn, vn, lens, tables = verify_case(
             torch, 32, 5, H, Hkv, hd, 128, 2, lens_l, torch.bfloat16, seed=4,
             layers=12, scratch_entries=False)
+        k1v = device_ms(torch, lambda i: PA.paged_verify_attention(
+            qv, pk[i % 12], pv[i % 12], lens, tables), 240)
         k5 = device_ms(torch, lambda i: PA.paged_verify_insert_attention(
             qv, pk, pv, kn, vn, lens, tables, i % 12), 240)
         log(f"  hd {hd}: K2 with lse {fwd * 1e3:.2f} us, K3 {dq * 1e3:.2f} us, "
             f"K4 {dkv * 1e3:.2f} us at [{B},{S},{H}/{Hkv},{hd}] causal; K1 "
             f"{k1 * 1e3:.2f} us, K5 {k5 * 1e3:.2f} us at 32 slots x "
             f"{H}/{Hkv} heads, lengths 128-191 [{smi}]")
+        # bounds: q/o/dq/do of H heads, k/v/dk/dv of Hkv heads, lse and
+        # delta fp32; 2 * hd flops per (query, key) pair and product
+        isz, pairs = 2, B * H * S * (S + 1) // 2
+        qb, kvb, rows = B * S * H * hd * isz, B * S * Hkv * hd * isz, \
+            B * H * S * 4
+        tokens = sum(min(x, 2 * 128) for x in lens_l)
+        k1_bytes = (tokens * Hkv * hd * 2 * isz + 2 * qd.numel() * isz
+                    + 32 * 4 * 3)
+        bounds = {
+            "K2 with lse": bound_ms(2 * qb + 2 * kvb + rows,
+                                    4 * hd * pairs, "bfloat16"),
+            "K3": bound_ms(3 * qb + 2 * kvb + 2 * rows, 6 * hd * pairs,
+                           "bfloat16"),
+            "K4": bound_ms(2 * qb + 4 * kvb + 2 * rows, 8 * hd * pairs,
+                           "bfloat16"),
+            "K1": bound_ms(k1_bytes, 4 * H * hd * tokens, "bfloat16"),
+            "K1'": bound_ms(*verify_work(lens_l, 5, 128, 2, H, Hkv, hd, isz,
+                                         False), "bfloat16"),
+            "K5": bound_ms(*verify_work(lens_l, 5, 128, 2, H, Hkv, hd, isz,
+                                        True), "bfloat16"),
+        }
+        log(f"  hd {hd}: K1' {k1v * 1e3:.2f} us; bounds " + ", ".join(
+            f"{n} {b * 1e3:.2f} us ({by})" for n, (b, by) in bounds.items())
+            + f" [{smi}]")
         del qd, qv, pk, pv, kn, vn
     return 0
 
@@ -2125,7 +2499,7 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--serve-worker", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--head-dim-times", metavar="ROOT", nargs="?", const=ROOT,
-                    help="only time the kernels at head_dims 16-128, with "
+                    help="only time the kernels at head_dims 16-256, with "
                     "the package of the checkout at ROOT (default: this)")
     args = ap.parse_args()
     if args.serve_worker:
@@ -2151,13 +2525,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/13] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/16] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/13] build: {len(build_logs)} kernels in "
+    log(f"[2/16] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -2194,7 +2568,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/13] kernels against their plain versions")
+    log("[3/16] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -2203,7 +2577,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/13] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/16] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -2216,7 +2590,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/13] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/16] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -2226,18 +2600,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/13] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/16] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/13] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/16] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/13] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/16] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -2246,19 +2620,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/13] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/16] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/13] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/16] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/13] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/16] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -2268,7 +2642,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/13] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/16] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -2278,12 +2652,43 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/13] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/16] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
         f"{dense['tokens_per_s']:.1f} tokens/s, peak {dense['peak_bytes']} B")
     torch.cuda.empty_cache()
+
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh(MeshConfig(fsdp=1))
+    log(f"[14/16] sharded-train: llama-125m over {mesh} (a process group "
+        f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
+        f"against the unsharded step")
+    sharded = sharded_train_phase(torch, smi, train, mesh)
+    log(f"  sharded-train phase {time.perf_counter() - t0:.1f} s; "
+        f"{sharded['step_ms']:.2f} ms/step vs {train['step_ms']:.2f} "
+        f"unsharded")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("[15/16] checkpoint: the sharded bf16 state after step 5 through "
+        "the manifest path, restored into a fresh state")
+    ck = checkpoint_phase(torch, smi, mesh)
+    log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
+        f"{ck['save_ms']:.1f} ms, restore {ck['restore_ms']:.1f} ms, "
+        f"{ck['bytes']} bytes")
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("[16/16] tp-serve: tp=2 as two processes on the one card over gloo, "
+        "llama-125m")
+    tps = tp_serve_phase(torch, smi, serve)
+    log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
+        f"{tps['tokens_per_s']:.1f} tokens/s vs {serve['tokens_per_s']:.1f} "
+        f"at tp=1")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

@@ -37,7 +37,17 @@ contiguous; see `ops/csrc/paged_decode.cu`). Dense layout
 (`kv_layout="dense"`): [L, max_slots, max_len, hkv, hd], attended by plain
 PyTorch as the JAX engine attends it with plain jnp (no kernel).
 
-Not in this slice (raises NotImplementedError): tensor-parallel meshes.
+Tensor parallelism (`mesh=` with tp > 1, as the JAX engine's "tp" axis;
+every rank builds the engine and calls it alike): the params are placed
+by the rules table and each rank keeps its blocks, so the KV pool holds
+the rank's kv heads, the kernels run on its heads, `wo` and `wd` are
+followed by an all-reduce and the vocab-parallel logits are all-gathered
+before sampling. Every rank draws from the same seeded generator on the
+same logits, so every rank picks the same tokens and the host state
+(slots, pages, prefix cache, guides) stays identical with no broadcast.
+The KV handoff exports and imports the rank's heads. dp, fsdp, sp, pp and
+ep above 1 raise NotImplementedError (an engine replica's data axes are
+separate engines; the rest are later slices).
 """
 
 from __future__ import annotations
@@ -54,8 +64,13 @@ import torch.nn.functional as F
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.models.transformer import (ModelConfig, _mlp, _moe,
+                                              check_mesh, embed_tokens,
                                               init_params, layer_params,
-                                              lm_head)
+                                              lm_head, local_config,
+                                              param_logical_axes, tp_group)
+from ray_tpu_torch.parallel.collectives import gather_from_tp, reduce_from_tp
+from ray_tpu_torch.parallel.sharding import (ShardingRules, shard_params,
+                                             tree_map)
 from ray_tpu_torch.ops.layers import apply_rope, rmsnorm, rope
 from ray_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_verify_insert_attention)
@@ -106,12 +121,6 @@ class Request:
     kv_handoff: tuple | None = None
 
 
-def _not_in_slice(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet (a later slice of the "
-        f"PyTorch port; see ROADMAP.md)")
-
-
 # ---------------- pure model steps ----------------
 
 
@@ -126,7 +135,8 @@ def _qkv(x, lp, c: ModelConfig):
 
 def _mlp_block(x, lp, c: ModelConfig):
     normed = rmsnorm(x, lp["mlp_norm"], c.norm_eps)
-    return x + (_moe(normed, lp, c) if c.moe_experts else _mlp(normed, lp))
+    return x + (_moe(normed, lp, c) if c.moe_experts
+                else _mlp(normed, lp, tp_group(c)))
 
 
 def _dense_attend(q, kk, vv, mask, c: ModelConfig, dtype):
@@ -150,7 +160,7 @@ def prefill_batch(params, tokens, config: ModelConfig):
     k,v caches [L, n, S, hkv, hd]). Causal; padding contributes garbage
     KV beyond each true length, which insert never reads (length mask)."""
     c = config
-    x = params["embed"][tokens]
+    x = embed_tokens(params["embed"], tokens, c)
     n, s = tokens.shape
     sin, cos = rope(torch.arange(s, device=tokens.device), c.head_dim,
                     c.rope_theta)
@@ -163,12 +173,14 @@ def prefill_batch(params, tokens, config: ModelConfig):
         q = apply_rope(q, sin[None], cos[None])
         k = apply_rope(k, sin[None], cos[None])
         attn = _dense_attend(q, k, v, causal[None, None], c, x.dtype)
-        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        h = x + reduce_from_tp(
+            torch.einsum("bsq,qd->bsd", attn, lp["wo"]), tp_group(c))
         x = _mlp_block(h, lp, c)
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    logits = torch.matmul(x.float(), lm_head(params, c).float())
+    logits = gather_from_tp(
+        torch.matmul(x.float(), lm_head(params, c).float()), tp_group(c))
     return logits, torch.stack(ks), torch.stack(vs)
 
 
@@ -206,7 +218,7 @@ def decode_step(params, cache_k, cache_v, tokens, lengths, active,
     B, T = cache_k.shape[1], cache_k.shape[2]
     dev = tokens.device
     n_rep = c.n_heads // c.n_kv_heads
-    x = params["embed"][tokens.long()][:, None, :]          # [B, 1, d]
+    x = embed_tokens(params["embed"], tokens.long(), c)[:, None, :]
     sin, cos = rope(lengths[:, None], c.head_dim, c.rope_theta)
     pos_mask = (torch.arange(T, device=dev)[None]
                 <= lengths[:, None])                        # [B, T]
@@ -230,10 +242,12 @@ def decode_step(params, cache_k, cache_v, tokens, lengths, active,
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         attn = torch.einsum("bht,bthd->bhd", probs, vv.to(x.dtype))
         attn = attn.reshape(B, 1, c.n_heads * c.head_dim)
-        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        h = x + reduce_from_tp(
+            torch.einsum("bsq,qd->bsd", attn, lp["wo"]), tp_group(c))
         x = _fused_mlp_block(h, lp, fused, li, c)
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    logits = torch.matmul(x[:, 0].float(), fused["head"])
+    logits = gather_from_tp(torch.matmul(x[:, 0].float(), fused["head"]),
+                            tp_group(c))
     return _mask_inactive(logits, active), cache_k, cache_v
 
 
@@ -248,7 +262,7 @@ def prefill_with_prefix_batch(params, tokens, pool_k, pool_v,
     logits [n, S, vocab] fp32, suffix k/v caches [L, n, S, hkv, hd])."""
     c = config
     dev = tokens.device
-    x = params["embed"][tokens]
+    x = embed_tokens(params["embed"], tokens, c)
     n, s = tokens.shape
     page = pool_k.shape[3]
     pre_t = prefix_pages.shape[1] * page
@@ -274,12 +288,14 @@ def prefill_with_prefix_batch(params, tokens, pool_k, pool_v,
         kk = torch.cat([prek.to(k.dtype), k], dim=1)
         vv = torch.cat([prev.to(v.dtype), v], dim=1)
         attn = _dense_attend(q, kk, vv, full_mask[:, None], c, x.dtype)
-        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        h = x + reduce_from_tp(
+            torch.einsum("bsq,qd->bsd", attn, lp["wo"]), tp_group(c))
         x = _mlp_block(h, lp, c)
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    logits = torch.matmul(x.float(), lm_head(params, c).float())
+    logits = gather_from_tp(
+        torch.matmul(x.float(), lm_head(params, c).float()), tp_group(c))
     return logits, torch.stack(ks), torch.stack(vs)
 
 
@@ -340,7 +356,8 @@ def _fused_mlp_block(h, lp, fused, li, c: ModelConfig):
     gu = torch.einsum("bsd,df->bsf", normed, fused["wgu"][li])
     f = gu.shape[-1] // 2
     act = F.silu(gu[..., :f]) * gu[..., f:]
-    return h + torch.einsum("bsf,fd->bsd", act, lp["wd"])
+    return h + reduce_from_tp(torch.einsum("bsf,fd->bsd", act, lp["wd"]),
+                              tp_group(c))
 
 
 def _mask_inactive(logits, active):
@@ -366,7 +383,7 @@ def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
         fused = decode_weights(params, c)
     B, P = page_tables.shape
     page = pool_k.shape[3]
-    x = params["embed"][tokens.long()][:, None, :]          # [B, 1, d]
+    x = embed_tokens(params["embed"], tokens.long(), c)[:, None, :]
     sin, cos = rope(lengths[:, None], c.head_dim, c.rope_theta)
     w_idx = torch.clamp(lengths // page, 0, P - 1)
     w_page = page_tables.gather(1, w_idx[:, None].long())[:, 0]
@@ -387,12 +404,13 @@ def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
         attn = paged_decode_attention(q[:, 0].contiguous(), pk, pv, attend,
                                       page_tables)
         attn = attn.reshape(B, 1, c.n_heads * c.head_dim).to(x.dtype)
-        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        h = x + reduce_from_tp(
+            torch.einsum("bsq,qd->bsd", attn, lp["wo"]), tp_group(c))
         x = _fused_mlp_block(h, lp, fused, li, c)
 
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    return _mask_inactive(torch.matmul(x[:, 0].float(), fused["head"]),
-                          active)
+    return _mask_inactive(gather_from_tp(
+        torch.matmul(x[:, 0].float(), fused["head"]), tp_group(c)), active)
 
 
 def decode_window(params, pool_k, pool_v, tokens, lengths, active,
@@ -458,7 +476,7 @@ def verify_paged(params, pool_k, pool_v, tokens, lengths, active,
         fused = decode_weights(params, c)
     B, S = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens.long()]                      # [B, S, d]
+    x = embed_tokens(params["embed"], tokens.long(), c)     # [B, S, d]
     positions = lengths[:, None] + torch.arange(S, device=dev)[None]
     sin, cos = rope(positions, c.head_dim, c.rope_theta)
     attend = (lengths + 1).to(torch.int32)   # query 0's causal limit
@@ -474,11 +492,13 @@ def verify_paged(params, pool_k, pool_v, tokens, lengths, active,
             k.to(pool_k.dtype).contiguous(), v.to(pool_v.dtype).contiguous(),
             attend, page_tables, li)
         attn = attn.reshape(B, S, c.n_heads * c.head_dim).to(x.dtype)
-        h = x + torch.einsum("bsq,qd->bsd", attn, lp["wo"])
+        h = x + reduce_from_tp(
+            torch.einsum("bsq,qd->bsd", attn, lp["wo"]), tp_group(c))
         x = _fused_mlp_block(h, lp, fused, li, c)
 
     x = rmsnorm(x, params["final_norm"], c.norm_eps)
-    return _mask_inactive(torch.matmul(x.float(), fused["head"]), active)
+    return _mask_inactive(gather_from_tp(
+        torch.matmul(x.float(), fused["head"]), tp_group(c)), active)
 
 
 def ngram_draft(hist, lengths, last_tokens, k: int):
@@ -658,15 +678,31 @@ def _sample_one(logits_row, temperature: float, top_p: float, top_k: int,
 # ---------------- the engine ----------------
 
 
-def _resolve_params(c: ModelConfig, params, seed: int, device):
-    """Seeded random weights, or the caller's, on the engine's device
-    (shared by the decode engine and the prefill engine)."""
+def _resolve_params(c: ModelConfig, params, seed: int, device, mesh=None,
+                    rules=None):
+    """(params, the config the steps run) for the decode and the prefill
+    engine: seeded random weights, or the caller's (full ones, the same
+    on every rank), on the engine's device; under a tp mesh placed by the
+    rules, each rank keeping its blocks, with this rank's config view."""
     if params is None:
         params = init_params(c, torch.Generator().manual_seed(seed), device)
     if params["embed"].device != device:
         raise ValueError(f"params live on {params['embed'].device}, the "
                          f"engine on {device}")
-    return params
+    if mesh is None:
+        return params, c
+    deg = check_mesh(mesh, "an engine")
+    for a in ("dp", "fsdp"):
+        if deg.get(a, 1) > 1:
+            raise NotImplementedError(
+                f"an engine over a mesh with {a}={deg[a]}: data-parallel "
+                f"serving is separate engines; an engine shards over tp only")
+    placed = shard_params(params, param_logical_axes(c),
+                          rules or ShardingRules.default(), mesh)
+    with torch.no_grad():
+        local = tree_map(lambda t: t.to_local(), placed,
+                         is_leaf=lambda t: not isinstance(t, dict))
+    return local, local_config(c, mesh)
 
 
 def _prompt_bucket(e: EngineConfig, n: int) -> int:
@@ -692,14 +728,16 @@ class InferenceEngine:
 
     def __init__(self, model_config: ModelConfig,
                  engine_config: EngineConfig | None = None, *,
-                 params=None, mesh=None, seed: int = 0, device="cuda"):
+                 params=None, mesh=None, rules=None, seed: int = 0,
+                 device="cuda"):
         e = engine_config or EngineConfig()
-        if mesh is not None:
-            raise _not_in_slice("a tensor-parallel mesh")
         self.device = resolve_device(device)
-        self.c = c = model_config
         self.e = e
-        self.params = _resolve_params(c, params, seed, self.device)
+        self.mesh = mesh
+        # Under a tp mesh: this rank's param blocks and config view.
+        self.params, self.c = _resolve_params(model_config, params, seed,
+                                              self.device, mesh, rules)
+        c = self.c
         self._fused = decode_weights(self.params, c)
         dev = self.device
         self.paged = e.kv_layout == "paged"
@@ -1700,14 +1738,13 @@ class PrefillEngine:
 
     def __init__(self, model_config: ModelConfig,
                  engine_config: EngineConfig | None = None, *,
-                 params=None, mesh=None, seed: int = 0, device="cuda"):
-        if mesh is not None:
-            raise _not_in_slice("a tensor-parallel mesh")
+                 params=None, mesh=None, rules=None, seed: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
-        self.c = model_config
         self.e = engine_config or EngineConfig()
-        self.params = _resolve_params(model_config, params, seed,
-                                      self.device)
+        self.mesh = mesh
+        self.params, self.c = _resolve_params(model_config, params, seed,
+                                              self.device, mesh, rules)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
 
     def prefill_export(self, prompt_tokens, temperature=None,

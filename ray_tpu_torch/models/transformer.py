@@ -9,8 +9,22 @@ backward kernels on a card). bf16 params/activations, fp32 logits.
 entropy); `remat` recomputes each layer in the backward with
 `torch.utils.checkpoint` where the JAX package uses `jax.checkpoint`.
 
-A mesh of more than one device (and with it the one-hot embedding the
-JAX package uses under sharding) belongs to the sharded slice of the port.
+Under a mesh (`parallel.make_mesh`; every rank calls alike, each with its
+own rows of the batch) the params are DTensors placed by the rules table
+(`parallel.sharding`, the train step's `init_fn`) and each rank runs
+the model on its share:
+- fsdp/dp: each layer's params are gathered over the data axes just
+  before use (`redistribute` to Replicate), and `to_local` declares the
+  gradient of the gathered tensor a partial sum over those axes, so the
+  backward reduce-scatters (fsdp) and all-reduces (dp) it. Without that
+  declaration each rank would keep its own local gradient: a step that
+  trains without error on gradients wrong by the data degree.
+- tp: each rank runs its n_heads / tp query heads, n_kv_heads / tp kv
+  heads and d_ff / tp columns (`local_config`), so the flash kernels see
+  the local head counts; Megatron's all-reduce after `wo` and `wd`
+  (`parallel.collectives`). The embedding is vocab-parallel (masked
+  lookup + all-reduce) and the loss the vocab-parallel cross entropy.
+- sp, pp and ep above 1 raise NotImplementedError (later slices).
 """
 
 from __future__ import annotations
@@ -24,6 +38,10 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.layers import apply_rope, rmsnorm, rope, swiglu
+from ray_tpu_torch.parallel.collectives import (copy_to_tp, gather_from_tp,
+                                                max_over, reduce_from_tp,
+                                                sum_over)
+from ray_tpu_torch.parallel.mesh import axis_group, axis_rank, mesh_degrees
 
 # The model's fp32 products (the logits head, fp32 configs) run in full
 # fp32: TF32 would keep ~3 decimal digits and break greedy exactness.
@@ -151,15 +169,105 @@ def param_logical_axes(config: ModelConfig) -> dict:
     return axes
 
 
-def check_single_device(mesh, what: str) -> None:
-    """`mesh` (None, or a mesh whose `devices` array the JAX package's
-    Mesh shape gives) must hold one device in this slice."""
-    n = 1 if mesh is None else mesh.devices.size
-    if n > 1:
+@dataclasses.dataclass(frozen=True)
+class ShardedConfig(ModelConfig):
+    """A rank's view of a ModelConfig under tensor parallelism: its local
+    n_heads, n_kv_heads and d_ff (the global ones / tp), the global
+    head_dim, and the tp group (None at tp = 1) its collectives run on."""
+    tp: int = 1
+    tp_rank: int = 0
+    tp_group: object = dataclasses.field(default=None, compare=False,
+                                         repr=False)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // (self.n_heads * self.tp)
+
+
+def check_mesh(mesh, what: str) -> dict[str, int]:
+    """The mesh's degrees; sp, pp or ep above 1 raise NotImplementedError
+    (sequence, pipeline and expert parallelism are later slices)."""
+    deg = mesh_degrees(mesh)
+    for a in ("sp", "pp", "ep"):
+        if deg.get(a, 1) > 1:
+            raise NotImplementedError(
+                f"{what} over a mesh with {a}={deg[a]} is a later slice of "
+                f"the PyTorch port (ROADMAP.md); dp, fsdp and tp run")
+    return deg
+
+
+def local_config(config: ModelConfig, mesh) -> ModelConfig:
+    """This rank's ShardedConfig under `mesh`. A head or kv-head count
+    that tp does not divide raises NotImplementedError."""
+    c = config
+    tp = check_mesh(mesh, "the model").get("tp", 1)
+    if c.n_heads % tp or c.n_kv_heads % tp or c.d_ff % tp:
         raise NotImplementedError(
-            f"{what} over a mesh of {n} devices is the sharded slice of the "
-            f"PyTorch port (parallel/mesh.py, parallel/sharding.py); this "
-            f"slice runs on one device")
+            f"tp={tp} must divide n_heads={c.n_heads}, n_kv_heads="
+            f"{c.n_kv_heads} and d_ff={c.d_ff}: uneven head splits are not "
+            f"ported")
+    fields = {f.name: getattr(c, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    fields.update(n_heads=c.n_heads // tp, n_kv_heads=c.n_kv_heads // tp,
+                  d_ff=c.d_ff // tp)
+    return ShardedConfig(**fields, tp=tp, tp_rank=axis_rank(mesh, "tp"),
+                         tp_group=axis_group(mesh, "tp"))
+
+
+def tp_group(config: ModelConfig):
+    """The tp group of a ShardedConfig; None for a plain ModelConfig."""
+    return getattr(config, "tp_group", None)
+
+
+def _data_gather(dt, mesh) -> torch.Tensor:
+    """A placed param (DTensor) gathered over the data axes: the rank's tp
+    block, whole along every other dim. Its gradient is declared a partial
+    sum over dp and fsdp, so the backward sums it over the data ranks
+    (reduce-scatter onto the fsdp shards, all-reduce over dp)."""
+    from torch.distributed.tensor import Partial, Replicate
+    names = list(mesh_degrees(mesh))
+    data = [i for i, n in enumerate(names) if n in ("dp", "fsdp")]
+    target = [Replicate() if i in data else p
+              for i, p in enumerate(dt.placements)]
+    grads = [Partial() if i in data else p
+             for i, p in enumerate(dt.placements)]
+    return dt.redistribute(mesh, target).to_local(grad_placements=grads)
+
+
+def _mesh_layers(params, mesh, n_layers: int):
+    """Layer li's params gathered over the data axes, layer by layer (the
+    FSDP gather before use): a stacked param's local block is split along
+    its layer dim (never sharded) and each slice re-placed on the mesh."""
+    from torch.distributed.tensor import DTensor, Shard
+    split, per_layer = {}, {}
+    for k, v in params["layers"].items():
+        if not isinstance(v, DTensor):
+            raise TypeError(f"params['layers'][{k!r}] is not placed on the "
+                            f"mesh (shard_params / the train step's init_fn)")
+        if any(isinstance(p, Shard) and p.dim == 0 for p in v.placements):
+            raise ValueError(f"params['layers'][{k!r}] is sharded along its "
+                             f"layer dim")
+        split[k] = v.to_local().unbind(0)
+        per_layer[k] = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                        for p in v.placements]
+    for li in range(n_layers):
+        yield {k: _data_gather(DTensor.from_local(
+                   split[k][li], mesh, per_layer[k], run_check=False), mesh)
+               for k in split}
+
+
+def _mesh_top(params, mesh) -> dict:
+    """The non-layer params (embed, final_norm, lm_head) gathered over the
+    data axes."""
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            continue
+        if not isinstance(v, DTensor):
+            raise TypeError(f"params[{k!r}] is not placed on the mesh")
+        out[k] = _data_gather(v, mesh)
+    return out
 
 
 def layer_params(params: dict, li: int) -> dict:
@@ -174,42 +282,74 @@ def lm_head(params: dict, config: ModelConfig):
 def _attention(x, lp, c: ModelConfig, sin, cos):
     b, s, d = x.shape
     h, hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    g = tp_group(c)
+    x = copy_to_tp(x, g)
     q = torch.einsum("bsd,dk->bsk", x, lp["wq"]).reshape(b, s, h, hd)
     k = torch.einsum("bsd,dk->bsk", x, lp["wk"]).reshape(b, s, hkv, hd)
     v = torch.einsum("bsd,dk->bsk", x, lp["wv"]).reshape(b, s, hkv, hd)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     o = flash_attention(q, k, v, causal=True, impl=c.attn_impl)
-    return torch.einsum("bsk,kd->bsd", o.reshape(b, s, h * hd), lp["wo"])
+    return reduce_from_tp(
+        torch.einsum("bsk,kd->bsd", o.reshape(b, s, h * hd), lp["wo"]), g)
 
 
 def _moe(x, lp, c: ModelConfig):
     """Top-k MoE in dense form: every expert computes, the router's top-k
-    weights zero the rest (plain einsums, no kernel)."""
+    weights zero the rest (plain einsums, no kernel). Under tp each rank
+    holds d_ff / tp columns of every expert; the experts' outputs are
+    summed over tp before the gate weights them, so the router's gradient
+    sees whole outputs."""
+    g = tp_group(c)
     logits = torch.einsum("bsd,dx->bsx", x.float(), lp["router"].float())
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, c.moe_top_k, dim=-1)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     gate = torch.zeros_like(probs).scatter(-1, top_i, top_w)
-    h = torch.einsum("bsd,xdf->bsxf", x, lp["wg"])
-    u = torch.einsum("bsd,xdf->bsxf", x, lp["wu"])
-    y = torch.einsum("bsxf,xfd->bsxd", F.silu(h) * u, lp["wd"])
+    xt = copy_to_tp(x, g)
+    h = torch.einsum("bsd,xdf->bsxf", xt, lp["wg"])
+    u = torch.einsum("bsd,xdf->bsxf", xt, lp["wu"])
+    y = reduce_from_tp(
+        torch.einsum("bsxf,xfd->bsxd", F.silu(h) * u, lp["wd"]), g)
     return torch.einsum("bsxd,bsx->bsd", y, gate.to(x.dtype))
 
 
-def _mlp(x, lp):
-    return swiglu(x, lp["wg"], lp["wu"], lp["wd"])
+def _mlp(x, lp, group=None):
+    """SwiGLU; under tp (`group`) column-parallel gate/up and a
+    row-parallel down product, all-reduced."""
+    return reduce_from_tp(
+        swiglu(copy_to_tp(x, group), lp["wg"], lp["wu"], lp["wd"]), group)
 
 
-def hidden_states(params, tokens, config: ModelConfig, mesh=None):
-    """tokens [batch, seq] -> final-norm hidden states [batch, seq, d]."""
+def embed_tokens(table, tokens, config: ModelConfig):
+    """The embedding rows of `tokens`; under tp the table is this rank's
+    vocab block, so the lookup is masked to it and all-reduced."""
+    g = tp_group(config)
+    if g is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - config.tp_rank * n
+    ok = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return reduce_from_tp(torch.where(ok[..., None], rows, 0.0), g)
+
+
+def _hidden(params, tokens, config: ModelConfig, mesh):
+    """(final-norm hidden states, this rank's config view, the non-layer
+    params as used: gathered over the data axes under a mesh)."""
     c = config
-    check_single_device(mesh, "hidden_states")
     if c.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={c.attn_impl!r} (sequence parallelism over a mesh) "
             f"belongs to a later slice of the PyTorch port")
-    x = params["embed"][tokens]
+    if mesh is None:
+        top = params
+        layers = (layer_params(params, li) for li in range(c.n_layers))
+    else:
+        c = local_config(c, mesh)
+        top = _mesh_top(params, mesh)
+        layers = _mesh_layers(params, mesh, c.n_layers)
+    x = embed_tokens(top["embed"], tokens, c)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     sin, cos = rope(positions, c.head_dim, c.rope_theta)
 
@@ -217,16 +357,22 @@ def hidden_states(params, tokens, config: ModelConfig, mesh=None):
         h = x + _attention(rmsnorm(x, lp["attn_norm"], c.norm_eps), lp, c,
                            sin, cos)
         normed = rmsnorm(h, lp["mlp_norm"], c.norm_eps)
-        mlp = _moe(normed, lp, c) if c.moe_experts else _mlp(normed, lp)
+        mlp = (_moe(normed, lp, c) if c.moe_experts
+               else _mlp(normed, lp, tp_group(c)))
         return h + mlp
 
-    for li in range(c.n_layers):
-        lp = layer_params(params, li)
+    for lp in layers:
         if c.remat and torch.is_grad_enabled():
             x = checkpoint(layer_body, x, lp, use_reentrant=False)
         else:
             x = layer_body(x, lp)
-    return rmsnorm(x, params["final_norm"], c.norm_eps)
+    return rmsnorm(x, top["final_norm"], c.norm_eps), c, top
+
+
+def hidden_states(params, tokens, config: ModelConfig, mesh=None):
+    """tokens [batch, seq] -> final-norm hidden states [batch, seq, d].
+    Under a mesh, `tokens` are this rank's rows of the batch."""
+    return _hidden(params, tokens, config, mesh)[0]
 
 
 def forward(params, tokens, config: ModelConfig, mesh=None):
@@ -234,9 +380,12 @@ def forward(params, tokens, config: ModelConfig, mesh=None):
 
     The head product takes the activations and head in their own dtype
     upcast to fp32 (exact for bf16) with an fp32 sum, as the JAX
-    package's `preferred_element_type=float32` does."""
-    x = hidden_states(params, tokens, config, mesh)
-    return torch.matmul(x.float(), lm_head(params, config).float())
+    package's `preferred_element_type=float32` does. Under tp each rank's
+    vocab block of the logits is gathered."""
+    x, c, top = _hidden(params, tokens, config, mesh)
+    g = tp_group(c)
+    logits = torch.matmul(copy_to_tp(x, g).float(), lm_head(top, c).float())
+    return gather_from_tp(logits, g)
 
 
 # loss_fn chunks the head + softmax when the full fp32 logits tensor would
@@ -244,14 +393,27 @@ def forward(params, tokens, config: ModelConfig, mesh=None):
 CHUNK_MIN_BYTES = 1 << 30
 
 
-def _xent(x, head, targets):
+def _xent(x, head, targets, config=None):
     """Log-likelihood of `targets` under one chunk's logits [b, s]: the
     target logit minus the row logsumexp, without materializing the full
-    log-softmax. Logits never leave this function."""
+    log-softmax. Logits never leave this function. Under tp (`config` a
+    ShardedConfig) `head` is this rank's vocab block: the vocab-parallel
+    cross entropy, the row max and the sum of exps all-reduced over tp
+    and the target logit taken from the rank that holds it."""
     logits = torch.matmul(x.float(), head.float())
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
-    return tgt - lse
+    g = tp_group(config)
+    if g is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+        return tgt - lse
+    m = max_over(logits.amax(-1), g)
+    lse = m + torch.log(reduce_from_tp(
+        torch.exp(logits - m[..., None]).sum(-1), g))
+    n = logits.shape[-1]
+    local = targets - config.tp_rank * n
+    ok = (local >= 0) & (local < n)
+    tgt = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+    return reduce_from_tp(torch.where(ok, tgt.squeeze(-1), 0.0), g) - lse
 
 
 def uses_loss_chunks(b: int, s: int, vocab: int, loss_chunk: int) -> bool:
@@ -261,16 +423,17 @@ def uses_loss_chunks(b: int, s: int, vocab: int, loss_chunk: int) -> bool:
             and 4 * b * s * vocab > CHUNK_MIN_BYTES)
 
 
-def log_likelihood(x, head, targets, loss_chunk: int = 512):
+def log_likelihood(x, head, targets, loss_chunk: int = 512, config=None):
     """Per-position log-likelihood [b, s] of `targets` under the logits
     x @ head, in rematerialized chunks of `loss_chunk` positions when
-    `uses_loss_chunks` says the fp32 logits are large."""
+    `uses_loss_chunks` says the fp32 logits are large (`config`: see
+    `_xent`)."""
     b, s, _d = x.shape
     if not uses_loss_chunks(b, s, head.shape[-1], loss_chunk):
-        return _xent(x, head, targets)
+        return _xent(x, head, targets, config)
     return torch.cat([
         checkpoint(_xent, x[:, i:i + loss_chunk], head,
-                   targets[:, i:i + loss_chunk], use_reentrant=False)
+                   targets[:, i:i + loss_chunk], config, use_reentrant=False)
         for i in range(0, s, loss_chunk)], dim=1)
 
 
@@ -282,17 +445,37 @@ def loss_fn(params, batch, config: ModelConfig, mesh=None,
 
     The [b, s, vocab] fp32 logits tensor dominates training memory, so the
     head + softmax runs in sequence chunks of `loss_chunk` that the
-    backward recomputes: peak logits memory is b * loss_chunk * vocab."""
+    backward recomputes: peak logits memory is b * loss_chunk * vocab.
+
+    Under a mesh `batch` holds this rank's rows (the train step cuts
+    them) and the loss is the global batch's, as the JAX step's: each
+    rank's share is its sum over the global count (the data-parallel
+    sum of counts), its value the data-parallel sum of the shares; the
+    gradient is the rank's own share, which the params' gathers sum over
+    the data axes."""
     if "tokens" in batch:
         inputs = batch["tokens"][:, :-1]
         targets = batch["tokens"][:, 1:]
     else:
         inputs, targets = batch["inputs"], batch["targets"]
-    x = hidden_states(params, inputs, config, mesh)
-    ll = log_likelihood(x, lm_head(params, config), targets.long(),
-                        loss_chunk)
+    x, c, top = _hidden(params, inputs, config, mesh)
+    ll = log_likelihood(copy_to_tp(x, tp_group(c)), lm_head(top, c),
+                        targets.long(), loss_chunk, c)
     mask = batch.get("mask")
+    if mesh is None:
+        if mask is None:
+            return -ll.mean()
+        mask = mask.to(ll.dtype)
+        return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # (At data degree 1 both forms reduce to the one-device loss's exact
+    # arithmetic: the mean times 1.0, the share plus 0.0.)
+    data = [axis_group(mesh, a) for a in ("dp", "fsdp")]
     if mask is None:
-        return -ll.mean()
-    mask = mask.to(ll.dtype)
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        total = sum_over(torch.tensor(float(ll.numel()), device=ll.device),
+                         data)
+        share = -ll.mean() * (ll.numel() / total)
+    else:
+        mask = mask.to(ll.dtype)
+        share = -(ll * mask).sum() / torch.clamp(sum_over(mask.sum(), data),
+                                                 min=1.0)
+    return share + (sum_over(share, data) - share.detach())

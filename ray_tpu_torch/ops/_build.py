@@ -30,8 +30,8 @@ SOURCES = ("paged_decode", "paged_verify", "flash_fwd", "flash_bwd")
 # The `dtype` argument of every C entry point.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The head_dims every kernel takes: the multiples of 8 (the JAX package's
-# Pallas condition, `hd % 8 == 0`) up to 128.
-HEAD_DIMS = range(8, 129, 8)
+# Pallas condition, `hd % 8 == 0`) up to 256.
+HEAD_DIMS = range(8, 257, 8)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -119,7 +119,7 @@ def check_head_dim(what: str, hd: int) -> None:
     takes (each kernel source maps an accepted one to its instantiation)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"{what}: the kernels take a head_dim that is a "
-                         f"multiple of 8 from 8 to 128, got {hd}")
+                         f"multiple of 8 from 8 to 256, got {hd}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -8,7 +8,7 @@ hand-written kernels: the forward (`csrc/flash_fwd.cu`, K2) and, when a
 gradient is needed, the dQ and dK/dV backward (`csrc/flash_bwd.cu`, K3
 and K4) behind one `torch.autograd.Function`, the port's `custom_vjp`.
 The kernels mask a ragged S themselves rather than padding to a tile
-multiple, and take every head_dim that is a multiple of 8 up to 128 (the
+multiple, and take every head_dim that is a multiple of 8 up to 256 (the
 JAX package's Pallas condition; `_build.check_head_dim`). The ring/ulysses
 sequence-parallel paths belong to a later slice.
 """

@@ -14,7 +14,8 @@
 // outputs are written in the input dtype.
 //
 // Layout: q/dO/dQ [B, S, H, hd], k/v/dK/dV [B, S, Hkv, hd], lse/delta flat
-// [B*H, S] fp32 (row b*H + h). head_dim: any multiple of 8 up to 128; each
+// [B*H, S] fp32 (row b*H + h). head_dim: any multiple of 8 up to 256
+// (hd 136-256 in the chunked bodies below, at D = 256); each
 // body is compiled at D = 64 and 128, and a smaller hd is zero-filled up
 // to D in shared memory (zero columns add nothing to a score or to dP, and
 // no output column is stored past hd) by the PAD instantiations; hd 64 and
@@ -358,6 +359,290 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dk[off + c] = rt::from_float<T>(acc_k[i][c]);
       dv[off + c] = rt::from_float<T>(acc_v[i][c]);
     }
+  }
+}
+
+// ---- K3 and K4 at D = 256 (hd 136-256), fp32 and bf16 ----
+//
+// The fp32 bodies' design with the head_dim cut into NC chunks of DC = 128
+// columns, so four [64][DC] fp32 tiles (132 KB) take the place of four
+// [64][256] ones (266 KB, past a block's 227 KB). The score products sum
+// over the chunks one after the other (each chunk's tiles loaded in turn
+// into the same buffers); the dS (and P) tile then stays in shared memory
+// while the operand of the accumulate product is loaded chunk by chunk,
+// each into its own fp32 accumulator of 4 rows x 8 columns a thread. The
+// tensor-core bodies cannot take D = 256 as they are: K4's dK and dV at
+// N = 256 would take 256 accumulator registers a thread. Every tile is
+// read from device memory once more per chunk than the narrow bodies read
+// it (K3 reloads Q and dO for each k tile, K4 K and V for each q tile,
+// both from L2); right and simple first, fast later (PERF.md).
+constexpr int DC = 128;
+
+// s[i][j] += A[a0 + i] . B[b0 + 16 j] and t[i][j] += C[a0 + i] . E[b0 + 16 j]
+// over DC columns (two_products without the zeroing: the next chunk's sums).
+__device__ __forceinline__ void two_products_add(const float* A,
+                                                 const float* C,
+                                                 const float* Bt,
+                                                 const float* E, int a0,
+                                                 int b0, float s[4][4],
+                                                 float t[4][4]) {
+  constexpr int LD = DC + 4;
+#pragma unroll 2
+  for (int d = 0; d < DC; d += 4) {
+    float4 b[4], e[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = *reinterpret_cast<const float4*>(&Bt[(b0 + 16 * j) * LD + d]);
+      e[j] = *reinterpret_cast<const float4*>(&E[(b0 + 16 * j) * LD + d]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(&A[(a0 + i) * LD + d]);
+      const float4 c = *reinterpret_cast<const float4*>(&C[(a0 + i) * LD + d]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += dot4(a, b[j]);
+        t[i][j] += dot4(c, e[j]);
+      }
+    }
+  }
+}
+
+// Both score products of a tile pair over all NC chunks: the chunks' tiles
+// of A, C (rows r_a) and B, E (rows r_b) loaded in turn into the four DC
+// buffers. On return the last chunk's tiles are in the buffers.
+template <typename T, int NC>
+__device__ __forceinline__ void chunked_products(
+    float* As, float* Cs, float* Bs, float* Es, const T* a, const T* c,
+    const T* b, const T* e, size_t a_stride, size_t b_stride, int r_a,
+    int r_b, int S, int hd, int a0, int b0, float s[4][4], float t[4][4]) {
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch) {
+    const int o = ch * DC;
+    __syncthreads();  // the previous readers of the buffers are done
+    load_tile<T, DC>(As, a + o, a_stride, r_a, S, hd - o);
+    load_tile<T, DC>(Cs, c + o, a_stride, r_a, S, hd - o);
+    load_tile<T, DC>(Bs, b + o, b_stride, r_b, S, hd - o);
+    load_tile<T, DC>(Es, e + o, b_stride, r_b, S, hd - o);
+    __syncthreads();
+    if (ch == 0)
+      two_products<DC>(As, Cs, Bs, Es, a0, b0, s, t);
+    else
+      two_products_add(As, Cs, Bs, Es, a0, b0, s, t);
+  }
+}
+
+// K3 at D = 256: one block per (q tile, b * H + h), as flash_bwd_dq_kernel.
+template <typename T, int D, bool PAD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int S, int H, int Hkv, int hd_arg, int causal,
+                         float scale) {
+  using L = Tiles<DC>;
+  constexpr int NC = D / DC;
+  constexpr int CW = DC / 16;
+  const int hd = PAD ? hd_arg : D;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + L::tile;
+  float* Ks = dOs + L::tile;
+  float* Vs = Ks + L::tile;
+  float* dSt = Vs + L::tile;  // [BK][LDT]: dS transposed, rounded to T
+
+  const int tid = threadIdx.x;
+  const int rg = tid / 16, kc = tid % 16, cg = tid % 16;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / Hkv);
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const size_t q_off = (size_t)b * S * q_stride + (size_t)h * hd;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * hd;
+
+  float row_lse[4], row_delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + 4 * rg + i;
+    row_lse[i] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
+    row_delta[i] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+  }
+  float acc[NC][4][CW];
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[ch][i][c] = 0.f;
+
+  int nk = (S + BK - 1) / BK;
+  if (causal) {
+    const int last = (q0 + BQ - 1) / BK + 1;
+    nk = nk < last ? nk : last;
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    float s[4][4], dp[4][4];
+    chunked_products<T, NC>(Qs, dOs, Ks, Vs, q + q_off, dout + q_off,
+                            k + kv_off, v + kv_off, q_stride, kv_stride, q0,
+                            k0, S, hd, 4 * rg, kc, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + 4 * rg + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + kc + 16 * j;
+        const bool keep = qi < S && kj < S && !(causal && kj > qi);
+        const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
+        dSt[(kc + 16 * j) * L::LDT + 4 * rg + i] =
+            rt::round_to<T>(p * (dp[i][j] - row_delta[i]) * scale);
+      }
+    }
+    __syncthreads();
+    // the last chunk of K is in Ks; then the others, one at a time
+    accumulate<DC>(dSt, Ks, 4 * rg, cg * CW, acc[NC - 1]);
+#pragma unroll
+    for (int ch = 0; ch < NC - 1; ++ch) {
+      __syncthreads();
+      load_tile<T, DC>(Ks, k + kv_off + ch * DC, kv_stride, k0, S,
+                       hd - ch * DC);
+      __syncthreads();
+      accumulate<DC>(dSt, Ks, 4 * rg, cg * CW, acc[ch]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + 4 * rg + i;
+    if (qi >= S) continue;
+    T* o = dq + q_off + (size_t)qi * q_stride;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int col = ch * DC + cg * CW + c;
+        if (col < hd) o[col] = rt::from_float<T>(acc[ch][i][c]);
+      }
+  }
+}
+
+// K4 at D = 256: one block per (k tile, b * Hkv + kv head), as
+// flash_bwd_dkv_kernel.
+template <typename T, int D, bool PAD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int S,
+                          int H, int Hkv, int hd_arg, int causal,
+                          float scale) {
+  using L = Tiles<DC>;
+  constexpr int NC = D / DC;
+  constexpr int CW = DC / 16;
+  const int hd = PAD ? hd_arg : D;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + L::tile;
+  float* Qs = Vs + L::tile;
+  float* dOs = Qs + L::tile;
+  float* Ps = dOs + L::tile;      // [BQ][LDT]: P, rounded to T
+  float* dSs = Ps + BQ * L::LDT;  // [BQ][LDT]: dS, rounded to T
+  float* lse_s = dSs + BQ * L::LDT;
+  float* delta_s = lse_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int kr = tid / 16, qc = tid % 16, cg = tid % 16;
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  const int g = H / Hkv;
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * hd;
+
+  float acc_k[NC][4][CW], acc_v[NC][4][CW];
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc_k[ch][i][c] = acc_v[ch][i][c] = 0.f;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int first = causal ? k0 / BQ : 0;
+  for (int hh = 0; hh < g; ++hh) {
+    const int h = kvh * g + hh;
+    const size_t bh = (size_t)b * H + h;
+    const size_t q_off = (size_t)b * S * q_stride + (size_t)h * hd;
+    for (int qt = first; qt < nq; ++qt) {
+      const int q0 = qt * BQ;
+      float st[4][4], dpt[4][4];  // [key i][query j], transposed scores
+      chunked_products<T, NC>(Ks, Vs, Qs, dOs, k + kv_off, v + kv_off,
+                              q + q_off, dout + q_off, kv_stride, q_stride,
+                              k0, q0, S, hd, 4 * kr, qc, st, dpt);
+      // lse_s and delta_s: their last readers finished before the loads'
+      // first barrier; the next barrier is after the P and dS stores
+      if (tid < BQ) {
+        const int qi = q0 + tid;
+        lse_s[tid] = qi < S ? lse[bh * S + qi] : 0.f;
+        delta_s[tid] = qi < S ? delta[bh * S + qi] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ql = qc + 16 * j;
+        const int qi = q0 + ql;
+        const float l = lse_s[ql], dl = delta_s[ql];
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kj = k0 + 4 * kr + i;
+          const bool keep = qi < S && kj < S && !(causal && kj > qi);
+          const float pf = keep ? expf(st[i][j] * scale - l) : 0.f;
+          p[i] = rt::round_to<T>(pf);
+          ds[i] = rt::round_to<T>(pf * (dpt[i][j] - dl) * scale);
+        }
+        *reinterpret_cast<float4*>(&Ps[ql * L::LDT + 4 * kr]) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(&dSs[ql * L::LDT + 4 * kr]) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+      __syncthreads();
+      // the last chunk of Q and dO is in Qs and dOs; then the others
+      accumulate<DC>(Ps, dOs, 4 * kr, cg * CW, acc_v[NC - 1]);
+      accumulate<DC>(dSs, Qs, 4 * kr, cg * CW, acc_k[NC - 1]);
+#pragma unroll
+      for (int ch = 0; ch < NC - 1; ++ch) {
+        __syncthreads();
+        load_tile<T, DC>(Qs, q + q_off + ch * DC, q_stride, q0, S,
+                         hd - ch * DC);
+        load_tile<T, DC>(dOs, dout + q_off + ch * DC, q_stride, q0, S,
+                         hd - ch * DC);
+        __syncthreads();
+        accumulate<DC>(Ps, dOs, 4 * kr, cg * CW, acc_v[ch]);
+        accumulate<DC>(dSs, Qs, 4 * kr, cg * CW, acc_k[ch]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + 4 * kr + i;
+    if (kj >= S) continue;
+    const size_t off = kv_off + (size_t)kj * kv_stride;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int col = ch * DC + cg * CW + c;
+        if (col >= hd) continue;
+        dk[off + col] = rt::from_float<T>(acc_k[ch][i][c]);
+        dv[off + col] = rt::from_float<T>(acc_v[ch][i][c]);
+      }
   }
 }
 
@@ -712,6 +997,38 @@ bool misaligned(const Args& a) {
          (u(a.lse) | u(a.delta)) % 4;
 }
 
+// K3 at D = 256, both types: the chunked CUDA-core body.
+template <typename T, int D, bool PAD>
+int launch_dq_wide(const Args& a) {
+  static bool attr = false;
+  const int bytes = Tiles<DC>::dq_bytes;
+  if (int e = allow_smem(flash_bwd_dq_wide_kernel<T, D, PAD>, bytes, &attr))
+    return e;
+  dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  flash_bwd_dq_wide_kernel<T, D, PAD><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.out0), a.S, a.H, a.Hkv, a.hd, a.causal,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 at D = 256, both types: the chunked CUDA-core body.
+template <typename T, int D, bool PAD>
+int launch_dkv_wide(const Args& a) {
+  static bool attr = false;
+  const int bytes = Tiles<DC>::dkv_bytes;
+  if (int e = allow_smem(flash_bwd_dkv_wide_kernel<T, D, PAD>, bytes, &attr))
+    return e;
+  dim3 grid((a.S + BK - 1) / BK, a.B * a.Hkv);
+  flash_bwd_dkv_wide_kernel<T, D, PAD><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.H,
+      a.Hkv, a.hd, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K4 in bf16: the tensor-core body.
 template <int D, bool PAD>
 int launch_dkv_wgmma(const Args& a) {
@@ -754,7 +1071,11 @@ int launch_dq_wgmma(const Args& a) {
 
 template <bool DKV, typename T, int D, bool PAD>
 int run(const Args& a) {
-  if constexpr (DKV && std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (D == 256 && DKV) {
+    return launch_dkv_wide<T, D, PAD>(a);
+  } else if constexpr (D == 256) {
+    return launch_dq_wide<T, D, PAD>(a);
+  } else if constexpr (DKV && std::is_same_v<T, __nv_bfloat16>) {
     return launch_dkv_wgmma<D, PAD>(a);
   } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return launch_dq_wgmma<D, PAD>(a);
@@ -765,10 +1086,11 @@ int run(const Args& a) {
   }
 }
 
-// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8 from 8 to 128):
-// the body compiled at D = 64 for hd <= 64, else at 128, with PAD when
-// hd < D (its tile columns past hd zero-filled). hd 64 and 128 run the
-// bodies with hd known to the compiler.
+// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8 from 8 to 256):
+// the body compiled at D = 64 for hd <= 64, at 128 up to 128, else at
+// 256 (the chunked bodies), with PAD when hd < D (its tile columns past hd
+// zero-filled). hd 64, 128 and 256 run the bodies with hd known to the
+// compiler.
 template <int D_, bool PAD_>
 struct Width {
   static constexpr int D = D_;
@@ -779,8 +1101,10 @@ template <typename F>
 int by_width(int hd, F f) {
   if (hd == 64) return f(Width<64, false>{});
   if (hd == 128) return f(Width<128, false>{});
-  if (hd < 8 || hd > 128 || hd % 8)
+  if (hd == 256) return f(Width<256, false>{});
+  if (hd < 8 || hd > 256 || hd % 8)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hd > 128) return f(Width<256, true>{});
   return hd < 64 ? f(Width<64, true>{}) : f(Width<128, true>{});
 }
 
@@ -803,7 +1127,7 @@ int dispatch(int dtype, const Args& a) {
 }  // namespace
 
 // q/dout/dq [B, S, H, hd]; k/v [B, S, Hkv, hd]; lse/delta [B*H, S] fp32;
-// hd a multiple of 8 from 8 to 128. dtype: 0 = float32, 1 = bfloat16.
+// hd a multiple of 8 from 8 to 256. dtype: 0 = float32, 1 = bfloat16.
 // Returns a cudaError_t.
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,

@@ -11,10 +11,15 @@
 // head i / (H / Hkv)). The kernel reads the model's layout through
 // strides, so no transpose or head repeat is materialized, and it masks a
 // ragged S itself instead of padding to a tile multiple. head_dim: any
-// multiple of 8 up to 128; each body is compiled at D = 64 and 128, and a
+// multiple of 8 up to 256; each body is compiled at D = 64 and 128, and a
 // smaller hd is zero-filled up to D in shared memory (zero columns add
 // nothing to a score and no output column is stored past hd) by the PAD
 // instantiations; hd 64 and 128 run bodies with hd known at compile time.
+// hd 136-256 run the CUDA-core body below at D = 256, in both types: a
+// 64-row wgmma tile's O at N = 256 alone would take 128 registers a
+// thread, and that body's four fp32 tiles at D = 256 (218 KB) still fit
+// one block's shared memory. It is right and simple, one block an SM;
+// making it fast is later work (PERF.md).
 //
 // What bounds it: at [8, 1024, 12, 64] causal bf16 the work is ~12.9
 // GFLOP against ~50 MB of q/k/v/out; at the H100 data sheet's rates
@@ -35,11 +40,12 @@
 // and hide each other's softmax, products and copies. Fewer, larger
 // blocks measured slower on an H100: two warpgroups sharing a 128-row
 // block, and an in-warpgroup overlap of softmax with the PV product (128
-// registers, four blocks an SM). fp32 (`flash_fwd_kernel`): the products as
-// fp32 FMAs on the CUDA cores (tensor cores would take fp32 as TF32, and
-// the fp32 path is the one the exactness checks hold to the plain
-// version): Q and K stored transposed so each thread's 4x4 score tile and
-// 4x(D/16) output tile come from float4 shared-memory loads.
+// registers, four blocks an SM). fp32 (`flash_fwd_kernel`, also bf16 at
+// D = 256): the products as fp32 FMAs on the CUDA cores (tensor cores
+// would take fp32 as TF32, and the fp32 path is the one the exactness
+// checks hold to the plain version): Q and K stored transposed so each
+// thread's 4x4 score tile and 4x(D/16) output tile come from float4
+// shared-memory loads.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -402,10 +408,10 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 
 }  // namespace wg
 
-// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8 from 8 to 128):
-// the body compiled at D = 64 for hd <= 64, else at 128, with PAD when
-// hd < D (its tile columns past hd zero-filled). hd 64 and 128 run the
-// bodies with hd known to the compiler.
+// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8 from 8 to 256):
+// the body compiled at D = 64 for hd <= 64, at 128 up to 128, else at
+// 256, with PAD when hd < D (its tile columns past hd zero-filled). hd 64,
+// 128 and 256 run the bodies with hd known to the compiler.
 template <int D_, bool PAD_>
 struct Width {
   static constexpr int D = D_;
@@ -416,16 +422,19 @@ template <typename F>
 int by_width(int hd, F f) {
   if (hd == 64) return f(Width<64, false>{});
   if (hd == 128) return f(Width<128, false>{});
-  if (hd < 8 || hd > 128 || hd % 8)
+  if (hd == 256) return f(Width<256, false>{});
+  if (hd < 8 || hd > 256 || hd % 8)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hd > 128) return f(Width<256, true>{});
   return hd < 64 ? f(Width<64, true>{}) : f(Width<128, true>{});
 }
 
 }  // namespace
 
 // q/out [B, S, H, hd]; k/v [B, S, Hkv, hd]; lse [B*H, S] fp32 or null.
-// hd: a multiple of 8 from 8 to 128 (run at D = 64 up to 64, else 128).
-// dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core body).
+// hd: a multiple of 8 from 8 to 256 (run at D = 64 up to 64, 128 up to
+// 128, else 256). dtype: 0 = float32 (CUDA-core body), 1 = bfloat16
+// (tensor-core body; the CUDA-core body at D = 256).
 // Returns a cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int H,
@@ -442,8 +451,13 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return by_width(hd, [&](auto w) {
       using W = decltype(w);
-      return wg::launch<W::D, W::PAD>(q, k, v, out, l, B, S, H, Hkv, hd,
-                                      causal, scale, s);
+      if constexpr (W::D == 256)
+        return launch<__nv_bfloat16, W::D, W::PAD>(q, k, v, out, l, B, S, H,
+                                                   Hkv, hd, causal, scale,
+                                                   s);
+      else
+        return wg::launch<W::D, W::PAD>(q, k, v, out, l, B, S, H, Hkv, hd,
+                                        causal, scale, s);
     });
   return static_cast<int>(cudaErrorInvalidValue);
 }

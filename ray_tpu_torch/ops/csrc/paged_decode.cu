@@ -58,13 +58,16 @@
 // scratch page 0 are read like any page; a split with nothing to attend
 // contributes (m = -inf, l = 0).
 //
-// head_dim: any multiple of 8 up to 128 (a row is then a multiple of 16
+// head_dim: any multiple of 8 up to 256 (a row is then a multiple of 16
 // bytes, as the bulk copies need). hd 64 and 128 have instantiations of
 // their own (HD = hd, every loop bound known to the compiler); every other
 // hd runs the HD = 0 instantiation, the same body with hd read at run
 // time. Shared memory holds the real rows (a chunk is still one contiguous
 // run of n x hd elements); the PV items are (4 columns, key split) pairs
-// of the real hd, threads past the last whole key split idle in PV.
+// of the real hd, threads past the last whole key split idle in PV. Up to
+// hd 256 the sizes stay inside one block's budget: a chunk is at most
+// 16 KB of K (16 fp32 tokens at hd 256), the key splits' partials at most
+// kThreads x 4 floats a row, the cluster's accs 8 x 8 x 256 fp32 (64 KB).
 #include <cfloat>
 
 #include "common.cuh"
@@ -398,7 +401,7 @@ int dispatch_hd(const Args& a, cudaStream_t s) {
 // q [B, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (16-byte
 // aligned: the bulk copies; else cudaErrorMisalignedAddress); lengths [B]
 // int32; tables [B, P] int32; out [B, hkv*G, hd]; hd a multiple of 8 from
-// 8 to 128. The plan (decode_plan in paged_attention.py): `rows`
+// 8 to 256. The plan (decode_plan in paged_attention.py): `rows`
 // (1-8) query heads a block, `splits` (1-8) blocks a cluster, each over
 // `split_len` positions in chunks of `chunk` tokens (a chunk never
 // crosses a page: page % chunk == 0) through `stages` (1-2) stages.
@@ -411,7 +414,7 @@ extern "C" int rt_paged_decode(const void* q, const void* k_pages,
                                int chunk, int stages, float scale, int dtype,
                                void* stream) {
   if (B < 1 || hkv < 1 || G < 1 || P < 1 || rows < 1 || rows > 8 ||
-      hd < 8 || hd > 128 || hd % 8 ||
+      hd < 8 || hd > 256 || hd % 8 ||
       splits < 1 || splits > kMaxSplits ||
       (splits - 1) * split_len >= P * page || splits * split_len < P * page ||
       chunk < 1 || chunk > kMaxChunk ||

@@ -65,11 +65,14 @@
 // written by several blocks at once (inactive slots, all-zero table
 // rows), which its garbage-by-contract allows.
 //
-// head_dim: any multiple of 8 up to 128 (a row is then a multiple of 16
+// head_dim: any multiple of 8 up to 256 (a row is then a multiple of 16
 // bytes, as the bulk copies need). hd 64 and 128 have instantiations of
-// their own (HD = hd); every other hd runs the HD = 0 instantiation, the
+// their own (HD = hd); every other hd runs an HD = 0 instantiation, the
 // same body with hd read at run time, on the real rows (stage, q and
-// partials all hd wide).
+// partials all hd wide). HMAX bounds the run-time hd: 128 for hd up to
+// 128 (one PV item a thread), 256 above it (two PV items a thread, 40
+// more accumulator registers, so two blocks an SM instead of three; the
+// shared memory, ~112 KB at bf16 hd 256, allows two anyway).
 #include <cfloat>
 
 #include "common.cuh"
@@ -121,7 +124,7 @@ Plan plan(int hd, int page) {
 // Rows are padded to Rp, a multiple of RB (the verify step's S = 5 rows
 // per query head fill it, for any g). HD: the head_dim, or 0 for one read
 // from `hd_arg` at run time.
-template <typename T, int HD, bool INSERT, typename PoolPtr>
+template <typename T, int HD, int HMAX, bool INSERT, typename PoolPtr>
 __device__ __forceinline__ void verify_body(
     const T* __restrict__ q, PoolPtr k_pages, PoolPtr v_pages,
     const T* __restrict__ knew, const T* __restrict__ vnew,
@@ -132,8 +135,8 @@ __device__ __forceinline__ void verify_body(
   const int hd = HD ? HD : hd_arg;
   const int CH = hd / E;      // 16-byte pieces per row
   const int C4 = hd / 4;      // 4-column slices per row
-  constexpr int NI =  // PV items per thread, at most (hd <= 128)
-      ((kMaxRows + RB - 1) / RB * ((HD ? HD : 128) / 4) + kThreads - 1) /
+  constexpr int NI =  // PV items per thread, at most (hd <= HMAX)
+      ((kMaxRows + RB - 1) / RB * ((HD ? HD : HMAX) / 4) + kThreads - 1) /
       kThreads;
   static_assert(E % 4 == 0, "q pieces are read as float4");
   extern __shared__ __align__(128) uint8_t smem[];
@@ -405,22 +408,22 @@ __device__ __forceinline__ void verify_body(
 }
 
 // K1': the pools are only read.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 3)
+template <typename T, int HD, int HMAX>
+__global__ void __launch_bounds__(kThreads, HMAX > 128 ? 2 : 3)
 paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tables, T* __restrict__ out,
                     int S, int G, int rows, int hd, int num_pages, int page,
                     int P, float scale, int chunk, int stages) {
-  verify_body<T, HD, false>(q, k_pages, v_pages, nullptr, nullptr, lengths,
-                            tables, out, S, G, rows, hd, num_pages, page, P,
-                            scale, chunk, stages);
+  verify_body<T, HD, HMAX, false>(q, k_pages, v_pages, nullptr, nullptr,
+                                  lengths, tables, out, S, G, rows, hd,
+                                  num_pages, page, P, scale, chunk, stages);
 }
 
 // K5: the pools are written, so they are plain pointers.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 3)
+template <typename T, int HD, int HMAX>
+__global__ void __launch_bounds__(kThreads, HMAX > 128 ? 2 : 3)
 paged_verify_insert_kernel(const T* __restrict__ q, T* k_pages, T* v_pages,
                            const T* __restrict__ knew,
                            const T* __restrict__ vnew,
@@ -429,9 +432,9 @@ paged_verify_insert_kernel(const T* __restrict__ q, T* k_pages, T* v_pages,
                            T* __restrict__ out, int S, int G, int rows,
                            int hd, int num_pages, int page, int P,
                            float scale, int chunk, int stages) {
-  verify_body<T, HD, true>(q, k_pages, v_pages, knew, vnew, lengths, tables,
-                           out, S, G, rows, hd, num_pages, page, P, scale,
-                           chunk, stages);
+  verify_body<T, HD, HMAX, true>(q, k_pages, v_pages, knew, vnew, lengths,
+                                 tables, out, S, G, rows, hd, num_pages,
+                                 page, P, scale, chunk, stages);
 }
 
 struct Args {
@@ -459,7 +462,7 @@ int allow_smem(Kernel kernel, int bytes, int* allowed) {
   return 0;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HMAX>
 int launch(const Args& a, cudaStream_t stream) {
   const Plan pl = plan<T>(a.hd, a.page);
   const int Rp = (a.rows + RB - 1) / RB * RB;
@@ -472,19 +475,21 @@ int launch(const Args& a, cudaStream_t stream) {
   T* out = static_cast<T*>(a.out);
   if (a.insert) {
     static int allowed = 0;
-    if (int e = allow_smem(paged_verify_insert_kernel<T, HD>, (int)bytes,
-                           &allowed))
+    if (int e = allow_smem(paged_verify_insert_kernel<T, HD, HMAX>,
+                           (int)bytes, &allowed))
       return e;
-    paged_verify_insert_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+    paged_verify_insert_kernel<T, HD, HMAX><<<grid, kThreads, bytes,
+                                              stream>>>(
         q, static_cast<T*>(a.k_pages), static_cast<T*>(a.v_pages),
         static_cast<const T*>(a.knew), static_cast<const T*>(a.vnew),
         a.lengths, a.tables, out, a.S, a.G, a.rows, a.hd, a.num_pages,
         a.page, a.P, a.scale, pl.chunk, pl.stages);
   } else {
     static int allowed = 0;
-    if (int e = allow_smem(paged_verify_kernel<T, HD>, (int)bytes, &allowed))
+    if (int e = allow_smem(paged_verify_kernel<T, HD, HMAX>, (int)bytes,
+                           &allowed))
       return e;
-    paged_verify_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+    paged_verify_kernel<T, HD, HMAX><<<grid, kThreads, bytes, stream>>>(
         q, static_cast<const T*>(a.k_pages), static_cast<const T*>(a.v_pages),
         a.lengths, a.tables, out, a.S, a.G, a.rows, a.hd, a.num_pages,
         a.page, a.P, a.scale, pl.chunk, pl.stages);
@@ -494,9 +499,10 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 int dispatch_hd(const Args& a, cudaStream_t s) {
-  if (a.hd == 64) return launch<T, 64>(a, s);
-  if (a.hd == 128) return launch<T, 128>(a, s);
-  return launch<T, 0>(a, s);
+  if (a.hd == 64) return launch<T, 64, 64>(a, s);
+  if (a.hd == 128) return launch<T, 128, 128>(a, s);
+  if (a.hd < 128) return launch<T, 0, 128>(a, s);
+  return launch<T, 0, 256>(a, s);
 }
 
 }  // namespace
@@ -504,7 +510,7 @@ int dispatch_hd(const Args& a, cudaStream_t s) {
 // q [B, S, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (one
 // layer); knew/vnew [B, S, hkv, hd] (read only when insert != 0);
 // lengths [B] int32 (the causal limit of query 0); tables [B, P] int32;
-// out [B, S, hkv*G, hd]; hd a multiple of 8 from 8 to 128. Pointers
+// out [B, S, hkv*G, hd]; hd a multiple of 8 from 8 to 256. Pointers
 // 16-byte aligned (the bulk copies).
 // `rows` (1-40): query rows a block, from the plan (verify_plan in
 // paged_attention.py); the grid takes ceil(G*S / rows) row groups.
@@ -517,7 +523,7 @@ extern "C" int rt_paged_verify(const void* q, void* k_pages, void* v_pages,
                                int P, float scale, int dtype, int insert,
                                void* stream) {
   if (S < 1 || G < 1 || rows < 1 || rows > kMaxRows || page < 1 ||
-      hd < 8 || hd > 128 || hd % 8 ||
+      hd < 8 || hd > 256 || hd % 8 ||
       (G * S + rows - 1) / rows > 65535 || (insert && (!knew || !vnew)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q,    k_pages, v_pages, knew, vnew,      lengths, tables,

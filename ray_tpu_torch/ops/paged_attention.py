@@ -9,7 +9,7 @@ Layouts (the port's pool layout, see `csrc/paged_decode.cu`):
   lengths          [B] int32, attend positions < lengths (verify: query j
                    attends positions < lengths + j)
   page_tables      [B, P] int32 page ids in position order (0 = scratch)
-Returns q's shape. head_dim: a multiple of 8 from 8 to 128 (the JAX
+Returns q's shape. head_dim: a multiple of 8 from 8 to 256 (the JAX
 package's Pallas condition, `hd % 8 == 0`; `_build.check_head_dim`).
 
 A slot attends at most P pages, and a query row with nothing to attend

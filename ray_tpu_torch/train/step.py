@@ -1,10 +1,16 @@
 """Train step construction (counterpart of `ray_tpu/train/step.py`).
 
 `make_train_step` keeps the JAX package's signature and its return tuple
-(init_fn, step_fn, compile_for, param_shardings). On one device the step
-is PyTorch's eager autograd plus the optimizer: `compile_for` returns the
-step itself and there are no shardings. A mesh of more than one device is
-the sharded slice of the port (`parallel/mesh.py`, `parallel/sharding.py`).
+(init_fn, step_fn, compile_for, param_shardings). The step is PyTorch's
+eager autograd plus the optimizer; `compile_for` returns the step itself.
+
+On one device (`mesh=None`) there are no shardings. Under a mesh
+(`parallel.make_mesh`; every rank builds the step and calls it alike)
+`init_fn` places the params by the declared specs of `param_axes` and the
+rules as DTensors, the AdamW moments mirror them, and `step_fn` hands the
+loss function this rank's rows of the batch (the batch is placed on
+("dp", "fsdp")); the model gathers each layer over the data axes before
+use and the gradients come back summed over them (models/transformer.py).
 """
 
 from __future__ import annotations
@@ -15,8 +21,11 @@ from typing import Any, Callable
 import torch
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.models.transformer import check_single_device
-from ray_tpu_torch.train.optim import AdamW, tree_map
+from ray_tpu_torch.models.transformer import check_mesh
+from ray_tpu_torch.parallel.sharding import (NamedSharding, ShardingRules,
+                                             declared_param_specs,
+                                             local_shard, place, tree_map)
+from ray_tpu_torch.train.optim import AdamW, shard_grads
 
 
 @dataclasses.dataclass
@@ -27,42 +36,84 @@ class TrainState:
 
 
 def make_train_step(loss_fn: Callable, optimizer: AdamW, mesh=None,
-                    param_axes=None, device="cuda"):
+                    param_axes=None, rules: ShardingRules | None = None,
+                    batch_spec: tuple | None = None, device="cuda"):
     """Returns (init_fn, step_fn, compile_for, param_shardings).
 
-    loss_fn(params, batch) -> fp32 scalar tensor. `param_axes` (the
-    logical-axis tree) matters only on a mesh of more than one device,
-    which raises NotImplementedError in this slice.
+    loss_fn(params, batch) -> fp32 scalar tensor; under a mesh it gets this
+    rank's rows of the batch and returns the global batch's loss (the
+    model's `loss_fn(..., mesh=mesh)` does). `param_axes` is the
+    logical-axis tree of the params, read under a mesh, where
+    `param_shardings` is the tree of their NamedShardings (None without a
+    mesh) and `compile_for.state_shardings(state)` the TrainState of
+    shardings a restore lands in. `batch_spec` defaults to
+    (("dp", "fsdp"),).
 
     step_fn(state, batch) -> (state, loss) updates the state in place (the
     port's counterpart of donation: no second copy of params or moments).
     `loss` is a 0-d tensor on the device: the step reads nothing back to
     the host. Batch tensors are moved to `device` (CUDA unless the caller
-    asks for the CPU)."""
-    check_single_device(mesh, "make_train_step")
+    asks for the CPU); under a mesh that is the mesh's device type."""
     dev = resolve_device(device)
+    param_shardings = None
+    if mesh is not None:
+        check_mesh(mesh, "make_train_step")
+        if param_axes is None:
+            raise ValueError("make_train_step over a mesh needs param_axes")
+        specs = declared_param_specs(param_axes, rules)
+        param_shardings = tree_map(lambda s: NamedSharding(mesh, s), specs)
+        batch_spec = batch_spec if batch_spec is not None else (
+            ("dp", "fsdp"),)
 
     def init_fn(params) -> TrainState:
         """The state takes the params over: they become leaf tensors on
-        the device that step_fn updates in place."""
-        params = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
-                          params)
+        the device (under a mesh: DTensors placed by the declared specs)
+        that step_fn updates in place. Under a mesh every rank passes the
+        same full params."""
+        if mesh is None:
+            params = tree_map(
+                lambda t: t.detach().to(dev).requires_grad_(True), params,
+                is_leaf=lambda t: not isinstance(t, dict))
+        else:
+            params = tree_map(
+                lambda t, s: place(t.detach().to(dev), s).requires_grad_(
+                    True),
+                params, param_shardings,
+                is_leaf=lambda t: not isinstance(t, dict))
         return TrainState(params=params, opt_state=optimizer.init(params),
                           step=torch.zeros((), dtype=torch.int32,
                                            device=dev))
 
     def step_fn(state: TrainState, batch):
         batch = {k: v.to(dev) for k, v in batch.items()}
+        if mesh is not None:
+            batch = {k: local_shard(v, mesh, batch_spec)
+                     for k, v in batch.items()}
         opt = state.opt_state
         loss = loss_fn(state.params, batch)
         loss.backward()
+        if mesh is not None:
+            shard_grads(state.params, opt)
         opt.step()
         opt.zero_grad(set_to_none=True)   # no grads live between steps
         state.step.add_(1)
         return state, loss.detach()
 
+    def state_shardings(state: TrainState) -> TrainState:
+        """The TrainState of shardings for THIS mesh: params and both AdamW
+        moments by the declared specs, the step counts replicated (the
+        restore target of the elastic re-mesh path)."""
+        repl = NamedSharding(mesh, ())
+        return TrainState(
+            params=param_shardings,
+            opt_state={"exp_avg": param_shardings,
+                       "exp_avg_sq": param_shardings, "step": repl},
+            step=repl)
+
     def compile_for(state: TrainState, sample_batch):
-        """One device: the step runs eagerly, nothing to compile."""
+        """The step runs eagerly, nothing to compile."""
         return step_fn
 
-    return init_fn, step_fn, compile_for, None
+    if mesh is not None:
+        compile_for.state_shardings = state_shardings
+    return init_fn, step_fn, compile_for, param_shardings

@@ -289,14 +289,22 @@ def test_decode_step_writes_kv_and_matches_prefill(params):
 
 
 def test_not_in_slice_raises(params):
-    """A tensor-parallel mesh is not in this slice (NotImplementedError,
-    for the decode and the prefill engine); guided decoding, logprobs,
+    """A mesh with sequence, pipeline or expert parallelism is not in this
+    slice (NotImplementedError, for the decode and the prefill engine; tp
+    runs, tests/test_torch_parallel.py); guided decoding, logprobs,
     resume tokens and KV handoff need the paged layout (ValueError, as in
     the JAX engine); an over-long prompt fails its own request."""
+    import types
+    from ray_tpu_torch.parallel import AXES
     _, pt = params
-    for cls in (InferenceEngine, PrefillEngine):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            cls(TINY, EngineConfig(), params=pt, mesh=object(), device="cpu")
+    for axis in ("sp", "pp", "ep"):
+        mesh = types.SimpleNamespace(
+            mesh_dim_names=AXES, shape=tuple(2 if a == axis else 1
+                                             for a in AXES))
+        for cls in (InferenceEngine, PrefillEngine):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                cls(TINY, EngineConfig(), params=pt, mesh=mesh,
+                    device="cpu")
     dense = _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,),
                     kv_layout="dense")
     for kw in (dict(guide=object()), dict(logprobs=True),

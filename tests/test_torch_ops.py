@@ -142,9 +142,9 @@ def _to_port_layout(pages_jax_layout):
 
 # (h, hkv, hd) of the K1 cases: GQA 4/2 at a narrow head; 8 query heads a
 # kv head at head_dim 128; 16 a kv head (two of the CUDA kernel's row
-# groups of at most 8).
+# groups of at most 8); GQA 4/2 at the widest head_dim, 256.
 _DECODE_CASES = {"base": (4, 2, 16), "g8_hd128": (16, 2, 128),
-                 "g16": (16, 1, 16)}
+                 "g16": (16, 1, 16), "hd256": (4, 2, 256)}
 
 
 @pytest.mark.parametrize("dtype,case", [
@@ -258,7 +258,10 @@ def test_split_kv_merge_model_matches_jax_kernel(dtype, splits):
     (2, 128, 64, 2, 1), (8, 128, 64, 2, 1), (2, 128, 128, 2, 8),
     (8, 128, 128, 4, 7), (1, 128, 64, 2, 16), (3, 24, 64, 2, 12),
     (16, 128, 64, 2, 1), (4096, 16, 128, 4, 3), (4, 8, 16, 4, 2),
-    (2, 128, 80, 2, 2), (8, 128, 120, 4, 4), (3, 128, 24, 2, 1)])
+    (2, 128, 80, 2, 2), (8, 128, 120, 4, 4), (3, 128, 24, 2, 1),
+    (2, 128, 136, 2, 2), (8, 128, 136, 4, 8), (4, 16, 200, 4, 1),
+    (2, 128, 200, 2, 3), (2, 128, 256, 2, 1), (16, 128, 256, 4, 8),
+    (3, 24, 256, 4, 2)])
 def test_decode_plan_covers_every_position_once(P, page, hd, itemsize, g):
     """K1's launch plan, from the shapes alone (it takes no lengths), for
     1 to 4096 (slot, kv head) pairs, by the rule and by request: the
@@ -370,14 +373,14 @@ def test_flash_attention_impl_contract():
 def test_kernel_wrappers_validate_before_launch():
     """The CUDA wrappers refuse what the kernels do not take, before any
     build or launch (checked here on meta tensors: no card needed): a
-    head_dim past 128."""
-    q = torch.empty(2, 4, 136, device="meta")
-    pages = torch.empty(2, 3, 8, 136, device="meta")
+    head_dim past 256."""
+    q = torch.empty(2, 4, 264, device="meta")
+    pages = torch.empty(2, 3, 8, 264, device="meta")
     with pytest.raises((TypeError, ValueError)):
         t_paged._paged_decode_cuda(
             q, pages, pages, torch.empty(2, dtype=torch.int32, device="meta"),
             torch.empty(2, 1, dtype=torch.int32, device="meta"))
-    x = torch.empty(1, 8, 2, 136, device="meta")
+    x = torch.empty(1, 8, 2, 264, device="meta")
     with pytest.raises(ValueError):
         t_attention.flash_attention_fwd(x, x, x, True, 1.0)
     rows = torch.empty(2, 8, device="meta")
@@ -619,6 +622,63 @@ def test_flash_attention_grad_matches_jax_interpret(causal, s, h, hkv):
         _bwd_close(g, w)
 
 
+@pytest.mark.parametrize("kernel", ["paged_verify", "flash_fwd",
+                                    "flash_bwd"])
+def test_plain_versions_at_head_dim_256_match_jax(kernel):
+    """At head_dim 256 (Gemma-2-class heads; the widest the CUDA kernels
+    take) the plain versions agree with the JAX package's Pallas kernels
+    in interpret mode, fp32 (K1 at hd 256 is a case of
+    test_paged_decode_plain_matches_jax_kernel_and_reference): K1' with
+    S = 3 over 8-token pages, K2 causal at a ragged S = 37, and K3/K4 from
+    the JAX forward's (o, lse) at S = 32."""
+    from ray_tpu.ops.paged_attention import (
+        paged_verify_attention as j_paged_verify)
+    rng = np.random.default_rng(256)
+    d, h, hkv = 256, 4, 2
+    if kernel == "paged_verify":
+        B, S, page, N, P = 3, 3, 8, 12, 4
+        lengths = np.array([1, 8, 30], np.int32)
+        q = rng.normal(size=(B, S, h, d)).astype(np.float32)
+        kp, vp = (rng.normal(size=(hkv, N, page, d)).astype(np.float32)
+                  for _ in range(2))
+        tables = np.stack([rng.permutation(np.arange(1, N))[:P]
+                           for _ in range(B)]).astype(np.int32)
+        got = t_paged.paged_verify_attention(
+            *(torch.tensor(a) for a in (q, kp, vp, lengths, tables)))
+        want = j_paged_verify(
+            jnp.asarray(q), *(jnp.asarray(np.swapaxes(a, -1, -2))
+                              for a in (kp, vp)),
+            jnp.asarray(lengths), jnp.asarray(tables), interpret=True)
+        _close(got, want, "float32")
+        return
+    if kernel == "flash_fwd":
+        s = 37
+        q, k, v, _ = _bwd_case(rng, s, h, hkv, d=d)
+        want = j_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True,
+                                 impl="interpret")
+        got = flash_attention(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+        return
+    s = 32
+    q, k, v, do = _bwd_case(rng, s, h, hkv, d=d)
+    b, scale = q.shape[0], d ** -0.5
+    jq, jk, jv, jdo = (_heads_first(x, h) for x in (q, k, v, do))
+    jo, jlse = j_attention._flash_fwd(jq, jk, jv, scale, True, 16, 16, True)
+    jlse = jlse[:, :, 0]
+    jdq, jdk, jdv = j_attention._flash_bwd(jq, jk, jv, jo, jlse, jdo, scale,
+                                           True, 16, 16, True)
+    o = np.asarray(jo).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    dq, dk, dv = t_attention.flash_attention_bwd(
+        *(torch.tensor(x) for x in (q, k, v, o, np.asarray(jlse), do)),
+        True, scale)
+    _bwd_close(dq, _from_heads_first(jdq, b, s, h, h))
+    _bwd_close(dk, _from_heads_first(jdk, b, s, h, hkv))
+    _bwd_close(dv, _from_heads_first(jdv, b, s, h, hkv))
+
+
 def test_flash_attention_lse_only_when_grad_is_needed(monkeypatch):
     """Like the JAX primal-only path, the forward computes the lse only
     when some input needs a gradient and grad mode is on."""
@@ -640,7 +700,7 @@ def test_flash_attention_lse_only_when_grad_is_needed(monkeypatch):
     assert xg.grad is not None and xg.grad.shape == x.shape
 
 
-# ---- head_dims: every multiple of 8 up to 128 ----
+# ---- head_dims: every multiple of 8 up to 256 ----
 
 
 def _wrapper_calls(hd):
@@ -670,27 +730,52 @@ def _wrapper_calls(hd):
     }
 
 
-@pytest.mark.parametrize("hd", [136, 12])
-@pytest.mark.parametrize("kernel", ["paged_decode", "paged_verify",
-                                    "paged_verify_insert", "flash_fwd",
-                                    "flash_bwd_dq", "flash_bwd_dkv"])
+_KERNELS = ["paged_decode", "paged_verify", "paged_verify_insert",
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+
+
+@pytest.mark.parametrize("hd", [12, 260, 264])
+@pytest.mark.parametrize("kernel", _KERNELS)
 def test_wrappers_refuse_head_dims_the_kernels_do_not_take(kernel, hd):
-    """A head_dim past 128 or not a multiple of 8 raises a ValueError that
+    """A head_dim past 256 or not a multiple of 8 raises a ValueError that
     names the accepted set, before any build or launch (meta tensors)."""
-    with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
         _wrapper_calls(hd)[kernel]()
 
 
+class _Launched(Exception):
+    """Raised in place of building a kernel library: the wrapper's checks
+    all passed."""
+
+
+@pytest.mark.parametrize("hd", [136, 192, 200, 248, 256])
+@pytest.mark.parametrize("kernel", _KERNELS)
+def test_wrappers_take_head_dims_up_to_256(kernel, hd, monkeypatch):
+    """hd 136-256 pass every check of the six wrappers (meta tensors): the
+    paged ones go on to their library, which is stubbed to raise here, and
+    the flash ones stop only at the device check (a CUDA tensor is next)."""
+    def stub():
+        raise _Launched
+    for name in ("_lib", "_verify_lib"):
+        monkeypatch.setattr(t_paged, name, stub)
+    if kernel.startswith("paged"):
+        with pytest.raises(_Launched):
+            _wrapper_calls(hd)[kernel]()
+    else:
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            _wrapper_calls(hd)[kernel]()
+
+
 def test_every_accepted_head_dim_has_a_kernel_plan():
-    """`check_head_dim` takes exactly the multiples of 8 from 8 to 128 (the
+    """`check_head_dim` takes exactly the multiples of 8 from 8 to 256 (the
     JAX package's Pallas condition, capped at the widest instantiation)
     and raises for every other head_dim; at each accepted one K1's plan
     keeps the C launcher's terms: a power-of-two chunk that divides the
     page, within CHUNK_BYTES."""
     from ray_tpu_torch.ops import _build
-    accepted = [hd for hd in range(0, 260) if hd % 8 == 0 and 8 <= hd <= 128]
+    accepted = [hd for hd in range(0, 300) if hd % 8 == 0 and 8 <= hd <= 256]
     assert list(_build.HEAD_DIMS) == accepted
-    for hd in range(0, 260):
+    for hd in range(0, 300):
         if hd not in accepted:
             with pytest.raises(ValueError, match="multiple of 8"):
                 _build.check_head_dim("k", hd)

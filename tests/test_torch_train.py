@@ -319,22 +319,35 @@ def test_checkpoint_resume_equals_uninterrupted(tmp_path):
 
 def test_train_entry_points_default_to_cuda_and_refuse_meshes():
     """Without a `device` the train entry points run on CUDA and, on a
-    host without a card, raise rather than carry on on the CPU. A mesh of
-    more than one device is the sharded slice and raises."""
+    host without a card, raise rather than carry on on the CPU. A mesh
+    with sequence parallelism is a later slice and raises (dp, fsdp and tp
+    run: tests/test_torch_parallel.py); a JAX Mesh is not a torch
+    DeviceMesh and is refused."""
+    import types
+    from ray_tpu_torch.parallel import AXES
     cfg = configs.tiny()
     step = lambda p, b: loss_fn(p, b, cfg)  # noqa: E731
 
-    class TwoDevices:
-        devices = np.empty((2, 1, 1), dtype=object)
+    def standin(**deg):
+        return types.SimpleNamespace(
+            mesh_dim_names=AXES, shape=tuple(deg.get(a, 1) for a in AXES))
 
-    with pytest.raises(NotImplementedError, match="sharded slice"):
-        make_train_step(step, adamw(1e-3), TwoDevices(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded slice"):
+    axes = param_logical_axes(cfg)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_train_step(step, adamw(1e-3), standin(sp=2), axes,
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
         loss_fn({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)}, cfg,
-                mesh=TwoDevices())
+                mesh=standin(sp=2))
     one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1),
                ("dp", "fsdp", "tp"))
-    make_train_step(step, adamw(1e-3), one, device="cpu")  # one device: ok
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_train_step(step, adamw(1e-3), one, axes, device="cpu")
+    # a one-device mesh: the step is built (placing params needs a group)
+    _, _, compile_for, shardings = make_train_step(
+        step, adamw(1e-3), standin(fsdp=1), axes, device="cpu")
+    assert shardings["layers"]["wq"].spec == (None, "fsdp", "tp")
+    assert callable(compile_for.state_shardings)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
