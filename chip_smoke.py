@@ -7,7 +7,7 @@
                                      # against another, in alternation
     python3 chip_smoke.py --head-dim-times ../parent
                                      # only the kernels' times at head_dims
-                                     # 16-256, of the package at ../parent
+                                     # 12-520, of the package at ../parent
 
 Phases (each raises on failure, so the script exits non-zero and prints
 no result line):
@@ -34,8 +34,9 @@ no result line):
               query rows per kv head (two row groups); K2 and K3/K4 also
               at S = 1, 63, 65, 129 and 1000 (the edges of their 64-row
               tiles) in bf16; then every kernel at head_dims 16, 32, 80,
-              8, 120, 136, 192 and 256 (the reference's kernels take any
-              multiple of 8; the port's up to 256), bf16 and fp32;
+              8, 120, 136, 192, 256, 12, 100, 264, 384 and 520 (the
+              wrappers pad a head_dim to a multiple of 8; past 256 the
+              wide bodies run), bf16 and fp32;
  4. serve   — the engine at full Llama-125M width (bf16, seeded random
               weights): 32 requests of 127 tokens plus 4 sharing a
               128-token prefix, 64 greedy tokens each; the paged-decode
@@ -106,6 +107,18 @@ no result line):
               tokens equal the tp = 1 engine's and a forward argmax, plain
               and speculative; bf16, the serve phase's 32 requests x 64
               tokens timed; K1 12 launches per decode step on each rank.
+17. trainer — the port's runtime (`ray_tpu_torch.init()`, which counts
+              the card as torch does, its native head core and object
+              store built from the checkout) and `Trainer.fit()`: a
+              num_gpus=0 task sees no device, a
+              num_gpus=1 actor one; 10 bf16 llama-125m steps (16 x 1024)
+              on a worker holding the card, K2-K4 12 launches a step in
+              the worker and no plain run, a checkpoint committed at step
+              5; fp32 (2 x 256) losses bit-equal to the same steps in this
+              process; a worker hard-exiting after step 5's commit,
+              resumed from the manifest with bit-equal fp32 losses; two
+              ranks at gpus_per_worker=0.5 under TorchDistributedConfig
+              (gloo) whose all-reduce of a CUDA tensor sums.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -116,6 +129,7 @@ It imports nothing of JAX or of the JAX package `ray_tpu`.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -852,22 +866,28 @@ def check_k3_k4(torch, results):
             library_ms=lib_ms)
 
 
-HEAD_DIMS = (16, 32, 80, 8, 120, 136, 192, 256)
+HEAD_DIMS = (16, 32, 80, 8, 120, 136, 192, 256, 12, 100, 264, 384, 520)
 
 
 def check_head_dims(torch, results, hds=HEAD_DIMS):
-    """Every kernel at head_dims other than 64 and 128 (the reference's
-    Pallas kernels take any multiple of 8): hd 16 and 32 (configs.tiny()
-    and the engine tests' models), 80 (not a power of two), 8 and 120 (the
-    ends of the two narrow instantiations), 136, 192 and 256 (the D = 256
-    bodies, 256 the head width of Gemma-2-class models), bf16 and fp32,
+    """Every kernel at head_dims other than 64 and 128: hd 16 and 32
+    (configs.tiny() and the engine tests' models), 80 (not a power of
+    two), 8 and 120 (the ends of the two narrow instantiations), 136, 192
+    and 256 (the D = 256 bodies, 256 the head width of Gemma-2-class
+    models), 12 and 100 (no multiple of 8: the wrappers zero-pad q to 16
+    and 104; the paged kernels read pools allocated at the padded width,
+    as the engines allocate them) and 264, 384 and 520 (past 256:
+    the chunked flash bodies, the paged bodies with their PV sums in
+    shared memory; 520 past K1's 512 columns of one turn), bf16 and fp32,
     against the plain versions within TOL: K1 under its plan and under 8
     splits, K1' and K5 (K5's written pools bit-equal to the plain
     insert's), K2 causal and
     full at S = 1, 65 and 300, K3/K4 at S = 65 and 300. Their errors join
     each kernel's max_abs_err."""
+    import torch.nn.functional as F
     from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.ops import paged_attention as PA
+    from ray_tpu_torch.ops._build import padded_head_dim
     errs = {k: [] for k in ("paged_decode", "paged_verify",
                             "paged_verify_insert", "flash_fwd",
                             "flash_bwd_dq", "flash_bwd_dkv")}
@@ -878,6 +898,10 @@ def check_head_dims(torch, results, hds=HEAD_DIMS):
             dn = str(dtype).split(".")[1]
             bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
             line = []
+            d8 = padded_head_dim(hd)
+            # the pools at the padded width with zero columns, as the
+            # engines allocate them (the plain versions read them at hd)
+            widen = lambda t: F.pad(t, (0, d8 - hd))  # noqa: E731
             # K1: 8 query heads over 4 kv heads, 16-token pages x 32 and
             # 128-token pages x 5
             e = 0.0
@@ -887,8 +911,9 @@ def check_head_dims(torch, results, hds=HEAD_DIMS):
                                                   seed=12)
                 want = PA.paged_decode_attention_reference(q, pk[0], pv[0],
                                                            lens, tables)
+                pk, pv = widen(pk), widen(pv)
                 for splits in (0, 8):
-                    pl = PA.decode_plan(P, page, hd, q.element_size(), 2,
+                    pl = PA.decode_plan(P, page, d8, q.element_size(), 2,
                                         len(lens_l) * 4, splits=splits)
                     got = PA._paged_decode_cuda(q, pk[0], pv[0], lens,
                                                 tables, pl)
@@ -903,28 +928,31 @@ def check_head_dims(torch, results, hds=HEAD_DIMS):
             q, pk, pv, _kn, _vn, lens, tables = verify_case(
                 torch, len(vlens), 5, 8, 4, hd, 128, 8, vlens, dtype,
                 seed=13)
+            want = PA.paged_verify_attention_reference(q, pk[0], pv[0],
+                                                       lens, tables)
+            pk, pv = widen(pk), widen(pv)
             got = PA.paged_verify_attention(q, pk[0], pv[0], lens, tables)
-            want = PA.paged_verify_attention_reference(q, pk[0], pv[0], lens,
-                                                       tables)
             e = (got.float() - want.float()).abs().max().item()
-            errs["paged_verify"].append(e)
-            line.append(f"K1' {e:.2e}")
             q, pk, pv, kn, vn, lens, tables = verify_case(
                 torch, len(vlens), 5, 8, 4, hd, 128, 8, vlens, dtype,
                 seed=14, layers=2, scratch_entries=False, zero_rows=(5,))
+            pk, pv = widen(pk), widen(pv)
             rk, rv = pk.clone(), pv.clone()
-            got, _, _ = PA.paged_verify_insert_attention(q, pk, pv, kn, vn,
-                                                         lens, tables, 1)
-            want, _, _ = PA.paged_verify_insert_reference(q, rk, rv, kn, vn,
-                                                          lens, tables, 1)
+            got, _, _ = PA.paged_verify_insert_attention(
+                q, pk, pv, kn, vn, lens, tables, 1)
+            want, _, _ = PA.paged_verify_insert_reference(
+                q, rk, rv, kn, vn, lens, tables, 1)
             keep = torch.arange(len(vlens), device="cuda") != 5
-            e = (got[keep].float() - want[keep].float()).abs().max().item()
+            e5 = (got[keep].float() - want[keep].float()).abs().max().item()
             same = all(torch.equal(a[:, :, 1:].view(bits),
                                    b[:, :, 1:].view(bits))
                        for a, b in ((pk, rk), (pv, rv)))
-            errs["paged_verify_insert"].append(e)
-            line.append(f"K5 {e:.2e} (pools {'equal' if same else 'DIFFER'})")
             del q, pk, pv, kn, vn, rk, rv, got, want
+            errs["paged_verify"].append(e)
+            line.append(f"K1' {e:.2e}")
+            errs["paged_verify_insert"].append(e5)
+            line.append(f"K5 {e5:.2e} (pools "
+                        f"{'equal' if same else 'DIFFER'})")
             # K2, K3/K4: GQA 4/2
             e2, e34 = 0.0, [0.0, 0.0, 0.0]
             for S in (1, 65, 300):
@@ -2300,15 +2328,342 @@ def tp_serve_phase(torch, smi, serve):
 
 
 
+# ---------------- phase 17: the runtime and the trainer ----------------
+
+
+def trainer_loop(config):
+    """The Trainer's loop (runs in the runtime's worker on the card):
+    `steps` AdamW steps of the port's train step on llama-125m
+    (`configs.bench_125m`, random weights from seed 0, the JAX bench's
+    batch from numpy seed 0) in `config["dtype"]`. Each report carries the
+    loss, the step's host-clock ms (ended by the loss readback), the
+    worker's K2-K4 launch counts since the loop began, its peak device
+    memory and its wall clock. At `ckpt_step` the state is saved into
+    that step's directory and reported as the checkpoint; with
+    `crash_marker` the first run hard-exits once it has committed. A run
+    that finds a checkpoint resumes from it."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import adamw, make_train_step
+    from ray_tpu_torch.train.checkpoint import (Checkpoint, is_committed,
+                                                restore_state, save_state,
+                                                step_dir)
+    from ray_tpu_torch.train.torch import get_device
+    ctx = train.get_context()
+    dev = get_device()   # raises where the rank's card is not visible
+    if dev.type != "cuda":
+        raise RuntimeError(f"the trainer's rank runs on {dev}, not a card")
+    cfg = dataclasses.replace(configs.bench_125m(), dtype=config["dtype"])
+    init_fn, step_fn, _, _ = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), adamw(3e-4), device=dev)
+    state = init_fn(init_params(cfg, torch.Generator().manual_seed(0), dev))
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        restore_state(os.path.join(ckpt.path, "state.pt"), state)
+    B, S = config["batch"]
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (B, S + 1)),
+                                    dtype=torch.int32, device="cuda")}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(int(state.step), config["steps"]):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        loss = loss.item()   # the step's fence
+        metrics = dict(step=step, loss=loss,
+                       ms=(time.perf_counter() - t0) * 1e3,
+                       counts=bwd_counts(),
+                       peak=torch.cuda.max_memory_allocated(),
+                       wall=time.time(),
+                       device=torch.cuda.get_device_name(0))
+        if step != config.get("ckpt_step"):
+            train.report(metrics)
+            continue
+        path = step_dir(ctx.get_trial_dir(), step)
+        save_state(state, os.path.join(path, "state.pt"))
+        train.report(metrics, checkpoint=Checkpoint(path))
+        marker = config.get("crash_marker")
+        if marker and not os.path.exists(marker):
+            deadline = time.monotonic() + 120
+            while not is_committed(path) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            with open(marker, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)  # a hard crash right after the commit
+
+
+def gang_loop(config):
+    """Each rank of a TorchDistributedConfig gang: its rank, world size,
+    local rank, the group's backend and the all-reduce of a CUDA tensor
+    holding rank + 1."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch import train
+    ctx = train.get_context()
+    x = torch.full((4,), float(ctx.get_world_rank() + 1), device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    mine = (ctx.get_world_rank(), ctx.get_world_size(), ctx.get_local_rank(),
+            dist.get_backend(), x.tolist(),
+            os.environ.get("CUDA_VISIBLE_DEVICES"))
+    ranks = [None] * ctx.get_world_size()
+    dist.all_gather_object(ranks, mine)   # rank 0's report carries all
+    train.report(dict(ranks=ranks))
+
+
+def _visibility():
+    """(CUDA_VISIBLE_DEVICES, device count, device names) in a worker."""
+    import torch
+    n = torch.cuda.device_count()
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"), n,
+            [torch.cuda.get_device_name(i) for i in range(n)])
+
+
+class _Visibility:
+    def get(self):
+        return _visibility()
+
+
+def _driver_losses(torch, dtype: str, batch, steps: int) -> list:
+    """The trainer loop's steps run in this process: its losses."""
+    import numpy as np
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import adamw, make_train_step
+    cfg = dataclasses.replace(configs.bench_125m(), dtype=dtype)
+    init_fn, step_fn, _, _ = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), adamw(3e-4), device="cuda")
+    state = init_fn(init_params(cfg, torch.Generator().manual_seed(0),
+                                "cuda"))
+    B, S = batch
+    rng = np.random.default_rng(0)
+    tokens = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (B, S + 1)),
+                                     dtype=torch.int32, device="cuda")}
+    out = []
+    for _ in range(steps):
+        state, loss = step_fn(state, tokens)
+        out.append(loss.item())
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def trainer_phase(torch, smi, train) -> dict:
+    """The port's runtime and Trainer on the card: init() counting the
+    GPUs as torch does, with the native head core and object store built
+    from the checkout; a
+    num_gpus=0 task sees no device and a num_gpus=1 actor exactly one;
+    Trainer.fit() of 10 bf16 llama-125m steps (16 x 1024) on one worker
+    holding the card, K2-K4 12 launches a step each in the worker and no
+    plain run, a checkpoint committed at step 5; fp32 (2 x 256) 3 steps
+    bit-equal to the same steps in this process; a worker that hard-exits
+    after step 5's commit, resumed by FailureConfig(max_failures=1) from
+    the manifest with bit-equal fp32 losses; two ranks at
+    gpus_per_worker=0.5 under TorchDistributedConfig (gloo: they share
+    the card) whose all-reduce of a CUDA tensor sums."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._native import head_core
+    from ray_tpu_torch.core import accelerators
+    from ray_tpu_torch.core.runtime import current_runtime
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchDistributedConfig, Trainer)
+    # by its module name: the workers import the loops (no pickled code)
+    me = importlib.import_module("chip_smoke")
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
+    storage = tempfile.mkdtemp(prefix="trainer-",
+                               dir=os.path.join(ROOT, "tmp"))
+    out = {}
+    try:
+        t_boot = time.time()
+        detected = accelerators.detect_gpus()
+        if detected != torch.cuda.device_count():
+            raise AssertionError(f"detect_gpus() counts {detected} GPUs, "
+                                 f"torch {torch.cuda.device_count()}")
+        rt.init(num_cpus=8, object_store_memory=4 << 30)
+        head = current_runtime()
+        if head._hnat is None or head_core._lib is None:
+            raise AssertionError(f"the native head core did not build: "
+                                 f"{head_core._lib_err!r}")
+        init_s = time.time() - t_boot
+        log(f"  init: {init_s:.2f} s (native head core and object store "
+            f"built from the checkout); GPUs detected {detected}, as "
+            f"torch counts them; init(): {rt.cluster_resources()}")
+        if rt.cluster_resources().get("GPU") != detected:
+            raise AssertionError(f"init() advertises "
+                                 f"{rt.cluster_resources()}, not "
+                                 f"{detected} GPU")
+        cpu_vis = rt.get(rt.remote(num_gpus=0)(me._visibility).remote(),
+                         timeout=120)
+        act = rt.remote(num_gpus=1)(me._Visibility).remote()
+        gpu_vis = rt.get(act.get.remote(), timeout=120)
+        rt.kill(act)
+        log(f"  num_gpus=0 task: CUDA_VISIBLE_DEVICES={cpu_vis[0]!r}, "
+            f"{cpu_vis[1]} devices; num_gpus=1 actor: "
+            f"CUDA_VISIBLE_DEVICES={gpu_vis[0]!r}, {gpu_vis[1]} device "
+            f"{gpu_vis[2]}")
+        if cpu_vis[:2] != ("", 0) or gpu_vis[:2] != ("0", 1):
+            raise AssertionError(f"device visibility: task {cpu_vis}, "
+                                 f"actor {gpu_vis}")
+
+        # gpus_per_worker 0: all the host's GPUs, its one card
+        one_gpu = ScalingConfig(num_workers=1, use_gpu=True)
+        steps = 10
+        t0 = time.time()
+        res = Trainer(me.trainer_loop, train_loop_config=dict(
+            dtype="bfloat16", batch=(TRAIN_BATCH, TRAIN_SEQ), steps=steps,
+            ckpt_step=5), scaling_config=one_gpu,
+            run_config=RunConfig(name="bf16", storage_path=storage)).fit()
+        if res.error is not None:
+            raise AssertionError(f"bf16 fit: {res.error}")
+        hist = res.metrics_history
+        first_wall = hist[0]["wall"]
+        ms = [m["ms"] for m in hist]
+        timed = ms[3:]
+        counts = hist[-1]["counts"]
+        log(f"  bf16 fit, {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} on "
+            f"{hist[-1]['device']}: losses " + ", ".join(
+                f"{m['loss']:.4f}" for m in hist))
+        log(f"  ms/step through the trainer " + ", ".join(
+            f"{x:.2f}" for x in ms) + f"; steps 4-10 median "
+            f"{sorted(timed)[len(timed) // 2]:.2f} against the train "
+            f"phase's {train['step_ms']:.2f} ms/step in this process "
+            f"(each trainer step also reads its loss back) [{smi}]")
+        log(f"  runtime boot to the first report: {first_wall - t_boot:.2f} s "
+            f"(init {init_s:.2f} s, the fit's worker spawn, CUDA init and "
+            f"the first step); worker peak device memory "
+            f"{hist[-1]['peak'] / 2**30:.3f} GiB [{smi}]")
+        log(f"  worker launches over the {steps} steps: K2 {counts['fwd']}, "
+            f"K3 {counts['dq']}, K4 {counts['dkv']}; checkpoint "
+            f"{res.checkpoint}")
+        want = 12 * steps
+        for key in ("fwd", "dq", "dkv"):
+            if counts[key] != {"cuda": want, "plain": 0}:
+                raise AssertionError(f"trainer worker ran {key} "
+                                     f"{counts[key]}, want {want} kernel "
+                                     f"launches, 0 plain")
+        if [m["step"] for m in hist] != list(range(steps)) or not all(
+                math.isfinite(m["loss"]) for m in hist):
+            raise AssertionError(f"bf16 fit reports: {hist}")
+        if res.checkpoint is None or not res.checkpoint.path.endswith(
+                "000005") or not res.checkpoint.is_committed():
+            raise AssertionError(f"no committed step-5 checkpoint: "
+                                 f"{res.checkpoint}")
+        out.update(step_ms=sorted(timed)[len(timed) // 2],
+                   boot_s=first_wall - t_boot, peak=hist[-1]["peak"],
+                   counts=counts)
+
+        fp32 = dict(dtype="float32", batch=(2, 256))
+        want8 = _driver_losses(torch, "float32", fp32["batch"], 8)
+        res = Trainer(me.trainer_loop, train_loop_config=dict(fp32, steps=3),
+                      scaling_config=one_gpu,
+                      run_config=RunConfig(name="fp32", storage_path=storage)
+                      ).fit()
+        got = [m["loss"] for m in res.metrics_history]
+        log(f"  fp32 fit, 3 steps of 2 x 256: {got}; this process: "
+            f"{want8[:3]}")
+        if res.error is not None or got != want8[:3]:
+            raise AssertionError(f"fp32 fit {got} (error {res.error}) != "
+                                 f"this process's {want8[:3]}")
+
+        marker = os.path.join(storage, "crashed")
+        res = Trainer(me.trainer_loop, train_loop_config=dict(
+            fp32, steps=8, ckpt_step=5, crash_marker=marker),
+            scaling_config=one_gpu, run_config=RunConfig(
+                name="restart", storage_path=storage,
+                failure_config=FailureConfig(max_failures=1))).fit()
+        hist = res.metrics_history
+        got = [m["loss"] for m in hist]
+        if res.error is not None or not os.path.exists(marker):
+            raise AssertionError(f"restart fit: error {res.error}, crashed "
+                                 f"{os.path.exists(marker)}")
+        with open(marker) as f:
+            crash_wall = float(f.read())
+        resumed = [m for m in hist if m["wall"] > crash_wall]
+        restart_s = resumed[0]["wall"] - crash_wall
+        log(f"  restart: the worker hard-exited after step 5's commit; "
+            f"resumed at step {resumed[0]['step']} from "
+            f"{res.checkpoint}, first resumed report {restart_s:.2f} s "
+            f"after the crash; losses {got} [{smi}]")
+        if ([m["step"] for m in hist] != list(range(8))
+                or resumed[0]["step"] != 6 or got != want8):
+            raise AssertionError(f"restart losses {got} (steps "
+                                 f"{[m['step'] for m in hist]}) != the "
+                                 f"uninterrupted {want8}")
+        out["restart_s"] = restart_s
+
+        res = Trainer(me.gang_loop, scaling_config=ScalingConfig(
+            num_workers=2, use_gpu=True, gpus_per_worker=0.5),
+            run_config=RunConfig(name="gang", storage_path=storage),
+            torch_config=TorchDistributedConfig()).fit()
+        if res.error is not None:
+            raise AssertionError(f"gang fit: {res.error}")
+        ranks = sorted(tuple(r) for r in res.metrics["ranks"])
+        log(f"  two ranks at gpus_per_worker=0.5: (rank, world, local "
+            f"rank, backend, all-reduce of rank + 1, devices) {ranks}")
+        if ranks != [(r, 2, r, "gloo", [3.0] * 4, "0") for r in (0, 1)]:
+            raise AssertionError(f"gang: {ranks}")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    return out
+
+
+def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
+    """What a padded-width call costs, by torch.profiler's device trace:
+    each kernel's device time a call (the pads, the kernel, the cut), and
+    the host's time to issue `iters` calls beside the device sleep that
+    `device_ms` queues them behind (a host slower than the sleep leaves
+    the device idle inside the timed window)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = 24
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t > 0:
+            rows.append((t / n, e.count / n, e.key))
+    rows.sort(reverse=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(int(1e8))
+    end.record()
+    end.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"  {what} traced: " + "; ".join(
+        f"{k[:48]} {t:.2f} us x {c:g}" for t, c, k in rows)
+        + f" (device us a call, {sum(t for t, _, _ in rows):.2f} in all); "
+        f"the host issues {iters} calls in {issue_ms:.2f} ms against the "
+        f"{sleep_ms:.2f} ms device sleep [{smi}]")
+
+
 def time_head_dims(torch, root: str) -> int:
     """--head-dim-times ROOT: with the package of the checkout at ROOT
     (this one, or another, say the parent commit's), the device time of
-    each kernel in bf16 at head_dims 16, 32, 64, 80, 128 and 256: K2 with
-    lse, K3 and K4 at [8, 1024, 16 heads, 8 kv heads] causal, K1, K1' and
-    K5 at 32 slots x 16/8 heads, lengths 128-191 (P = 2, S = 5 for K1'
-    and K5), each beside its bound (the bytes each input is read and each
-    output written once, or its products, at the card's data-sheet rates);
-    the widths a checkout's wrappers refuse are reported as refused."""
+    each kernel in bf16 at head_dims 12, 16, 32, 64, 80, 100, 128, 256,
+    264, 384 and 520: K2 with lse, K3 and K4 at [8, 1024, 16 heads, 8 kv
+    heads] causal, K1, K1' and K5 at 32 slots x 16/8 heads, lengths
+    128-191 (P = 2, S = 5 for K1' and K5; pools at the padded head_dim
+    where it is no multiple of 8, as the engines allocate them), each
+    beside its bound (the bytes each input is read and each output written
+    once, or its products, at the card's data-sheet rates, for the true
+    head_dim); the widths a checkout's wrappers refuse are reported as
+    refused."""
     sys.path.insert(0, root)
     import ray_tpu_torch
     if not os.path.abspath(ray_tpu_torch.__file__).startswith(root + os.sep):
@@ -2322,7 +2677,10 @@ def time_head_dims(torch, root: str) -> int:
     g = torch.Generator(device="cuda").manual_seed(8)
     lens_l = torch.randint(128, 192, (32,), generator=torch.Generator()
                            .manual_seed(3)).tolist()
-    for hd in (16, 32, 64, 80, 128, 256):
+    import torch.nn.functional as F
+    d8_of = getattr(_build, "padded_head_dim", lambda hd: hd)
+    for hd in (12, 16, 32, 64, 80, 100, 128, 256, 264, 384, 520):
+        d8 = d8_of(hd)
         B, S, H, Hkv = 8, 1024, 16, 8
         q, k, v, do = attn_case(torch, g, B, S, H, Hkv, hd, torch.bfloat16)
         scale = hd ** -0.5
@@ -2344,15 +2702,22 @@ def time_head_dims(torch, root: str) -> int:
         qd, pk, pv, lens, tables = k1_case(torch, 32, H, Hkv, hd, 128, 2,
                                            lens_l, torch.bfloat16, seed=4,
                                            layers=12)
+        pk, pv = F.pad(pk, (0, d8 - hd)), F.pad(pv, (0, d8 - hd))
         k1 = device_ms(torch, lambda i: PA.paged_decode_attention(
             qd, pk[i % 12], pv[i % 12], lens, tables), 240)
         qv, pk, pv, kn, vn, lens, tables = verify_case(
             torch, 32, 5, H, Hkv, hd, 128, 2, lens_l, torch.bfloat16, seed=4,
             layers=12, scratch_entries=False)
+        pk, pv = F.pad(pk, (0, d8 - hd)), F.pad(pv, (0, d8 - hd))
         k1v = device_ms(torch, lambda i: PA.paged_verify_attention(
             qv, pk[i % 12], pv[i % 12], lens, tables), 240)
         k5 = device_ms(torch, lambda i: PA.paged_verify_insert_attention(
             qv, pk, pv, kn, vn, lens, tables, i % 12), 240)
+        if d8 != hd:
+            trace_padded_call(torch, f"K5 at hd {hd}", lambda i:
+                              PA.paged_verify_insert_attention(
+                                  qv, pk, pv, kn, vn, lens, tables, i % 12),
+                              240, smi)
         log(f"  hd {hd}: K2 with lse {fwd * 1e3:.2f} us, K3 {dq * 1e3:.2f} us, "
             f"K4 {dkv * 1e3:.2f} us at [{B},{S},{H}/{Hkv},{hd}] causal; K1 "
             f"{k1 * 1e3:.2f} us, K5 {k5 * 1e3:.2f} us at 32 slots x "
@@ -2499,7 +2864,7 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--serve-worker", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--head-dim-times", metavar="ROOT", nargs="?", const=ROOT,
-                    help="only time the kernels at head_dims 16-256, with "
+                    help="only time the kernels at head_dims 12-520, with "
                     "the package of the checkout at ROOT (default: this)")
     args = ap.parse_args()
     if args.serve_worker:
@@ -2525,13 +2890,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/16] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/17] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/16] build: {len(build_logs)} kernels in "
+    log(f"[2/17] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -2568,7 +2933,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/16] kernels against their plain versions")
+    log("[3/17] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -2577,7 +2942,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/16] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/17] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -2590,7 +2955,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/16] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/17] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -2600,18 +2965,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/16] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/17] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/16] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/17] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/16] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/17] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -2620,19 +2985,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/16] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/17] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/16] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/17] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/16] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/17] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -2642,7 +3007,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/16] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/17] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -2652,7 +3017,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/16] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/17] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -2663,7 +3028,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/16] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/17] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -2673,7 +3038,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/16] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/17] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -2683,12 +3048,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/16] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/17] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
         f"{tps['tokens_per_s']:.1f} tokens/s vs {serve['tokens_per_s']:.1f} "
         f"at tp=1")
+
+    t0 = time.perf_counter()
+    log("[17/17] trainer: the port's runtime and Trainer, llama-125m on a "
+        "worker holding the card")
+    tr = trainer_phase(torch, smi, train)
+    log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
+        f"{tr['step_ms']:.2f} ms/step vs {train['step_ms']:.2f} in this "
+        f"process; boot to first report {tr['boot_s']:.2f} s, restart "
+        f"{tr['restart_s']:.2f} s")
+    for kernel, key in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
+                        ("flash_bwd_dkv", "dkv")):
+        results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)
@@ -2697,7 +3074,7 @@ def main() -> int:
                              "paged_verify_insert", "flash_fwd",
                              "flash_bwd_dq", "flash_bwd_dkv")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

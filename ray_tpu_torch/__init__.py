@@ -1,8 +1,10 @@
-"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's model, kernel,
-LLM-serving and training stack, for one NVIDIA H100.
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu: its core runtime
+(tasks, actors, objects, resources; `init`, `remote`, `get`, ...) and its
+model, kernel, LLM-serving and training stack, for NVIDIA H100s.
 
-Module names mirror the JAX package (`ray_tpu.ops`, `ray_tpu.models`,
-`ray_tpu.llm`, `ray_tpu.train`) so each counterpart is easy to find. The package imports
+Module names mirror the JAX package (`ray_tpu.core`, `ray_tpu.ops`,
+`ray_tpu.models`, `ray_tpu.llm`, `ray_tpu.train`) so each counterpart is
+easy to find. The package imports
 torch and numpy only: never jax, never anything of `ray_tpu` (it keeps its
 own copies of the pure-data modules it needs).
 
@@ -30,4 +32,44 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+from ray_tpu_torch._version import version as __version__  # noqa: E402
+from ray_tpu_torch.core.api import (  # noqa: E402
+    available_resources,
+    cancel,
+    cluster_resources,
+    cpp_function,
+    get,
+    get_actor,
+    get_node_id,
+    init,
+    is_initialized,
+    kill,
+    method,
+    nodes,
+    put,
+    remote,
+    shutdown,
+    timeline,
+    wait,
+)
+from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: E402
+from ray_tpu_torch.core.status import (  # noqa: E402
+    ActorDiedError,
+    GetTimeoutError,
+    ObjectLostError,
+    RayTpuError,
+    TaskCancelledError,
+    TaskError,
+    WorkerCrashedError,
+)
+
+from ray_tpu_torch import util  # noqa: E402,F401  (parity: ray.util)
+
+__all__ = [
+    "resolve_device", "__version__", "init", "shutdown", "is_initialized",
+    "remote", "method", "get", "put", "wait", "kill", "cancel",
+    "get_actor", "cluster_resources", "cpp_function",
+    "available_resources", "nodes", "get_node_id", "timeline", "ObjectRef",
+    "RayTpuError", "TaskError", "TaskCancelledError", "ActorDiedError",
+    "WorkerCrashedError", "ObjectLostError", "GetTimeoutError", "util",
+]

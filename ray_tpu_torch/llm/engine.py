@@ -71,6 +71,7 @@ from ray_tpu_torch.models.transformer import (ModelConfig, _mlp, _moe,
 from ray_tpu_torch.parallel.collectives import gather_from_tp, reduce_from_tp
 from ray_tpu_torch.parallel.sharding import (ShardingRules, shard_params,
                                              tree_map)
+from ray_tpu_torch.ops._build import pad_cols, padded_head_dim
 from ray_tpu_torch.ops.layers import apply_rope, rmsnorm, rope
 from ray_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_verify_insert_attention)
@@ -281,10 +282,11 @@ def prefill_with_prefix_batch(params, tokens, pool_k, pool_v,
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
         # [hkv, n, Pp, page, hd] -> [n, Pp, page, hkv, hd] -> [n, preT, ...]
-        prek = pool_k[li][:, idx].permute(1, 2, 3, 0, 4).reshape(
-            n, pre_t, c.n_kv_heads, c.head_dim)
-        prev = pool_v[li][:, idx].permute(1, 2, 3, 0, 4).reshape(
-            n, pre_t, c.n_kv_heads, c.head_dim)
+        hd = c.head_dim   # the pools may be padded past it (pad_cols)
+        prek = pool_k[li][:, idx, :, :hd].permute(1, 2, 3, 0, 4).reshape(
+            n, pre_t, c.n_kv_heads, hd)
+        prev = pool_v[li][:, idx, :, :hd].permute(1, 2, 3, 0, 4).reshape(
+            n, pre_t, c.n_kv_heads, hd)
         kk = torch.cat([prek.to(k.dtype), k], dim=1)
         vv = torch.cat([prev.to(v.dtype), v], dim=1)
         attn = _dense_attend(q, kk, vv, full_mask[:, None], c, x.dtype)
@@ -303,7 +305,9 @@ def insert_pages_batch(pool_k, pool_v, ks, vs, page_ids, lengths):
     """Write a whole admission burst's prefill KV into its pages, in place.
     ks/vs [L, n, S, hkv, hd]; page_ids [n, n_tab] (0 = scratch, where
     duplicate writes may race — scratch holds garbage by contract);
-    lengths [n]."""
+    lengths [n]. Rows narrower than the pools (padded past an hd that is
+    no multiple of 8) get zero columns."""
+    ks, vs = pad_cols(pool_k.shape[-1], ks, vs)
     L, n, S, hkv, hd = ks.shape
     page = pool_k.shape[3]
     n_tab = page_ids.shape[1]
@@ -399,8 +403,9 @@ def decode_paged(params, pool_k, pool_v, tokens, lengths, active,
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
         pk, pv = pool_k[li], pool_v[li]      # views: writes land in the pool
-        pk[:, w_page, w_off] = k[:, 0].transpose(0, 1).to(pk.dtype)
-        pv[:, w_page, w_off] = v[:, 0].transpose(0, 1).to(pv.dtype)
+        kw, vw = pad_cols(pk.shape[-1], k[:, 0], v[:, 0])  # padded pools
+        pk[:, w_page, w_off] = kw.transpose(0, 1).to(pk.dtype)
+        pv[:, w_page, w_off] = vw.transpose(0, 1).to(pv.dtype)
         attn = paged_decode_attention(q[:, 0].contiguous(), pk, pv, attend,
                                       page_tables)
         attn = attn.reshape(B, 1, c.n_heads * c.head_dim).to(x.dtype)
@@ -791,8 +796,10 @@ class InferenceEngine:
         self.pages_per_slot = -(-e.max_len // page)
         self.num_pages = (e.num_pages
                           or e.max_slots * self.pages_per_slot + 1)
+        # at the kernels' head_dim (a multiple of 8: zero columns past
+        # c.head_dim), so no kernel call copies a pool
         kv_shape = (c.n_layers, c.n_kv_heads, self.num_pages, page,
-                    c.head_dim)
+                    padded_head_dim(c.head_dim))
         self.cache_k = torch.zeros(kv_shape, dtype=c.torch_dtype, device=dev)
         self.cache_v = torch.zeros(kv_shape, dtype=c.torch_dtype, device=dev)
         # page bookkeeping (host side)

@@ -29,9 +29,11 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("paged_decode", "paged_verify", "flash_fwd", "flash_bwd")
 # The `dtype` argument of every C entry point.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The head_dims every kernel takes: the multiples of 8 (the JAX package's
-# Pallas condition, `hd % 8 == 0`) up to 256.
-HEAD_DIMS = range(8, 257, 8)
+# The kernels run a head_dim that is a multiple of 8 (a row is then a
+# multiple of 16 bytes, as the bulk copies need, and the JAX package's
+# Pallas condition is `hd % 8 == 0`); the wrappers zero-pad any other
+# head_dim up to the next one (`padded_head_dim`).
+HEAD_DIM_ALIGN = 8
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -114,12 +116,28 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def padded_head_dim(hd: int) -> int:
+    """The head_dim a kernel runs for `hd`: the next multiple of 8. Zero
+    columns add nothing to q . k and give zero output columns, which the
+    wrappers cut off (the JAX package runs its XLA path there instead)."""
+    return -(-hd // HEAD_DIM_ALIGN) * HEAD_DIM_ALIGN
+
+
+def pad_cols(d8: int, *ts) -> list:
+    """`ts` zero-padded along the last (head) dim to `d8` columns; one
+    that is already `d8` wide comes back as it is."""
+    return [t if t.shape[-1] == d8
+            else torch.nn.functional.pad(t, (0, d8 - t.shape[-1]))
+            for t in ts]
+
+
 def check_head_dim(what: str, hd: int) -> None:
-    """Raise ValueError, naming the accepted set, for a head_dim no kernel
-    takes (each kernel source maps an accepted one to its instantiation)."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{what}: the kernels take a head_dim that is a "
-                         f"multiple of 8 from 8 to 256, got {hd}")
+    """Raise ValueError for a head_dim no kernel takes: the kernels take
+    every positive one (`padded_head_dim`; widths past 256 run in
+    128-column chunks)."""
+    if hd < 1:
+        raise ValueError(f"{what}: the kernels take any positive head_dim, "
+                         f"got {hd}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -8,9 +8,12 @@ hand-written kernels: the forward (`csrc/flash_fwd.cu`, K2) and, when a
 gradient is needed, the dQ and dK/dV backward (`csrc/flash_bwd.cu`, K3
 and K4) behind one `torch.autograd.Function`, the port's `custom_vjp`.
 The kernels mask a ragged S themselves rather than padding to a tile
-multiple, and take every head_dim that is a multiple of 8 up to 256 (the
-JAX package's Pallas condition; `_build.check_head_dim`). The ring/ulysses
-sequence-parallel paths belong to a later slice.
+multiple. They run head_dims that are multiples of 8 (the JAX package's
+Pallas condition), widths past 256 in 128-column chunks; the wrappers
+zero-pad any other head_dim up to the next multiple of 8 and cut the
+results back (`_build.padded_head_dim`), with the scale of the true
+head_dim. The ring/ulysses sequence-parallel paths belong to a later
+slice.
 """
 
 from __future__ import annotations
@@ -65,23 +68,34 @@ def _plain_fwd(q, k, v, causal, scale, with_lse: bool = False):
 
 class _FlashAttention(torch.autograd.Function):
     """K2 with lse forward; delta, K3 and K4 backward (the plain versions
-    of the same wiring when `kernel` is False). Saves (q, k, v, o, lse)."""
+    of the same wiring when `kernel` is False). For the kernels q, k and v
+    are zero-padded once to `padded_head_dim` here, saved so, and the
+    output and dq, dk, dv cut back once. Saves (q, k, v, o, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kernel):
+        d = q.shape[-1]
+        if kernel:
+            q, k, v = _build.pad_cols(_build.padded_head_dim(d), q, k, v)
         fwd = flash_attention_fwd if kernel else _plain_fwd
         out, lse = fwd(q, k, v, causal, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.kernel = causal, scale, kernel
-        return out
+        ctx.causal, ctx.scale, ctx.kernel, ctx.d = causal, scale, kernel, d
+        return out if out.shape[-1] == d else out[..., :d].contiguous()
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = (flash_attention_bwd if ctx.kernel
-               else flash_attention_bwd_reference)
-        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None
+        if not ctx.kernel:
+            return (*flash_attention_bwd_reference(
+                q, k, v, o, lse, do, ctx.causal, ctx.scale), None, None, None)
+        d = ctx.d
+        do, = _build.pad_cols(q.shape[-1], do)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                    ctx.scale)
+        if q.shape[-1] != d:
+            grads = [g[..., :d].contiguous() for g in grads]
+        return (*grads, None, None, None)
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
@@ -150,7 +164,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     output `o` [B, S, H, D] and logsumexp `lse` flat [B*H, S] fp32 (any
     such pair, not only one the forward kernel produced: the ring backward
     passes merged ones). On CUDA tensors: delta = rowsum(dO*O) in plain
-    torch, then the dQ kernel (K3) and the dK/dV kernel (K4). On CPU
+    torch, then the dQ kernel (K3) and the dK/dV kernel (K4), the inputs
+    padded once to `padded_head_dim` and the grads cut back once. On CPU
     tensors: the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
@@ -159,9 +174,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     do = do.to(q.dtype).contiguous()
     delta = ((do.float() * o.float()).sum(-1)     # [B, S, H] -> [B*H, S]
              .transpose(1, 2).reshape(b * h, s).contiguous())
+    d8 = _build.padded_head_dim(d)
+    q, k, v, do = _build.pad_cols(d8, q, k, v, do)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
-    return dq, dk, dv
+    if d8 == d:
+        return dq, dk, dv
+    return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
 
 
 @functools.cache
@@ -228,6 +247,12 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
     tensors. Returns out, or (out, lse) with lse flat [B*H, S] fp32 when
     `with_lse` (the form the backward and the ring slice consume)."""
     B, S, H, Hkv, D = _check_inputs("flash_attention", q, k, v)
+    D8 = _build.padded_head_dim(D)
+    if D8 != D:
+        res = flash_attention_fwd(*_build.pad_cols(D8, q, k, v), causal,
+                                  scale, with_lse)
+        out = (res[0] if with_lse else res)[..., :D].contiguous()
+        return (out, res[1]) if with_lse else out
     out = torch.empty_like(q)
     lse = (torch.empty(B * H, S, dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -249,6 +274,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     [B, S, Hkv, D] and lse/delta flat [B*H, S] fp32."""
     B, S, H, Hkv, D = _check_inputs("flash_bwd_dq", q, k, v, do)
     _check_rows("flash_bwd_dq", q, lse, delta)
+    D8 = _build.padded_head_dim(D)
+    if D8 != D:
+        return flash_bwd_dq(*_build.pad_cols(D8, q, k, v, do), lse, delta,
+                            causal, scale)[..., :D].contiguous()
     dq = torch.empty_like(q)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
@@ -268,6 +297,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     its kv head's query group inside the kernel."""
     B, S, H, Hkv, D = _check_inputs("flash_bwd_dkv", q, k, v, do)
     _check_rows("flash_bwd_dkv", q, lse, delta)
+    D8 = _build.padded_head_dim(D)
+    if D8 != D:
+        dk, dv = flash_bwd_dkv(*_build.pad_cols(D8, q, k, v, do), lse,
+                               delta, causal, scale)
+        return dk[..., :D].contiguous(), dv[..., :D].contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):

@@ -14,8 +14,8 @@
 // outputs are written in the input dtype.
 //
 // Layout: q/dO/dQ [B, S, H, hd], k/v/dK/dV [B, S, Hkv, hd], lse/delta flat
-// [B*H, S] fp32 (row b*H + h). head_dim: any multiple of 8 up to 256
-// (hd 136-256 in the chunked bodies below, at D = 256); each
+// [B*H, S] fp32 (row b*H + h). head_dim: any multiple of 8 (hd past 128
+// in the chunked bodies below); each
 // body is compiled at D = 64 and 128, and a smaller hd is zero-filled up
 // to D in shared memory (zero columns add nothing to a score or to dP, and
 // no output column is stored past hd) by the PAD instantiations; hd 64 and
@@ -362,15 +362,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- K3 and K4 at D = 256 (hd 136-256), fp32 and bf16 ----
+// ---- K3 and K4 past hd 128, fp32 and bf16: the chunked bodies ----
 //
-// The fp32 bodies' design with the head_dim cut into NC chunks of DC = 128
-// columns, so four [64][DC] fp32 tiles (132 KB) take the place of four
-// [64][256] ones (266 KB, past a block's 227 KB). The score products sum
-// over the chunks one after the other (each chunk's tiles loaded in turn
-// into the same buffers); the dS (and P) tile then stays in shared memory
-// while the operand of the accumulate product is loaded chunk by chunk,
-// each into its own fp32 accumulator of 4 rows x 8 columns a thread. The
+// The fp32 bodies' design with the head_dim cut into nc = ceil(hd / DC)
+// chunks of DC = 128 columns (a run-time count), so four [64][DC] fp32
+// tiles (132 KB) take the place of four [64][hd] ones (266 KB at 256,
+// past a block's 227 KB). The score products sum over the chunks one
+// after the other (each chunk's tiles loaded in turn into the same
+// buffers); the dS (and P) tile then stays in shared memory while the
+// operand of the accumulate product is loaded chunk by chunk, each into
+// its own fp32 accumulator of 4 rows x 8 columns a thread. A block keeps
+// OC = 2 output chunks in registers; past 256 the grid's z axis takes
+// ceil(nc / OC) blocks per tile, each recomputing the scores over all of
+// hd for its own two chunks, so one body serves every width. The
 // tensor-core bodies cannot take D = 256 as they are: K4's dK and dV at
 // N = 256 would take 256 accumulator registers a thread. Every tile is
 // read from device memory once more per chunk than the narrow bodies read
@@ -408,16 +412,18 @@ __device__ __forceinline__ void two_products_add(const float* A,
   }
 }
 
-// Both score products of a tile pair over all NC chunks: the chunks' tiles
+constexpr int OC = 2;  // output chunks a block keeps in registers
+
+// Both score products of a tile pair over all nc chunks: the chunks' tiles
 // of A, C (rows r_a) and B, E (rows r_b) loaded in turn into the four DC
 // buffers. On return the last chunk's tiles are in the buffers.
-template <typename T, int NC>
+template <typename T>
 __device__ __forceinline__ void chunked_products(
     float* As, float* Cs, float* Bs, float* Es, const T* a, const T* c,
     const T* b, const T* e, size_t a_stride, size_t b_stride, int r_a,
-    int r_b, int S, int hd, int a0, int b0, float s[4][4], float t[4][4]) {
-#pragma unroll
-  for (int ch = 0; ch < NC; ++ch) {
+    int r_b, int S, int hd, int nc, int a0, int b0, float s[4][4],
+    float t[4][4]) {
+  for (int ch = 0; ch < nc; ++ch) {
     const int o = ch * DC;
     __syncthreads();  // the previous readers of the buffers are done
     load_tile<T, DC>(As, a + o, a_stride, r_a, S, hd - o);
@@ -432,7 +438,8 @@ __device__ __forceinline__ void chunked_products(
   }
 }
 
-// K3 at D = 256: one block per (q tile, b * H + h), as flash_bwd_dq_kernel.
+// K3 past hd 128: one block per (q tile, b * H + h, pair of output
+// chunks), as flash_bwd_dq_kernel.
 template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -442,9 +449,10 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          int S, int H, int Hkv, int hd_arg, int causal,
                          float scale) {
   using L = Tiles<DC>;
-  constexpr int NC = D / DC;
   constexpr int CW = DC / 16;
   const int hd = PAD ? hd_arg : D;
+  const int nc = (hd + DC - 1) / DC;  // chunks of hd
+  const int c0 = blockIdx.z * OC;     // the block's first output chunk
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* dOs = Qs + L::tile;
@@ -470,13 +478,13 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_lse[i] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
     row_delta[i] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
   }
-  float acc[NC][4][CW];
+  float acc[OC][4][CW];
 #pragma unroll
-  for (int ch = 0; ch < NC; ++ch)
+  for (int o = 0; o < OC; ++o)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < CW; ++c) acc[ch][i][c] = 0.f;
+      for (int c = 0; c < CW; ++c) acc[o][i][c] = 0.f;
 
   int nk = (S + BK - 1) / BK;
   if (causal) {
@@ -486,9 +494,9 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     float s[4][4], dp[4][4];
-    chunked_products<T, NC>(Qs, dOs, Ks, Vs, q + q_off, dout + q_off,
-                            k + kv_off, v + kv_off, q_stride, kv_stride, q0,
-                            k0, S, hd, 4 * rg, kc, s, dp);
+    chunked_products<T>(Qs, dOs, Ks, Vs, q + q_off, dout + q_off,
+                        k + kv_off, v + kv_off, q_stride, kv_stride, q0, k0,
+                        S, hd, nc, 4 * rg, kc, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + 4 * rg + i;
@@ -502,15 +510,19 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    // the last chunk of K is in Ks; then the others, one at a time
-    accumulate<DC>(dSt, Ks, 4 * rg, cg * CW, acc[NC - 1]);
+    // the block's chunks, the last first: the last chunk of K is in Ks;
+    // the others are loaded one at a time
 #pragma unroll
-    for (int ch = 0; ch < NC - 1; ++ch) {
-      __syncthreads();
-      load_tile<T, DC>(Ks, k + kv_off + ch * DC, kv_stride, k0, S,
-                       hd - ch * DC);
-      __syncthreads();
-      accumulate<DC>(dSt, Ks, 4 * rg, cg * CW, acc[ch]);
+    for (int o = OC - 1; o >= 0; --o) {
+      const int ch = c0 + o;
+      if (ch >= nc) continue;
+      if (ch != nc - 1) {
+        __syncthreads();
+        load_tile<T, DC>(Ks, k + kv_off + ch * DC, kv_stride, k0, S,
+                         hd - ch * DC);
+        __syncthreads();
+      }
+      accumulate<DC>(dSt, Ks, 4 * rg, cg * CW, acc[o]);
     }
   }
 
@@ -520,17 +532,17 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= S) continue;
     T* o = dq + q_off + (size_t)qi * q_stride;
 #pragma unroll
-    for (int ch = 0; ch < NC; ++ch)
+    for (int oo = 0; oo < OC; ++oo)
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
-        const int col = ch * DC + cg * CW + c;
-        if (col < hd) o[col] = rt::from_float<T>(acc[ch][i][c]);
+        const int col = (c0 + oo) * DC + cg * CW + c;
+        if (col < hd) o[col] = rt::from_float<T>(acc[oo][i][c]);
       }
   }
 }
 
-// K4 at D = 256: one block per (k tile, b * Hkv + kv head), as
-// flash_bwd_dkv_kernel.
+// K4 past hd 128: one block per (k tile, b * Hkv + kv head, pair of
+// output chunks), as flash_bwd_dkv_kernel.
 template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -542,9 +554,10 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           int H, int Hkv, int hd_arg, int causal,
                           float scale) {
   using L = Tiles<DC>;
-  constexpr int NC = D / DC;
   constexpr int CW = DC / 16;
   const int hd = PAD ? hd_arg : D;
+  const int nc = (hd + DC - 1) / DC;  // chunks of hd
+  const int c0 = blockIdx.z * OC;     // the block's first output chunk
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + L::tile;
@@ -564,13 +577,13 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_stride = (size_t)Hkv * hd;
   const size_t kv_off = (size_t)b * S * kv_stride + (size_t)kvh * hd;
 
-  float acc_k[NC][4][CW], acc_v[NC][4][CW];
+  float acc_k[OC][4][CW], acc_v[OC][4][CW];
 #pragma unroll
-  for (int ch = 0; ch < NC; ++ch)
+  for (int o = 0; o < OC; ++o)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < CW; ++c) acc_k[ch][i][c] = acc_v[ch][i][c] = 0.f;
+      for (int c = 0; c < CW; ++c) acc_k[o][i][c] = acc_v[o][i][c] = 0.f;
 
   const int nq = (S + BQ - 1) / BQ;
   const int first = causal ? k0 / BQ : 0;
@@ -581,9 +594,9 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = first; qt < nq; ++qt) {
       const int q0 = qt * BQ;
       float st[4][4], dpt[4][4];  // [key i][query j], transposed scores
-      chunked_products<T, NC>(Ks, Vs, Qs, dOs, k + kv_off, v + kv_off,
-                              q + q_off, dout + q_off, kv_stride, q_stride,
-                              k0, q0, S, hd, 4 * kr, qc, st, dpt);
+      chunked_products<T>(Ks, Vs, Qs, dOs, k + kv_off, v + kv_off,
+                          q + q_off, dout + q_off, kv_stride, q_stride, k0,
+                          q0, S, hd, nc, 4 * kr, qc, st, dpt);
       // lse_s and delta_s: their last readers finished before the loads'
       // first barrier; the next barrier is after the P and dS stores
       if (tid < BQ) {
@@ -612,19 +625,22 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
             make_float4(ds[0], ds[1], ds[2], ds[3]);
       }
       __syncthreads();
-      // the last chunk of Q and dO is in Qs and dOs; then the others
-      accumulate<DC>(Ps, dOs, 4 * kr, cg * CW, acc_v[NC - 1]);
-      accumulate<DC>(dSs, Qs, 4 * kr, cg * CW, acc_k[NC - 1]);
+      // the block's chunks, the last first: the last chunk of Q and dO
+      // is in Qs and dOs; the others are loaded one at a time
 #pragma unroll
-      for (int ch = 0; ch < NC - 1; ++ch) {
-        __syncthreads();
-        load_tile<T, DC>(Qs, q + q_off + ch * DC, q_stride, q0, S,
-                         hd - ch * DC);
-        load_tile<T, DC>(dOs, dout + q_off + ch * DC, q_stride, q0, S,
-                         hd - ch * DC);
-        __syncthreads();
-        accumulate<DC>(Ps, dOs, 4 * kr, cg * CW, acc_v[ch]);
-        accumulate<DC>(dSs, Qs, 4 * kr, cg * CW, acc_k[ch]);
+      for (int o = OC - 1; o >= 0; --o) {
+        const int ch = c0 + o;
+        if (ch >= nc) continue;
+        if (ch != nc - 1) {
+          __syncthreads();
+          load_tile<T, DC>(Qs, q + q_off + ch * DC, q_stride, q0, S,
+                           hd - ch * DC);
+          load_tile<T, DC>(dOs, dout + q_off + ch * DC, q_stride, q0, S,
+                           hd - ch * DC);
+          __syncthreads();
+        }
+        accumulate<DC>(Ps, dOs, 4 * kr, cg * CW, acc_v[o]);
+        accumulate<DC>(dSs, Qs, 4 * kr, cg * CW, acc_k[o]);
       }
     }
   }
@@ -635,13 +651,13 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (kj >= S) continue;
     const size_t off = kv_off + (size_t)kj * kv_stride;
 #pragma unroll
-    for (int ch = 0; ch < NC; ++ch)
+    for (int oo = 0; oo < OC; ++oo)
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
-        const int col = ch * DC + cg * CW + c;
+        const int col = (c0 + oo) * DC + cg * CW + c;
         if (col >= hd) continue;
-        dk[off + col] = rt::from_float<T>(acc_k[ch][i][c]);
-        dv[off + col] = rt::from_float<T>(acc_v[ch][i][c]);
+        dk[off + col] = rt::from_float<T>(acc_k[oo][i][c]);
+        dv[off + col] = rt::from_float<T>(acc_v[oo][i][c]);
       }
   }
 }
@@ -997,14 +1013,15 @@ bool misaligned(const Args& a) {
          (u(a.lse) | u(a.delta)) % 4;
 }
 
-// K3 at D = 256, both types: the chunked CUDA-core body.
+// K3 past 128, both types: the chunked CUDA-core body.
 template <typename T, int D, bool PAD>
 int launch_dq_wide(const Args& a) {
   static bool attr = false;
   const int bytes = Tiles<DC>::dq_bytes;
   if (int e = allow_smem(flash_bwd_dq_wide_kernel<T, D, PAD>, bytes, &attr))
     return e;
-  dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  const int nc = (a.hd + DC - 1) / DC;
+  dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H, (nc + OC - 1) / OC);
   flash_bwd_dq_wide_kernel<T, D, PAD><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -1013,14 +1030,15 @@ int launch_dq_wide(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 at D = 256, both types: the chunked CUDA-core body.
+// K4 past 128, both types: the chunked CUDA-core body.
 template <typename T, int D, bool PAD>
 int launch_dkv_wide(const Args& a) {
   static bool attr = false;
   const int bytes = Tiles<DC>::dkv_bytes;
   if (int e = allow_smem(flash_bwd_dkv_wide_kernel<T, D, PAD>, bytes, &attr))
     return e;
-  dim3 grid((a.S + BK - 1) / BK, a.B * a.Hkv);
+  const int nc = (a.hd + DC - 1) / DC;
+  dim3 grid((a.S + BK - 1) / BK, a.B * a.Hkv, (nc + OC - 1) / OC);
   flash_bwd_dkv_wide_kernel<T, D, PAD><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -1086,11 +1104,11 @@ int run(const Args& a) {
   }
 }
 
-// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8 from 8 to 256):
-// the body compiled at D = 64 for hd <= 64, at 128 up to 128, else at
-// 256 (the chunked bodies), with PAD when hd < D (its tile columns past hd
-// zero-filled). hd 64, 128 and 256 run the bodies with hd known to the
-// compiler.
+// Runs f(Width<D, PAD>{}) for head_dim hd (a multiple of 8): the body
+// compiled at D = 64 for hd <= 64, at 128 up to 128, else the chunked
+// bodies (D = 256: its PAD instantiation takes any hd past 128), with PAD
+// when hd differs from D (tile columns past hd zero-filled). hd 64, 128
+// and 256 run the bodies with hd known to the compiler.
 template <int D_, bool PAD_>
 struct Width {
   static constexpr int D = D_;
@@ -1102,8 +1120,7 @@ int by_width(int hd, F f) {
   if (hd == 64) return f(Width<64, false>{});
   if (hd == 128) return f(Width<128, false>{});
   if (hd == 256) return f(Width<256, false>{});
-  if (hd < 8 || hd > 256 || hd % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd < 8 || hd % 8) return static_cast<int>(cudaErrorInvalidValue);
   if (hd > 128) return f(Width<256, true>{});
   return hd < 64 ? f(Width<64, true>{}) : f(Width<128, true>{});
 }
@@ -1127,7 +1144,7 @@ int dispatch(int dtype, const Args& a) {
 }  // namespace
 
 // q/dout/dq [B, S, H, hd]; k/v [B, S, Hkv, hd]; lse/delta [B*H, S] fp32;
-// hd a multiple of 8 from 8 to 256. dtype: 0 = float32, 1 = bfloat16.
+// hd a multiple of 8. dtype: 0 = float32, 1 = bfloat16.
 // Returns a cudaError_t.
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,

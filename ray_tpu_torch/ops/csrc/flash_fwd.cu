@@ -19,7 +19,10 @@
 // 64-row wgmma tile's O at N = 256 alone would take 128 registers a
 // thread, and that body's four fp32 tiles at D = 256 (218 KB) still fit
 // one block's shared memory. It is right and simple, one block an SM;
-// making it fast is later work (PERF.md).
+// making it fast is later work (PERF.md). Past 256, `flash_fwd_wide_kernel`
+// (both types, any multiple of 8): a block per 128-column slice of O,
+// which recomputes S over all of hd in 128-column chunks, so one body
+// serves every width.
 //
 // What bounds it: at [8, 1024, 12, 64] causal bf16 the work is ~12.9
 // GFLOP against ~50 MB of q/k/v/out; at the H100 data sheet's rates
@@ -239,6 +242,197 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K2 past hd 256, both types: a block per 128-column slice of O ----
+//
+// The fp32 body's design at D = DC = 128 columns a chunk: per k tile the
+// scores sum over ceil(hd / DC) chunks, each chunk's Q and K loaded in
+// turn (from L2 after the first slice's blocks) into the same transposed
+// tiles; the block's slice of V is loaded with the first chunk. Every
+// slice's block computes the same scores, softmax and lse in the same
+// order, so the slices agree; slice 0 writes the lse. The scores are
+// recomputed once per slice: slow at wide hd, right first (PERF.md).
+constexpr int DC = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int S, int H, int Hkv, int hd,
+                      int causal, float scale) {
+  using L = Smem<DC>;
+  constexpr int CW = DC / 16;  // output columns per thread
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* QsT = smem;
+  float* KsT = QsT + DC * L::LDQ;
+  float* Vs = KsT + DC * L::LDK;
+  float* PsT = Vs + BK * L::LDV;
+
+  const int tid = threadIdx.x;
+  const int rg = tid / 16;  // rows 4*rg .. 4*rg+3 of the q tile
+  const int kg = tid % 16;  // keys 4*kg .. 4*kg+3 of a k tile
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / Hkv);
+  const int nc = (hd + DC - 1) / DC;  // chunks of hd
+  const int oc = blockIdx.z * DC;     // this block's first O column
+  const size_t q_stride = (size_t)H * hd;
+  const size_t kv_stride = (size_t)Hkv * hd;
+  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * hd;
+  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * hd;
+  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * hd;
+
+  float m[4], l[4], acc[4][CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+  }
+
+  int nk = (S + BK - 1) / BK;
+  if (causal) {
+    const int last = (q0 + BQ - 1) / BK + 1;
+    nk = nk < last ? nk : last;
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    for (int ch = 0; ch < nc; ++ch) {
+      const int o = ch * DC;
+      __syncthreads();  // the previous readers of the tiles are done
+      for (int idx = tid; idx < BQ * DC; idx += kThreads) {
+        const int r = idx / DC, d = idx % DC;
+        const int s = q0 + r;
+        QsT[d * L::LDQ + r] =
+            s < S && o + d < hd ? rt::to_float(qb[s * q_stride + o + d]) : 0.f;
+      }
+      for (int idx = tid; idx < BK * DC; idx += kThreads) {
+        const int j = idx / DC, d = idx % DC;
+        const int s = k0 + j;
+        KsT[d * L::LDK + j] = s < S && o + d < hd
+                                  ? rt::to_float(kb[s * kv_stride + o + d])
+                                  : 0.f;
+        if (ch == 0)
+          Vs[j * L::LDV + d] = s < S && oc + d < hd
+                                   ? rt::to_float(vb[s * kv_stride + oc + d])
+                                   : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < DC; ++d) {
+        const float4 qa = *reinterpret_cast<const float4*>(
+            &QsT[d * L::LDQ + 4 * rg]);
+        const float4 ka = *reinterpret_cast<const float4*>(
+            &KsT[d * L::LDK + 4 * kg]);
+        const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+        const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[i][j] += qv[i] * kv[j];
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + 4 * rg + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + 4 * kg + j;
+        float x = sc[i][j] * scale;
+        if (kj >= S || (causal && kj > qi)) x = kNegInf;
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        rs += p;
+        PsT[(4 * kg + j) * L::LDP + 4 * rg + i] = rt::round_to<T>(p);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(
+          &PsT[j * L::LDP + 4 * rg]);
+      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+      float vv[CW];
+#pragma unroll
+      for (int c4 = 0; c4 < CW / 4; ++c4) {
+        const float4 va = *reinterpret_cast<const float4*>(
+            &Vs[j * L::LDV + kg * CW + 4 * c4]);
+        vv[4 * c4 + 0] = va.x;
+        vv[4 * c4 + 1] = va.y;
+        vv[4 * c4 + 2] = va.z;
+        vv[4 * c4 + 3] = va.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[i][c] += pv[i] * vv[c];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + 4 * rg + i;
+    if (qi >= S) continue;
+    const float ls = fmaxf(l[i], 1e-30f);
+    T* o = out + (size_t)b * S * q_stride + qi * q_stride + (size_t)h * hd +
+           oc + kg * CW;
+#pragma unroll
+    for (int c = 0; c < CW; ++c)
+      if (oc + kg * CW + c < hd) o[c] = rt::from_float<T>(acc[i][c] / ls);
+    if (lse != nullptr && kg == 0 && blockIdx.z == 0)
+      lse[(size_t)bh * S + qi] = m[i] + logf(ls);
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int S, int H, int Hkv, int hd, int causal,
+                float scale, cudaStream_t stream) {
+  using L = Smem<DC>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  dim3 grid((S + BQ - 1) / BQ, B * H, (hd + DC - 1) / DC);
+  flash_fwd_wide_kernel<T><<<grid, kThreads, L::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv, hd,
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- bf16 body: wgmma products, cp.async staging ----
 
 namespace wg {
@@ -432,9 +626,9 @@ int by_width(int hd, F f) {
 }  // namespace
 
 // q/out [B, S, H, hd]; k/v [B, S, Hkv, hd]; lse [B*H, S] fp32 or null.
-// hd: a multiple of 8 from 8 to 256 (run at D = 64 up to 64, 128 up to
-// 128, else 256). dtype: 0 = float32 (CUDA-core body), 1 = bfloat16
-// (tensor-core body; the CUDA-core body at D = 256).
+// hd: a multiple of 8 (run at D = 64 up to 64, 128 up to 128, 256 up to
+// 256, else by the wide body). dtype: 0 = float32 (CUDA-core body), 1 =
+// bfloat16 (tensor-core body; the CUDA-core bodies past 128).
 // Returns a cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int H,
@@ -442,6 +636,11 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (hd > 256 && hd % 8 == 0 && (dtype == 0 || dtype == 1))
+    return dtype == 0 ? launch_wide<float>(q, k, v, out, l, B, S, H, Hkv, hd,
+                                           causal, scale, s)
+                      : launch_wide<__nv_bfloat16>(q, k, v, out, l, B, S, H,
+                                                   Hkv, hd, causal, scale, s);
   if (dtype == 0)
     return by_width(hd, [&](auto w) {
       using W = decltype(w);

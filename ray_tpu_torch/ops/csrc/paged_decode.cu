@@ -58,16 +58,22 @@
 // scratch page 0 are read like any page; a split with nothing to attend
 // contributes (m = -inf, l = 0).
 //
-// head_dim: any multiple of 8 up to 256 (a row is then a multiple of 16
-// bytes, as the bulk copies need). hd 64 and 128 have instantiations of
-// their own (HD = hd, every loop bound known to the compiler); every other
-// hd runs the HD = 0 instantiation, the same body with hd read at run
-// time. Shared memory holds the real rows (a chunk is still one contiguous
-// run of n x hd elements); the PV items are (4 columns, key split) pairs
-// of the real hd, threads past the last whole key split idle in PV. Up to
-// hd 256 the sizes stay inside one block's budget: a chunk is at most
-// 16 KB of K (16 fp32 tokens at hd 256), the key splits' partials at most
-// kThreads x 4 floats a row, the cluster's accs 8 x 8 x 256 fp32 (64 KB).
+// head_dim: any multiple of 8 (a row is then a multiple of 16 bytes, as
+// the bulk copies need; the wrapper zero-pads any other head_dim up to
+// one). hd 64 and 128 have instantiations of their own (HD = hd, every
+// loop bound known to the compiler); every other hd runs an HD = 0
+// instantiation, the same body with hd read at run time. Shared memory
+// holds the real rows (a chunk is still one contiguous run of n x hd
+// elements); the PV items are (4 columns, key split) pairs of the real
+// hd, threads past the last whole key split idle in PV. Past hd 512 (more
+// 4-column slices than threads) the WIDE instantiation takes over: one
+// key split, each thread walks its slices in turns of kThreads x 4
+// columns with the rows' PV sums in shared memory ([RT][hd] fp32), so
+// one body serves every width. The plan (decode_plan) keeps a block's
+// shared memory inside the budget, with fewer splits, then fewer rows, as
+// hd grows; at hd 256 a chunk is at most 16 KB of K (16 fp32 tokens), the
+// key splits' partials at most kThreads x 4 floats a row, the cluster's
+// accs 8 x 8 x 256 fp32 (64 KB).
 #include <cfloat>
 
 #include "common.cuh"
@@ -78,12 +84,14 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxSplits = 8;       // the portable cluster size
 constexpr int kMaxChunk = kThreads;  // a thread per key of a chunk
+constexpr int kSmemLimit = 227 * 1024;  // a block's, on an H100
 constexpr float kNeg = -0.7f * FLT_MAX;
 
 // Shared memory of a block: the ring of K/V stages (reused at the end for
 // the key splits' partials, [kThreads / (hd / 4)][RT][hd] fp32 <= 2 KB x
-// RT), q [RT][hd] fp32, the chunk's P [RT][chunk] fp32 and, read in rank
-// 0 only, the cluster's partial accs [splits][RT][hd] fp32.
+// RT), q [RT][hd] fp32, WIDE's PV sums [RT][hd] fp32, the chunk's P
+// [RT][chunk] fp32 and, read in rank 0 only, the cluster's partial accs
+// [splits][RT][hd] fp32.
 template <typename T, int RT>
 __host__ __device__ inline size_t ring_bytes(int hd, int chunk, int stages) {
   const size_t ring = (size_t)stages * 2 * chunk * hd * sizeof(T);
@@ -93,15 +101,20 @@ __host__ __device__ inline size_t ring_bytes(int hd, int chunk, int stages) {
 
 template <typename T, int RT>
 __host__ __device__ inline size_t smem_bytes(int hd, int chunk, int stages,
-                                             int splits) {
+                                             int splits, bool wide) {
   return ring_bytes<T, RT>(hd, chunk, stages) +
-         (size_t)RT * (hd + chunk + splits * hd) * 4;
+         (size_t)RT * (hd + chunk + splits * hd + (wide ? hd : 0)) * 4;
 }
+
+// The widest head_dim whose 4-column slices the threads cover in one
+// turn; WIDE instantiations run the wider ones.
+constexpr int kWideHd = 4 * kThreads;
 
 // RT: rows (query heads) a block holds, padded to a power of two; the
 // block's real rows are `rows` (the last row group may hold fewer). HD:
-// the head_dim, or 0 for one read from `hd_arg` at run time.
-template <typename T, int HD, int RT>
+// the head_dim, or 0 for one read from `hd_arg` at run time. WIDE: the
+// PV sums in shared memory, for hd past kWideHd.
+template <typename T, int HD, int RT, bool WIDE>
 __global__ void __launch_bounds__(kThreads, RT <= 2 ? 12 : 6)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
@@ -114,7 +127,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int hd = HD ? HD : hd_arg;
   const int CH = hd / E;               // 16-byte pieces per row
   const int Q4 = hd / 4;               // 4-column slices per row
-  const int KS = kThreads / Q4;        // key splits of the PV sum
+  const int KS = WIDE ? 1 : kThreads / Q4;  // key splits of the PV sum
   constexpr int NW = kThreads / 32;
   // a compiled head_dim's column slices divide the threads evenly
   static_assert((HD == 0 || kThreads % (HD / 4) == 0) && E % 4 == 0,
@@ -150,7 +163,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   T* ring = reinterpret_cast<T*>(smem);
   float* qs = reinterpret_cast<float*>(
       smem + ring_bytes<T, RT>(hd, chunk, stages));  // [RT][hd]
-  float* sc = qs + RT * hd;                          // [RT][chunk]
+  float* accs = qs + RT * hd;                        // WIDE: [RT][hd]
+  float* sc = accs + (WIDE ? RT * hd : 0);           // [RT][chunk]
   float* gacc = sc + RT * chunk;                     // [splits][RT][hd]
   const size_t stage_elems = (size_t)chunk * hd;     // one chunk of K (or V)
   const size_t head_base = (size_t)kvh * num_pages;
@@ -182,6 +196,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     qs[i] = r < nr ? rt::to_float(q[((size_t)b * h + head0 + r) * hd +
                                     i % hd])
                    : 0.f;
+    if (WIDE) accs[i] = 0.f;
   }
   __syncthreads();
 
@@ -200,7 +215,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   // threads past the last whole key split (hd / 4 not dividing kThreads)
   // take no PV item
   const int dq = tid % Q4 * 4, ks = tid / Q4;
-  const bool pv_item = HD || ks < KS;
+  const bool pv_item = !WIDE && (HD || ks < KS);
 
   for (int c = 0; c < nc; ++c) {
     const int n = min(chunk, n_tok - c * chunk);
@@ -268,15 +283,44 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int y = 0; y < 4; ++y) acc[r][y] *= alpha[r];
     }
+    if constexpr (WIDE) {
+      // each thread's 4-column slices in turn, all keys, sums in accs
+      for (int d = tid * 4; d < hd; d += kThreads * 4) {
+        float x[RT][4];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float4 a = *reinterpret_cast<const float4*>(accs + r * hd + d);
+          x[r][0] = a.x * alpha[r];
+          x[r][1] = a.y * alpha[r];
+          x[r][2] = a.z * alpha[r];
+          x[r][3] = a.w * alpha[r];
+        }
+        for (int kk = 0; kk < n; ++kk) {
+          float vf[4];
+          rt::VecLoad<T, 4>::run(Vs + kk * hd + d, vf);
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            const float p = sc[r * chunk + kk];
+#pragma unroll
+            for (int y = 0; y < 4; ++y) x[r][y] = fmaf(p, vf[y], x[r][y]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+          *reinterpret_cast<float4*>(accs + r * hd + d) =
+              make_float4(x[r][0], x[r][1], x[r][2], x[r][3]);
+      }
+    } else {
 #pragma unroll 2
-    for (int kk = pv_item ? ks : n; kk < n; kk += KS) {
-      float vf[4];
-      rt::VecLoad<T, 4>::run(Vs + kk * hd + dq, vf);
+      for (int kk = pv_item ? ks : n; kk < n; kk += KS) {
+        float vf[4];
+        rt::VecLoad<T, 4>::run(Vs + kk * hd + dq, vf);
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float p = sc[r * chunk + kk];
+        for (int r = 0; r < RT; ++r) {
+          const float p = sc[r * chunk + kk];
 #pragma unroll
-        for (int y = 0; y < 4; ++y) acc[r][y] = fmaf(p, vf[y], acc[r][y]);
+          for (int y = 0; y < 4; ++y) acc[r][y] = fmaf(p, vf[y], acc[r][y]);
+        }
       }
     }
     __syncthreads();  // every reader of this stage, of P and of the sums
@@ -288,8 +332,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   // The key splits' partials through the (now idle) ring, summed in a
   // fixed order and stored, with the rows' (max, sum), into slot `split`
-  // of rank 0's shared memory.
-  float* red = reinterpret_cast<float*>(smem);  // [KS][RT][hd]
+  // of rank 0's shared memory (WIDE: the one split's sums, in accs).
+  float* red = WIDE ? accs : reinterpret_cast<float*>(smem);  // [KS][RT][hd]
   if (pv_item) {
 #pragma unroll
     for (int r = 0; r < RT; ++r)
@@ -300,7 +344,6 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   hop::cluster_wait();  // rank 0 has started
   for (int i = tid; i < RT * hd; i += kThreads) {
     float x = 0.f;
-#pragma unroll
     for (int j = 0; j < KS; ++j) x += red[j * RT * hd + i];
     hop::st_cluster(hop::map_rank(&gacc[split * RT * hd + i], 0), x);
   }
@@ -353,11 +396,13 @@ struct Args {
   float scale;
 };
 
-template <typename T, int HD, int RT>
+template <typename T, int HD, int RT, bool WIDE>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<T, RT>(a.hd, a.chunk, a.stages, a.splits);
+  const size_t bytes =
+      smem_bytes<T, RT>(a.hd, a.chunk, a.stages, a.splits, WIDE);
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   static int allowed = 0;
-  auto kernel = paged_decode_kernel<T, HD, RT>;
+  auto kernel = paged_decode_kernel<T, HD, RT, WIDE>;
   if (int e = allow_smem(kernel, (int)bytes, &allowed)) return e;
   const int groups = (a.G + a.rows - 1) / a.rows;
   cudaLaunchConfig_t cfg = {};
@@ -381,18 +426,19 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool WIDE = false>
 int dispatch_rows(const Args& a, cudaStream_t s) {
-  if (a.rows <= 1) return launch<T, HD, 1>(a, s);
-  if (a.rows <= 2) return launch<T, HD, 2>(a, s);
-  if (a.rows <= 4) return launch<T, HD, 4>(a, s);
-  return launch<T, HD, 8>(a, s);
+  if (a.rows <= 1) return launch<T, HD, 1, WIDE>(a, s);
+  if (a.rows <= 2) return launch<T, HD, 2, WIDE>(a, s);
+  if (a.rows <= 4) return launch<T, HD, 4, WIDE>(a, s);
+  return launch<T, HD, 8, WIDE>(a, s);
 }
 
 template <typename T>
 int dispatch_hd(const Args& a, cudaStream_t s) {
   if (a.hd == 64) return dispatch_rows<T, 64>(a, s);
   if (a.hd == 128) return dispatch_rows<T, 128>(a, s);
+  if (a.hd > kWideHd) return dispatch_rows<T, 0, true>(a, s);
   return dispatch_rows<T, 0>(a, s);
 }
 
@@ -400,8 +446,8 @@ int dispatch_hd(const Args& a, cudaStream_t s) {
 
 // q [B, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (16-byte
 // aligned: the bulk copies; else cudaErrorMisalignedAddress); lengths [B]
-// int32; tables [B, P] int32; out [B, hkv*G, hd]; hd a multiple of 8 from
-// 8 to 256. The plan (decode_plan in paged_attention.py): `rows`
+// int32; tables [B, P] int32; out [B, hkv*G, hd]; hd a multiple of 8.
+// The plan (decode_plan in paged_attention.py): `rows`
 // (1-8) query heads a block, `splits` (1-8) blocks a cluster, each over
 // `split_len` positions in chunks of `chunk` tokens (a chunk never
 // crosses a page: page % chunk == 0) through `stages` (1-2) stages.
@@ -414,7 +460,7 @@ extern "C" int rt_paged_decode(const void* q, const void* k_pages,
                                int chunk, int stages, float scale, int dtype,
                                void* stream) {
   if (B < 1 || hkv < 1 || G < 1 || P < 1 || rows < 1 || rows > 8 ||
-      hd < 8 || hd > 256 || hd % 8 ||
+      hd < 8 || hd % 8 ||
       splits < 1 || splits > kMaxSplits ||
       (splits - 1) * split_len >= P * page || splits * split_len < P * page ||
       chunk < 1 || chunk > kMaxChunk ||

@@ -65,14 +65,19 @@
 // written by several blocks at once (inactive slots, all-zero table
 // rows), which its garbage-by-contract allows.
 //
-// head_dim: any multiple of 8 up to 256 (a row is then a multiple of 16
-// bytes, as the bulk copies need). hd 64 and 128 have instantiations of
-// their own (HD = hd); every other hd runs an HD = 0 instantiation, the
-// same body with hd read at run time, on the real rows (stage, q and
-// partials all hd wide). HMAX bounds the run-time hd: 128 for hd up to
-// 128 (one PV item a thread), 256 above it (two PV items a thread, 40
-// more accumulator registers, so two blocks an SM instead of three; the
-// shared memory, ~112 KB at bf16 hd 256, allows two anyway).
+// head_dim: any multiple of 8 (a row is then a multiple of 16 bytes, as
+// the bulk copies need; the wrapper zero-pads any other head_dim up to
+// one). hd 64 and 128 have instantiations of their own (HD = hd); every
+// other hd runs an HD = 0 instantiation, the same body with hd read at
+// run time, on the real rows (stage, q and partials all hd wide). HMAX
+// bounds the run-time hd: 128 for hd up to 128 (one PV item a thread),
+// 256 above it (two PV items a thread, 40 more accumulator registers, so
+// two blocks an SM instead of three; the shared memory, ~112 KB at bf16
+// hd 256, allows two anyway). Past 256, HMAX = 0: ceil(hd / 128) PV items
+// a thread at 40 rows, taken in turns with their sums in shared memory
+// ([Rp][hd] fp32 beside q) and one key split, so one body serves every
+// width; the plan (verify_plan) gives a group at most 40 x 256 / hd rows,
+// which keeps q and the sums the size they have at hd 256.
 #include <cfloat>
 
 #include "common.cuh"
@@ -99,12 +104,16 @@ struct Plan {
 // Bytes of the ring: its stages, and at least the PV partials that reuse
 // it at the end: [KS][Rp][hd] fp32, at most 20 * kThreads floats when
 // KS > 1 (KS * Rp * hd <= 4 * RB * kThreads) and kMaxRows * hd when KS = 1.
+// Past 256 (HMAX = 0) the sums stay in their own [Rp][hd] buffer.
 template <typename T>
-__host__ __device__ inline size_t ring_bytes(int hd, int chunk, int stages) {
+__host__ __device__ inline size_t ring_bytes(int hd, int chunk, int stages,
+                                             bool wide) {
   const size_t ring = (size_t)stages * 2 * chunk * hd * sizeof(T);
-  const size_t red = (size_t)(kMaxRows * hd > 20 * kThreads ? kMaxRows * hd
-                                                            : 20 * kThreads) *
-                     4;
+  const size_t red = wide ? 0
+                          : (size_t)(kMaxRows * hd > 20 * kThreads
+                                         ? kMaxRows * hd
+                                         : 20 * kThreads) *
+                                4;
   return ring > red ? ring : red;
 }
 
@@ -115,15 +124,18 @@ Plan plan(int hd, int page) {
   Plan p;
   p.chunk = kChunkBytes / (hd * (int)sizeof(T));
   if (p.chunk > 128) p.chunk = 128;
+  if (p.chunk < 1) p.chunk = 1;  // a row past kChunkBytes (hd > 4096 fp32)
   if (page < p.chunk) p.chunk = page;
   p.stages = kRingBytes / (2 * p.chunk * hd * (int)sizeof(T));
+  if (p.stages < 1) p.stages = 1;
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   return p;
 }
 
 // Rows are padded to Rp, a multiple of RB (the verify step's S = 5 rows
 // per query head fill it, for any g). HD: the head_dim, or 0 for one read
-// from `hd_arg` at run time.
+// from `hd_arg` at run time; HMAX: its bound, 0 for none (the sums in
+// shared memory).
 template <typename T, int HD, int HMAX, bool INSERT, typename PoolPtr>
 __device__ __forceinline__ void verify_body(
     const T* __restrict__ q, PoolPtr k_pages, PoolPtr v_pages,
@@ -135,9 +147,11 @@ __device__ __forceinline__ void verify_body(
   const int hd = HD ? HD : hd_arg;
   const int CH = hd / E;      // 16-byte pieces per row
   const int C4 = hd / 4;      // 4-column slices per row
+  constexpr bool WIDE = HMAX == 0;
   constexpr int NI =  // PV items per thread, at most (hd <= HMAX)
-      ((kMaxRows + RB - 1) / RB * ((HD ? HD : HMAX) / 4) + kThreads - 1) /
-      kThreads;
+      WIDE ? 1
+           : ((kMaxRows + RB - 1) / RB * ((HD ? HD : HMAX) / 4) + kThreads -
+              1) / kThreads;
   static_assert(E % 4 == 0, "q pieces are read as float4");
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ uint64_t bars[kMaxStages];
@@ -163,8 +177,9 @@ __device__ __forceinline__ void verify_body(
   const int stage_elems = chunk * hd;  // one chunk of K (or V)
   T* ring = reinterpret_cast<T*>(smem);
   float* qs =
-      reinterpret_cast<float*>(smem + ring_bytes<T>(hd, chunk, stages));
-  float* sc = qs + Rp * hd;                          // [Rp][chunk]
+      reinterpret_cast<float*>(smem + ring_bytes<T>(hd, chunk, stages, WIDE));
+  float* accs = qs + Rp * hd;                        // WIDE: [Rp][hd]
+  float* sc = accs + (WIDE ? Rp * hd : 0);           // [Rp][chunk]
   int* tab = reinterpret_cast<int*>(sc + Rp * chunk);  // used pages
 
   // The last row attends the most: positions < eff.
@@ -184,6 +199,7 @@ __device__ __forceinline__ void verify_body(
     qs[i] = r < row0 + R ? rt::to_float(q[(((size_t)b * S + r % S) * h +
                                             kvh * G + r / S) * hd + d])
                          : 0.f;
+    if (WIDE) accs[i] = 0.f;
   }
   if (tid < Rp) {  // padded rows attend nothing
     const int l = tid < R ? len + (row0 + tid) % S : 0;
@@ -240,7 +256,7 @@ __device__ __forceinline__ void verify_body(
   // PV items: (group of RB rows, 4 columns) pairs, times KS key splits
   // when the pairs alone would leave threads idle
   const int pairs = Rp / RB * C4;
-  int KS = pairs >= kThreads ? 1 : kThreads / pairs;
+  int KS = WIDE || pairs >= kThreads ? 1 : kThreads / pairs;
   KS = KS < kMaxSplit ? KS : kMaxSplit;
 
   for (int c = 0; c < nc; ++c) {
@@ -326,8 +342,40 @@ __device__ __forceinline__ void verify_body(
 
     // PV: item = (key split ks, rows r0 .. r0 + RB - 1, columns d .. d + 3);
     // split ks sums keys ks, ks + KS, ... of each chunk into its own partial
+    if constexpr (WIDE) {  // one split; items in turns, sums in accs
+      for (int it = tid; it < pairs; it += kThreads) {
+        const int r0 = it / C4 * RB, d = it % C4 * 4;
+        float x[RB][4];
 #pragma unroll
-    for (int i = 0; i < NI; ++i) {
+        for (int j = 0; j < RB; ++j) {
+          const float a = row_a[r0 + j];
+          const float4 s4 =
+              *reinterpret_cast<const float4*>(accs + (r0 + j) * hd + d);
+          x[j][0] = s4.x * a;
+          x[j][1] = s4.y * a;
+          x[j][2] = s4.z * a;
+          x[j][3] = s4.w * a;
+        }
+        const float* pr = sc + r0 * chunk;
+#pragma unroll 2
+        for (int kk = 0; kk < n; ++kk) {
+          float vf[4];
+          rt::VecLoad<T, 4>::run(Vs + kk * hd + d, vf);
+#pragma unroll
+          for (int j = 0; j < RB; ++j) {
+            const float p = pr[j * chunk + kk];
+#pragma unroll
+            for (int y = 0; y < 4; ++y) x[j][y] = fmaf(p, vf[y], x[j][y]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < RB; ++j)
+          *reinterpret_cast<float4*>(accs + (r0 + j) * hd + d) =
+              make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < (WIDE ? 0 : NI); ++i) {
       const int it = tid + i * kThreads;
       const int ks = it / pairs, r0 = it % pairs / C4 * RB, d = it % C4 * 4;
       if (it < pairs * KS) {
@@ -364,10 +412,10 @@ __device__ __forceinline__ void verify_body(
   }
 
   // Sum the key splits' partials through the (now idle) ring, then
-  // divide by the row sums.
-  float* red = reinterpret_cast<float*>(smem);  // [KS][Rp][hd]
+  // divide by the row sums (WIDE: the one split's sums, in accs).
+  float* red = WIDE ? accs : reinterpret_cast<float*>(smem);  // [KS][Rp][hd]
 #pragma unroll
-  for (int i = 0; i < NI; ++i) {
+  for (int i = 0; i < (WIDE ? 0 : NI); ++i) {
     const int it = tid + i * kThreads;
     if (it < pairs * KS) {
       const int ks = it / pairs, r0 = it % pairs / C4 * RB, d = it % C4 * 4;
@@ -466,9 +514,9 @@ template <typename T, int HD, int HMAX>
 int launch(const Args& a, cudaStream_t stream) {
   const Plan pl = plan<T>(a.hd, a.page);
   const int Rp = (a.rows + RB - 1) / RB * RB;
-  const size_t bytes = ring_bytes<T>(a.hd, pl.chunk, pl.stages) +
-                       (size_t)Rp * a.hd * 4 + (size_t)Rp * pl.chunk * 4 +
-                       (size_t)a.P * 4;
+  const size_t bytes = ring_bytes<T>(a.hd, pl.chunk, pl.stages, HMAX == 0) +
+                       (size_t)Rp * a.hd * 4 * (HMAX == 0 ? 2 : 1) +
+                       (size_t)Rp * pl.chunk * 4 + (size_t)a.P * 4;
   if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(a.B, a.hkv, (a.G * a.S + a.rows - 1) / a.rows);
   const T* q = static_cast<const T*>(a.q);
@@ -502,7 +550,8 @@ int dispatch_hd(const Args& a, cudaStream_t s) {
   if (a.hd == 64) return launch<T, 64, 64>(a, s);
   if (a.hd == 128) return launch<T, 128, 128>(a, s);
   if (a.hd < 128) return launch<T, 0, 128>(a, s);
-  return launch<T, 0, 256>(a, s);
+  if (a.hd <= 256) return launch<T, 0, 256>(a, s);
+  return launch<T, 0, 0>(a, s);
 }
 
 }  // namespace
@@ -510,7 +559,7 @@ int dispatch_hd(const Args& a, cudaStream_t s) {
 // q [B, S, hkv*G, hd]; k_pages/v_pages [hkv, num_pages, page, hd] (one
 // layer); knew/vnew [B, S, hkv, hd] (read only when insert != 0);
 // lengths [B] int32 (the causal limit of query 0); tables [B, P] int32;
-// out [B, S, hkv*G, hd]; hd a multiple of 8 from 8 to 256. Pointers
+// out [B, S, hkv*G, hd]; hd a multiple of 8. Pointers
 // 16-byte aligned (the bulk copies).
 // `rows` (1-40): query rows a block, from the plan (verify_plan in
 // paged_attention.py); the grid takes ceil(G*S / rows) row groups.
@@ -523,7 +572,7 @@ extern "C" int rt_paged_verify(const void* q, void* k_pages, void* v_pages,
                                int P, float scale, int dtype, int insert,
                                void* stream) {
   if (S < 1 || G < 1 || rows < 1 || rows > kMaxRows || page < 1 ||
-      hd < 8 || hd > 256 || hd % 8 ||
+      hd < 8 || hd % 8 ||
       (G * S + rows - 1) / rows > 65535 || (insert && (!knew || !vnew)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q,    k_pages, v_pages, knew, vnew,      lengths, tables,

@@ -9,8 +9,15 @@ Layouts (the port's pool layout, see `csrc/paged_decode.cu`):
   lengths          [B] int32, attend positions < lengths (verify: query j
                    attends positions < lengths + j)
   page_tables      [B, P] int32 page ids in position order (0 = scratch)
-Returns q's shape. head_dim: a multiple of 8 from 8 to 256 (the JAX
-package's Pallas condition, `hd % 8 == 0`; `_build.check_head_dim`).
+Returns q's shape. head_dim: any positive one. The kernels run a
+multiple of 8 (the JAX package's Pallas condition, `hd % 8 == 0`), so
+on the card the pools must be allocated at q's head_dim padded up to the
+next multiple of 8 with zero columns (`_build.padded_head_dim`), as the
+engines allocate them; the wrappers pad q (and the new K/V) and cut the
+output back, with the scale of q's head_dim. The plain versions also
+take pools at q's head_dim. Widths past 256 run
+bodies that keep their PV sums in shared memory; shared memory bounds
+the widest head_dim (about 3000 fp32 columns for K1'/K5).
 
 A slot attends at most P pages, and a query row with nothing to attend
 returns zeros (the TPU kernel's semantics; its dense JAX reference gives
@@ -48,8 +55,10 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_tables):
 
 def paged_decode_attention_reference(q, k_pages, v_pages, lengths,
                                      page_tables):
-    """Plain version: gather the pages densely, mask, softmax in fp32."""
+    """Plain version: gather the pages densely, mask, softmax in fp32
+    (pools padded past q's head_dim are read to q's)."""
     B, h, hd = q.shape
+    k_pages, v_pages = k_pages[..., :hd], v_pages[..., :hd]
     hkv, _n, page, _ = k_pages.shape
     g = h // hkv
     P = page_tables.shape[1]
@@ -68,6 +77,18 @@ def paged_decode_attention_reference(q, k_pages, v_pages, lengths,
     pr = torch.where(lengths[:, None, None, None] > 0, pr, 0.0)
     out = torch.einsum("bkgt,bktd->bkgd", pr, cv.float())
     return out.reshape(B, h, hd).to(q.dtype)
+
+
+def _kernel_pools(what, hd, hd_pool, *ts):
+    """The kernel's head_dim for q's `hd` and `ts` (q, new K/V) zero-padded
+    to it. The pools must already be `padded_head_dim(hd)` wide, as the
+    engines allocate them: a kernel never copies a pool."""
+    d8 = _build.padded_head_dim(hd)
+    if hd_pool != d8:
+        raise ValueError(f"{what}: pools of head_dim {hd_pool} for q of "
+                         f"head_dim {hd} (the kernels take pools "
+                         f"padded_head_dim({hd}) = {d8} wide)")
+    return d8, _build.pad_cols(d8, *ts)
 
 
 # K1's launch plan. A slot's positions [0, P*page) go to `splits` blocks
@@ -90,6 +111,24 @@ FILL_BLOCKS = 128
 CHUNK_BYTES = 16384
 MAX_CHUNK = 128
 MAX_DECODE_ROWS = 8
+# K1's shared memory a block may take (an H100's 227 KB, less the
+# kernel's static arrays) and the head_dim past which a thread takes its
+# PV columns in turns with the sums in shared memory (4 columns a thread
+# of 128).
+DECODE_SMEM_BYTES = 225 * 1024
+DECODE_WIDE_HD = 512
+
+
+def decode_smem_bytes(hd: int, itemsize: int, chunk: int, stages: int,
+                      splits: int, rows: int) -> int:
+    """Dynamic shared memory of a K1 block (`smem_bytes` in
+    paged_decode.cu): the K/V ring (or the key splits' partials), q, P
+    and the cluster's partial sums, RT = rows padded to a power of two;
+    past DECODE_WIDE_HD also the PV sums."""
+    rt = 1 << (rows - 1).bit_length()
+    ring = max(stages * 2 * chunk * hd * itemsize, 128 * 4 * rt * 4)
+    wide = rt * hd * 4 if hd > DECODE_WIDE_HD else 0
+    return ring + rt * (hd + chunk + splits * hd) * 4 + wide
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +148,9 @@ def decode_plan(P: int, page: int, hd: int, itemsize: int, g: int,
     of `page`-token pages, head_dim `hd` in `itemsize`-byte elements and
     g query heads per kv head. `splits` > 0 asks for that many splits
     instead of the rule's (fewer where a power-of-two split length covers
-    the table with fewer)."""
+    the table with fewer). A wide head_dim takes fewer splits, then fewer
+    rows a block, until a block's shared memory fits
+    DECODE_SMEM_BYTES."""
     cap = P * page
     row_groups = -(-g // MAX_DECODE_ROWS)
     if splits <= 0:
@@ -117,13 +158,24 @@ def decode_plan(P: int, page: int, hd: int, itemsize: int, g: int,
         while (splits < MAX_SPLITS and pairs * row_groups * splits
                < FILL_BLOCKS and cap >= 2 * splits * MIN_SPLIT):
             splits *= 2
-    split_len = 1 << (-(-cap // min(splits, MAX_SPLITS)) - 1).bit_length()
-    fit = CHUNK_BYTES // (hd * itemsize)   # tokens of CHUNK_BYTES of K
-    chunk = min(split_len, 1 << (fit.bit_length() - 1), MAX_CHUNK,
-                page & -page)          # the largest power of two in page
-    return DecodePlan(split_len=split_len, splits=-(-cap // split_len),
-                      chunk=chunk, stages=1 if chunk == split_len else 2,
-                      rows=-(-g // row_groups), row_groups=row_groups)
+    fit = max(1, CHUNK_BYTES // (hd * itemsize))  # tokens of 16 KB of K
+    while True:
+        split_len = 1 << (-(-cap // min(splits, MAX_SPLITS)) - 1).bit_length()
+        chunk = min(split_len, 1 << (fit.bit_length() - 1), MAX_CHUNK,
+                    page & -page)      # the largest power of two in page
+        pl = DecodePlan(split_len=split_len, splits=-(-cap // split_len),
+                        chunk=chunk, stages=1 if chunk == split_len else 2,
+                        rows=-(-g // row_groups), row_groups=row_groups)
+        if decode_smem_bytes(hd, itemsize, pl.chunk, pl.stages, pl.splits,
+                             pl.rows) <= DECODE_SMEM_BYTES:
+            return pl
+        if pl.splits > 1:
+            splits = pl.splits // 2
+        elif pl.rows > 1:
+            rt = 1 << (pl.rows - 1).bit_length()   # rows padded in C
+            row_groups = -(-g // (rt // 2))
+        else:
+            return pl   # past what a block holds: the launcher refuses it
 
 
 @functools.cache
@@ -147,7 +199,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables,
         raise TypeError("paged_decode: q and the pools must share a dtype")
     if lengths.dtype != torch.int32 or page_tables.dtype != torch.int32:
         raise TypeError("paged_decode: lengths and page_tables must be int32")
-    if (v_pages.shape != k_pages.shape or hd_k != hd or h % hkv
+    if (v_pages.shape != k_pages.shape or h % hkv
             or lengths.shape != (B,) or page_tables.dim() != 2
             or page_tables.shape[0] != B):
         raise ValueError(
@@ -163,7 +215,8 @@ def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables,
         raise ValueError("paged_decode: all inputs must be on one device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_decode: inputs must be contiguous")
-    pl = plan or decode_plan(page_tables.shape[1], page, hd,
+    d8, (q,) = _kernel_pools("paged_decode", hd, hd_k, q)
+    pl = plan or decode_plan(page_tables.shape[1], page, d8,
                              q.element_size(), h // hkv, B * hkv)
     out = torch.empty_like(q)
     lib = _lib()
@@ -172,12 +225,12 @@ def _paged_decode_cuda(q, k_pages, v_pages, lengths, page_tables,
         rc = lib.rt_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
-            B, hkv, h // hkv, hd, num_pages, page, page_tables.shape[1],
+            B, hkv, h // hkv, d8, num_pages, page, page_tables.shape[1],
             pl.rows, pl.split_len, pl.splits, pl.chunk, pl.stages,
             1.0 / math.sqrt(hd), _build.DTYPE_CODES[q.dtype], stream)
     _build.check(lib, rc, "paged_decode")
     launches["cuda"] += 1
-    return out
+    return out if d8 == hd else out[..., :hd].contiguous()
 
 
 # ---- speculative verify: K1' and K5 ----
@@ -203,6 +256,7 @@ def paged_verify_attention_reference(q, k_pages, v_pages, lengths,
     """Plain version of K1': gather the pages densely, per-query causal
     mask (query j: pos < lengths + j), softmax in fp32."""
     B, S, h, hd = q.shape
+    k_pages, v_pages = k_pages[..., :hd], v_pages[..., :hd]
     hkv, _n, page, _ = k_pages.shape
     g = h // hkv
     P = page_tables.shape[1]
@@ -263,8 +317,10 @@ def insert_tokens_reference(pool_k, pool_v, knew, vnew, lengths,
     """Token scatter of the S new tokens' K/V into pool[layer], in place
     (the JAX package's `_insert_tokens_xla`): token j of slot b goes to
     page tables[b, (lengths-1+j) // page] at offset (lengths-1+j) % page;
-    a position past the table's P pages goes to scratch page 0."""
+    a position past the table's P pages goes to scratch page 0. Pools
+    padded past the new rows' head_dim get zero columns there."""
     S = knew.shape[1]
+    knew, vnew = _build.pad_cols(pool_k.shape[-1], knew, vnew)
     page = pool_k.shape[3]
     P = page_tables.shape[1]
     positions = (lengths - 1)[:, None].long() + torch.arange(
@@ -294,12 +350,23 @@ def _verify_lib():
 MAX_VERIFY_ROWS = 40
 
 
+# Past VERIFY_WIDE_HD the verify kernels keep their PV sums in shared
+# memory beside q, and a group holds at most MAX_VERIFY_ROWS * 256 / hd
+# rows (in fives, the rows a thread takes at a time), so both stay the
+# size they have at hd 256.
+VERIFY_WIDE_HD = 256
+
+
 @functools.cache
-def verify_plan(g: int, S: int) -> tuple[int, int]:
+def verify_plan(g: int, S: int, hd: int = 64) -> tuple[int, int]:
     """(row groups, rows per group) of the verify kernels for g query heads
-    per kv head and S queries per slot: the g*S rows in the fewest groups
-    of at most MAX_VERIFY_ROWS, balanced (the last may hold fewer)."""
-    groups = -(-g * S // MAX_VERIFY_ROWS)
+    per kv head, S queries per slot and head_dim hd (as the kernel runs
+    it): the g*S rows in the fewest groups of at most MAX_VERIFY_ROWS
+    (fewer past VERIFY_WIDE_HD), balanced (the last may hold fewer)."""
+    most = MAX_VERIFY_ROWS
+    if hd > VERIFY_WIDE_HD:
+        most = max(5, MAX_VERIFY_ROWS * VERIFY_WIDE_HD // hd // 5 * 5)
+    groups = -(-g * S // most)
     return groups, -(-g * S // groups)
 
 # The most pages a slot's table row may hold: the verify kernels keep the
@@ -322,7 +389,7 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
                         f"a dtype")
     if lengths.dtype != torch.int32 or page_tables.dtype != torch.int32:
         raise TypeError(f"{what}: lengths and page_tables must be int32")
-    if (v_pages.shape != k_pages.shape or hd_k != hd or h % hkv
+    if (v_pages.shape != k_pages.shape or h % hkv
             or lengths.shape != (B,) or page_tables.dim() != 2
             or page_tables.shape[0] != B
             or any(t.shape != (B, S, hkv, hd) for t in news)):
@@ -347,7 +414,9 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, *news)):
         raise ValueError(f"{what}: q, pools and new K/V must be 16-byte "
                          f"aligned (the kernels move pages by bulk copies)")
-    _groups, rows = verify_plan(h // hkv, S)
+    d8, (q, *news) = _kernel_pools(what, hd, hd_k, q, *news)
+    knew, vnew = news if insert else (None, None)
+    _groups, rows = verify_plan(h // hkv, S, d8)
     out = torch.empty_like(q)
     lib = _verify_lib()
     with torch.cuda.device(q.device):
@@ -357,9 +426,9 @@ def _verify_cuda(q, k_pages, v_pages, knew, vnew, lengths, page_tables,
             knew.data_ptr() if insert else None,
             vnew.data_ptr() if insert else None,
             lengths.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
-            B, S, hkv, h // hkv, rows, hd, num_pages, page,
+            B, S, hkv, h // hkv, rows, d8, num_pages, page,
             page_tables.shape[1], 1.0 / math.sqrt(hd),
             _build.DTYPE_CODES[q.dtype], int(insert), stream)
     _build.check(lib, rc, what)
     (verify_insert_launches if insert else verify_launches)["cuda"] += 1
-    return out
+    return out if d8 == hd else out[..., :hd].contiguous()

@@ -286,3 +286,115 @@ def checkpoint_roundtrip(rank, world, cfg_kw, params_np, batch_np, lr,
     return out
 
 
+
+
+# ---- Trainer loops and runtime tasks (run in the port's runtime workers) ----
+
+
+def trainer_loop(config):
+    """A Trainer loop: `steps` AdamW steps of the port's train step on the
+    given params and batch, one device, or the sharded step over a mesh
+    of `config["mesh"]` when the gang has more than one rank (the group
+    TorchDistributedConfig formed). Reports the loss of every step; at
+    `ckpt_step` saves the state (save_state, rank 0) into that step's
+    directory and reports it as the checkpoint; with `crash_marker`, the
+    first run hard-exits once that checkpoint has committed. A run that
+    finds a checkpoint resumes from it."""
+    import os
+
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import (ModelConfig, loss_fn,
+                                      param_logical_axes, params_from_numpy)
+    from ray_tpu_torch.train import adamw, make_train_step
+    from ray_tpu_torch.train.checkpoint import (Checkpoint, is_committed,
+                                                restore_state, save_state,
+                                                step_dir)
+    torch.set_num_threads(1)
+    ctx = train.get_context()
+    cfg = ModelConfig(**config["cfg"])
+    mesh = None
+    if ctx.get_world_size() > 1:
+        from ray_tpu_torch.parallel import MeshConfig, make_mesh
+        mesh = make_mesh(MeshConfig(**config["mesh"]), device="cpu")
+    init_fn, step_fn, _, _ = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg, mesh), adamw(config["lr"]), mesh,
+        param_logical_axes(cfg) if mesh is not None else None,
+        device="cpu")
+    state = init_fn(params_from_numpy(config["params"], device="cpu"))
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        restore_state(os.path.join(ckpt.path, "state.pt"), state)
+    batch = {k: torch.tensor(v) for k, v in config["batch"].items()}
+    for step in range(int(state.step), config["steps"]):
+        state, loss = step_fn(state, batch)
+        metrics = {"step": step, "loss": loss.item(),
+                   "rank": ctx.get_world_rank(),
+                   "world_size": ctx.get_world_size()}
+        if step != config.get("ckpt_step"):
+            train.report(metrics)
+            continue
+        path = step_dir(ctx.get_trial_dir(), step)
+        if ctx.get_world_rank() == 0:
+            save_state(state, os.path.join(path, "state.pt"))
+        train.report(metrics, checkpoint=Checkpoint(path))
+        marker = config.get("crash_marker")
+        if marker and not os.path.exists(marker):
+            deadline = time.monotonic() + 60
+            while not is_committed(path) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            open(marker, "w").close()
+            os._exit(1)  # a hard crash right after the commit
+
+
+def cuda_visible_devices():
+    """This worker's CUDA_VISIBLE_DEVICES (None when unset)."""
+    import os
+    return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+class VisibleDevices:
+    """An actor that reports the CUDA_VISIBLE_DEVICES it got."""
+
+    def get(self):
+        return cuda_visible_devices()
+
+
+def add_one(x):
+    return x + 1
+
+
+def worker_pid():
+    import os
+    return os.getpid()
+
+
+def imports_fail(names):
+    """The names of `names` this process cannot import."""
+    import importlib
+    out = []
+    for n in names:
+        try:
+            importlib.import_module(n)
+        except ImportError:
+            out.append(n)
+    return out
+
+
+class Counter:
+    """An actor with state, for the runtime tests."""
+
+    def __init__(self, start=0):
+        self.n = start
+
+    def add(self, k=1):
+        self.n += k
+        return self.n
+
+    def pid(self):
+        import os
+        return os.getpid()
+
+    def die(self):
+        import os
+        os._exit(1)

@@ -385,3 +385,34 @@ def test_dense_greedy_matches_jax_dense_engine(params):
     assert eng.kv_stats() == {"layout": "dense", "decode_steps": 14}
     assert eng.cache_k.shape == (TINY.n_layers, 2, 64, TINY.n_kv_heads,
                                  TINY.head_dim)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_head_dim_12_engine_pads_its_pools(spec):
+    """head_dim 12 (d_model 48 over 4 heads; the kernels run multiples of
+    8): the paged pools are allocated 16 columns wide, the padding stays
+    zero through prefill, decode and the verify insert, and the greedy
+    tokens equal the JAX engine's (its XLA path at hd % 8 != 0),
+    token-exact, plain and speculative."""
+    from ray_tpu.models import ModelConfig as JModelConfig
+    from ray_tpu.models import init_params as j_init_params
+    kw = dict(vocab=300, d_model=48, n_layers=2, n_heads=4, n_kv_heads=2,
+              d_ff=96, dtype="float32")
+    pj = j_init_params(JModelConfig(**kw), jax.random.PRNGKey(5))
+    pt = params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+    ecfg = dict(max_slots=2, max_len=64, prompt_buckets=(16,), eos_token=-1,
+                page_size=16)
+    if spec:
+        ecfg.update(speculation="ngram", spec_k=4)
+    eng = InferenceEngine(ModelConfig(**kw), EngineConfig(**ecfg), params=pt,
+                          device="cpu")
+    assert eng.cache_k.shape[-1] == eng.cache_v.shape[-1] == 16
+    prompts = [[5, 6, 7, 5, 6, 7, 5, 6], [9, 10, 11]]
+    got = eng.generate(prompts, max_new_tokens=10, temperature=0.0)
+    assert not eng.cache_k[..., 12:].any() and not eng.cache_v[..., 12:].any()
+    assert eng.cache_k[..., :12].any()
+    if spec:
+        assert eng.kv_stats()["verify_steps"] > 0
+    jeng = JInferenceEngine(JModelConfig(**kw), JEngineConfig(**ecfg),
+                            params=pj)
+    assert got == jeng.generate(prompts, max_new_tokens=10, temperature=0.0)

@@ -261,7 +261,9 @@ def test_split_kv_merge_model_matches_jax_kernel(dtype, splits):
     (2, 128, 80, 2, 2), (8, 128, 120, 4, 4), (3, 128, 24, 2, 1),
     (2, 128, 136, 2, 2), (8, 128, 136, 4, 8), (4, 16, 200, 4, 1),
     (2, 128, 200, 2, 3), (2, 128, 256, 2, 1), (16, 128, 256, 4, 8),
-    (3, 24, 256, 4, 2)])
+    (3, 24, 256, 4, 2), (2, 128, 16, 4, 2), (2, 128, 104, 2, 2),
+    (2, 128, 264, 2, 2), (16, 128, 384, 4, 8), (4, 16, 520, 4, 8),
+    (8, 128, 520, 2, 16), (8, 128, 1024, 4, 8)])
 def test_decode_plan_covers_every_position_once(P, page, hd, itemsize, g):
     """K1's launch plan, from the shapes alone (it takes no lengths), for
     1 to 4096 (slot, kv head) pairs, by the rule and by request: the
@@ -300,14 +302,19 @@ def test_decode_plan_covers_every_position_once(P, page, hd, itemsize, g):
                         or blocks * (pl.splits // 2) < t_paged.FILL_BLOCKS)
 
 
+@pytest.mark.parametrize("hd", [16, 104, 256, 264, 384, 520])
 @pytest.mark.parametrize("g,S", [(1, 1), (8, 5), (7, 6), (8, 6), (4, 11),
                                  (1, 128), (64, 8)])
-def test_verify_plan_covers_every_row_once(g, S):
+def test_verify_plan_covers_every_row_once(g, S, hd):
     """The verify kernels' row groups: the g*S query rows of a kv head in
-    the fewest groups of at most MAX_VERIFY_ROWS, each row once."""
-    groups, rows = t_paged.verify_plan(g, S)
-    assert 1 <= rows <= t_paged.MAX_VERIFY_ROWS
-    assert groups == -(-g * S // t_paged.MAX_VERIFY_ROWS)
+    the fewest groups of at most MAX_VERIFY_ROWS (past VERIFY_WIDE_HD, of
+    at most MAX_VERIFY_ROWS * 256 / hd in fives), each row once."""
+    groups, rows = t_paged.verify_plan(g, S, hd)
+    most = t_paged.MAX_VERIFY_ROWS
+    if hd > t_paged.VERIFY_WIDE_HD:
+        most = max(5, most * t_paged.VERIFY_WIDE_HD // hd // 5 * 5)
+    assert 1 <= rows <= most
+    assert groups == -(-g * S // most)
     assert (groups - 1) * rows < g * S <= groups * rows
 
 
@@ -373,14 +380,14 @@ def test_flash_attention_impl_contract():
 def test_kernel_wrappers_validate_before_launch():
     """The CUDA wrappers refuse what the kernels do not take, before any
     build or launch (checked here on meta tensors: no card needed): a
-    head_dim past 256."""
-    q = torch.empty(2, 4, 264, device="meta")
-    pages = torch.empty(2, 3, 8, 264, device="meta")
+    head_dim of 0."""
+    q = torch.empty(2, 4, 0, device="meta")
+    pages = torch.empty(2, 3, 8, 0, device="meta")
     with pytest.raises((TypeError, ValueError)):
         t_paged._paged_decode_cuda(
             q, pages, pages, torch.empty(2, dtype=torch.int32, device="meta"),
             torch.empty(2, 1, dtype=torch.int32, device="meta"))
-    x = torch.empty(1, 8, 2, 264, device="meta")
+    x = torch.empty(1, 8, 2, 0, device="meta")
     with pytest.raises(ValueError):
         t_attention.flash_attention_fwd(x, x, x, True, 1.0)
     rows = torch.empty(2, 8, device="meta")
@@ -413,7 +420,49 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    assert int(out.stdout.strip()) >= 70
+
+
+def test_port_names_no_path_into_the_jax_package_or_cpp():
+    """The port keeps its own copy of every file it reads: no string in
+    its Python names a path into `ray_tpu/` or the repo's `cpp/` (the
+    native head core and its header were copied into `_native/`), no C or
+    CUDA source includes one, and its native builds land in its own
+    gitignored `_build/`."""
+    import ast
+    import re
+    from ray_tpu_torch._native import build as native_build
+    pkg = os.path.join(REPO, "ray_tpu_torch")
+    into = re.compile(r"^(\.\./)*(ray_tpu|cpp)/")
+    segments = {"ray_tpu", "cpp"}
+    bad = []
+    for root, _dirs, files in os.walk(pkg):
+        if "_build" in root.split(os.sep):
+            continue
+        for f in files:
+            path = os.path.join(root, f)
+            rel = os.path.relpath(path, REPO)
+            if f.endswith(".py"):
+                for node in ast.walk(ast.parse(open(path).read())):
+                    if (isinstance(node, ast.Constant)
+                            and isinstance(node.value, str)
+                            and into.match(node.value)):
+                        bad.append(f"{rel}: {node.value!r}")
+                    # os.path.join(..., "cpp", ...) and the like
+                    if (isinstance(node, ast.Call)
+                            and getattr(node.func, "attr", "") == "join"
+                            and any(isinstance(a, ast.Constant)
+                                    and a.value in segments
+                                    for a in node.args)):
+                        bad.append(f"{rel}:{node.lineno}: a path join")
+            elif f.endswith((".cu", ".cuh", ".cpp", ".cc", ".h")):
+                for line in open(path):
+                    m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+                    if m and "/" in m.group(1):
+                        bad.append(f"{rel}: {line.strip()}")
+    assert not bad, bad
+    assert os.path.commonpath([native_build._BUILD_DIR, pkg]) == pkg
+    assert os.path.exists(os.path.join(native_build._DIR, "head_core.cc"))
 
 
 def test_kernel_build_is_keyed_and_fails_loudly(monkeypatch, tmp_path):
@@ -700,17 +749,20 @@ def test_flash_attention_lse_only_when_grad_is_needed(monkeypatch):
     assert xg.grad is not None and xg.grad.shape == x.shape
 
 
-# ---- head_dims: every multiple of 8 up to 256 ----
+# ---- head_dims: every positive one (padded to a multiple of 8) ----
 
 
 def _wrapper_calls(hd):
     """The six CUDA kernel wrappers (K1, K1', K5, K2, K3, K4) called on
-    meta tensors of head_dim `hd` whose other checks all pass."""
+    meta tensors of head_dim `hd` whose other checks all pass (the pools
+    `padded_head_dim(hd)` wide, as the engines allocate them)."""
+    from ray_tpu_torch.ops import _build
     meta = dict(device="meta")
     i32 = dict(dtype=torch.int32, **meta)
     x = torch.empty(1, 8, 4, hd, **meta)
     rows = torch.empty(4, 8, **meta)
-    pages = torch.empty(2, 3, 16, hd, **meta)
+    pages = torch.empty(2, 3, 16, max(_build.padded_head_dim(hd), 0),
+                        **meta)
     q_v = torch.empty(2, 3, 4, hd, **meta)
     new = torch.empty(2, 3, 2, hd, **meta)
     lens, tabs = torch.empty(2, **i32), torch.empty(2, 2, **i32)
@@ -734,12 +786,19 @@ _KERNELS = ["paged_decode", "paged_verify", "paged_verify_insert",
             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 
-@pytest.mark.parametrize("hd", [12, 260, 264])
+@pytest.mark.parametrize("hd", [0, -8])
 @pytest.mark.parametrize("kernel", _KERNELS)
 def test_wrappers_refuse_head_dims_the_kernels_do_not_take(kernel, hd):
-    """A head_dim past 256 or not a multiple of 8 raises a ValueError that
-    names the accepted set, before any build or launch (meta tensors)."""
-    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+    """A head_dim that is not positive raises a ValueError that names the
+    accepted set, before any build or launch (meta tensors; every
+    positive head_dim is taken since the kernels pad to a multiple of 8
+    and run widths past 256 in 128-column chunks)."""
+    if hd < 0:   # a tensor cannot have a negative dim: the check itself
+        from ray_tpu_torch.ops import _build
+        with pytest.raises(ValueError, match="any positive head_dim"):
+            _build.check_head_dim(kernel, hd)
+        return
+    with pytest.raises(ValueError, match="any positive head_dim"):
         _wrapper_calls(hd)[kernel]()
 
 
@@ -767,21 +826,264 @@ def test_wrappers_take_head_dims_up_to_256(kernel, hd, monkeypatch):
 
 
 def test_every_accepted_head_dim_has_a_kernel_plan():
-    """`check_head_dim` takes exactly the multiples of 8 from 8 to 256 (the
-    JAX package's Pallas condition, capped at the widest instantiation)
-    and raises for every other head_dim; at each accepted one K1's plan
-    keeps the C launcher's terms: a power-of-two chunk that divides the
-    page, within CHUNK_BYTES."""
+    """`check_head_dim` takes every positive head_dim and raises for 0; the
+    kernels run it padded to the next multiple of 8 (the JAX package's
+    Pallas condition), and at each such width K1's plan keeps the C
+    launcher's terms: a power-of-two chunk that divides the page, within
+    CHUNK_BYTES (one token where a row outgrows it), a block's shared
+    memory within DECODE_SMEM_BYTES; the verify plan keeps q and the PV
+    sums of a group at most their hd 256 size past VERIFY_WIDE_HD."""
     from ray_tpu_torch.ops import _build
-    accepted = [hd for hd in range(0, 300) if hd % 8 == 0 and 8 <= hd <= 256]
-    assert list(_build.HEAD_DIMS) == accepted
-    for hd in range(0, 300):
-        if hd not in accepted:
-            with pytest.raises(ValueError, match="multiple of 8"):
-                _build.check_head_dim("k", hd)
-            continue
+    with pytest.raises(ValueError, match="any positive head_dim"):
+        _build.check_head_dim("k", 0)
+    for hd in [*range(1, 300), 384, 520, 1000, 2048, 4100]:
         _build.check_head_dim("k", hd)
+        d8 = _build.padded_head_dim(hd)
+        assert d8 % 8 == 0 and hd <= d8 < hd + 8
         for page, itemsize in ((16, 4), (128, 2), (128, 4)):
-            pl = t_paged.decode_plan(2, page, hd, itemsize, 2, 64)
+            pl = t_paged.decode_plan(2, page, d8, itemsize, 8, 64)
             assert pl.chunk & (pl.chunk - 1) == 0 and page % pl.chunk == 0
-            assert pl.chunk * hd * itemsize <= t_paged.CHUNK_BYTES
+            assert pl.chunk * d8 * itemsize <= max(t_paged.CHUNK_BYTES,
+                                                   d8 * itemsize)
+            assert t_paged.decode_smem_bytes(
+                d8, itemsize, pl.chunk, pl.stages, pl.splits,
+                pl.rows) <= t_paged.DECODE_SMEM_BYTES
+        groups, rows = t_paged.verify_plan(8, 5, d8)
+        rp = -(-rows // 5) * 5          # the kernel pads rows to fives
+        assert (groups - 1) * rows < 40 <= groups * rows
+        assert d8 <= t_paged.VERIFY_WIDE_HD or rp * d8 <= max(
+            t_paged.MAX_VERIFY_ROWS * t_paged.VERIFY_WIDE_HD, 5 * d8)
+
+
+@pytest.mark.parametrize("hd", [12, 100, 264, 384, 520])
+@pytest.mark.parametrize("kernel", _KERNELS)
+def test_wrappers_take_every_positive_head_dim(kernel, hd, monkeypatch):
+    """hd 12 and 100 (not multiples of 8: zero-padded to 16 and 104) and
+    264-520 (past 256: run in 128-column chunks) pass every check of the
+    six wrappers (meta tensors), with pools at the padded head_dim (as the
+    engines allocate them): the paged wrappers go on to their library,
+    stubbed here, and the flash ones stop only at the device check. Pools
+    at q's unpadded head_dim are refused (a kernel never copies a
+    pool)."""
+    from ray_tpu_torch.ops import _build
+    def stub():
+        raise _Launched
+    for name in ("_lib", "_verify_lib"):
+        monkeypatch.setattr(t_paged, name, stub)
+    if kernel.startswith("paged"):
+        with pytest.raises(_Launched):
+            _wrapper_calls(hd)[kernel]()
+        if _build.padded_head_dim(hd) == hd:
+            return
+        meta = dict(device="meta")
+        pages = torch.empty(2, 3, 16, hd, **meta)
+        lens = torch.empty(2, dtype=torch.int32, **meta)
+        tabs = torch.empty(2, 2, dtype=torch.int32, **meta)
+        q_v = torch.empty(2, 3, 4, hd, **meta)
+        new = torch.empty(2, 3, 2, hd, **meta)
+        with pytest.raises(ValueError, match="padded_head_dim"):
+            if kernel == "paged_decode":
+                t_paged._paged_decode_cuda(torch.empty(2, 4, hd, **meta),
+                                           pages, pages, lens, tabs)
+            else:
+                insert = kernel == "paged_verify_insert"
+                t_paged._verify_cuda(q_v, pages, pages,
+                                     new if insert else None,
+                                     new if insert else None, lens, tabs,
+                                     kernel)
+    else:
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            _wrapper_calls(hd)[kernel]()
+
+
+def _zero_pad(x, d8):
+    """Numpy [..., hd] -> [..., d8] with zero columns past hd."""
+    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, d8 - x.shape[-1])])
+
+
+@pytest.mark.parametrize("hd", [12, 100, 264, 384])
+@pytest.mark.parametrize("kernel", ["paged_decode", "paged_verify",
+                                    "paged_verify_insert", "flash_fwd",
+                                    "flash_bwd"])
+def test_plain_versions_at_f4_head_dims_match_jax(kernel, hd):
+    """At head_dims the kernels take only since F4 closed, the plain
+    versions agree with the JAX package, fp32: its XLA path at hd 12 and
+    100 (no multiple of 8: the JAX package's paged functions and its
+    flash "reference" impl take it there), its Pallas kernels in interpret
+    mode at 264 and 384. The paged ones also with pools padded to the
+    next multiple of 8 (as the engines allocate them): the same answer,
+    and K5's insert writes zero columns there."""
+    from ray_tpu.ops.paged_attention import (
+        paged_verify_attention as j_paged_verify,
+        paged_verify_insert_attention as j_verify_insert)
+    from ray_tpu_torch.ops import _build
+    rng = np.random.default_rng(hd)
+    h, hkv = 4, 2
+    pallas = hd % 8 == 0
+    d8 = _build.padded_head_dim(hd)
+    if kernel.startswith("paged"):
+        B, S, page, N, P = 3, 3, 8, 16, 4
+        lengths = np.array([1, 8, 30], np.int32)
+        kp, vp = (rng.normal(size=(hkv, N, page, hd)).astype(np.float32)
+                  for _ in range(2))
+        # disjoint tables: no two slots write one page (K5's insert)
+        tables = rng.permutation(np.arange(1, N))[:B * P].reshape(
+            B, P).astype(np.int32)
+        jpool = lambda a: jnp.asarray(np.swapaxes(a, -1, -2))  # noqa: E731
+        tl, tt = torch.tensor(lengths), torch.tensor(tables)
+        if kernel == "paged_decode":
+            q = rng.normal(size=(B, h, hd)).astype(np.float32)
+            want = j_paged_decode(jnp.asarray(q), jpool(kp), jpool(vp),
+                                  jnp.asarray(lengths), jnp.asarray(tables),
+                                  interpret=pallas)
+            fn = lambda k_, v_: t_paged.paged_decode_attention(  # noqa
+                torch.tensor(q), k_, v_, tl, tt)
+        elif kernel == "paged_verify":
+            q = rng.normal(size=(B, S, h, hd)).astype(np.float32)
+            want = j_paged_verify(jnp.asarray(q), jpool(kp), jpool(vp),
+                                  jnp.asarray(lengths), jnp.asarray(tables),
+                                  interpret=pallas)
+            fn = lambda k_, v_: t_paged.paged_verify_attention(  # noqa
+                torch.tensor(q), k_, v_, tl, tt)
+        else:
+            q = rng.normal(size=(B, S, h, hd)).astype(np.float32)
+            knew, vnew = (rng.normal(size=(B, S, hkv, hd)).astype(np.float32)
+                          for _ in range(2))
+            L = 2
+            pk, pv = (np.stack([a, a[::-1]]) for a in (kp, vp))
+            want, wk, wv = j_verify_insert(
+                jnp.asarray(q), *(jnp.asarray(np.swapaxes(a, -1, -2))
+                                  for a in (pk, pv)),
+                jnp.asarray(knew), jnp.asarray(vnew), jnp.asarray(lengths),
+                jnp.asarray(tables), layer=1)
+            wk, wv = (np.swapaxes(np.asarray(a), -1, -2) for a in (wk, wv))
+
+            def fn(k_, v_):
+                pools = (torch.tensor(pk), torch.tensor(pv))
+                if k_.shape[-1] != hd:
+                    pools = tuple(torch.tensor(_zero_pad(a, d8))
+                                  for a in (pk, pv))
+                out, ok, ov = t_paged.paged_verify_insert_attention(
+                    torch.tensor(q), *pools, torch.tensor(knew),
+                    torch.tensor(vnew), tl, tt, 1)
+                np.testing.assert_array_equal(ok[..., :hd].numpy(), wk)
+                np.testing.assert_array_equal(ov[..., :hd].numpy(), wv)
+                assert not ok[..., hd:].any() and not ov[..., hd:].any()
+                return out
+        _close(fn(torch.tensor(kp), torch.tensor(vp)), want, "float32")
+        padded = fn(*(torch.tensor(_zero_pad(a, d8)) for a in (kp, vp)))
+        _close(padded, want, "float32")
+        assert padded.shape[-1] == hd
+        return
+    if kernel == "flash_fwd":
+        s = 37
+        q, k, v, _ = _bwd_case(rng, s, h, hkv, d=hd)
+        want = j_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True,
+                                 impl="interpret" if pallas else "reference")
+        got = flash_attention(torch.tensor(q), torch.tensor(k),
+                              torch.tensor(v), causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+        return
+    s = 32
+    q, k, v, do = _bwd_case(rng, s, h, hkv, d=hd)
+    b, scale = q.shape[0], hd ** -0.5
+    if pallas:
+        jq, jk, jv, jdo = (_heads_first(x, h) for x in (q, k, v, do))
+        jo, jlse = j_attention._flash_fwd(jq, jk, jv, scale, True, 16, 16,
+                                          True)
+        jlse = jlse[:, :, 0]
+        jdq, jdk, jdv = j_attention._flash_bwd(jq, jk, jv, jo, jlse, jdo,
+                                               scale, True, 16, 16, True)
+        o = np.asarray(jo).reshape(b, h, s, hd).transpose(0, 2, 1, 3)
+        dq, dk, dv = t_attention.flash_attention_bwd(
+            *(torch.tensor(x) for x in (q, k, v, o, np.asarray(jlse), do)),
+            True, scale)
+        _bwd_close(dq, _from_heads_first(jdq, b, s, h, h))
+        _bwd_close(dk, _from_heads_first(jdk, b, s, h, hkv))
+        _bwd_close(dv, _from_heads_first(jdv, b, s, h, hkv))
+        return
+    _out, vjp = jax.vjp(
+        lambda a, b_, c: j_flash_attention(a, b_, c, causal=True,
+                                           impl="reference"),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    xs = [torch.tensor(x).requires_grad_(True) for x in (q, k, v)]
+    flash_attention(*xs, causal=True).backward(torch.tensor(do))
+    for g, w in zip(xs, vjp(jnp.asarray(do))):
+        _bwd_close(g.grad, w)
+
+
+@pytest.mark.parametrize("hd", [12, 100, 258])
+def test_padded_head_dim_gives_the_true_head_dims_answer(hd):
+    """What the CUDA wrappers do for a head_dim that is not a multiple of
+    8, held with the plain versions (the wrappers pad only CUDA tensors):
+    zero columns up to `padded_head_dim` with the true head_dim's scale,
+    then cut back, give the unpadded answer: the flash forward, its lse,
+    and dq, dk, dv, fp32, to rounding."""
+    from ray_tpu_torch.ops import _build
+    rng = np.random.default_rng(1)
+    d8 = _build.padded_head_dim(hd)
+    q, k, v, do = (torch.tensor(a) for a in _bwd_case(rng, 33, 4, 2, d=hd))
+    scale = hd ** -0.5
+    out, lse = t_attention._plain_fwd(q, k, v, True, scale, with_lse=True)
+    pq, pk, pv, pdo = _build.pad_cols(d8, q, k, v, do)
+    pout, plse = t_attention._plain_fwd(pq, pk, pv, True, scale,
+                                        with_lse=True)
+    torch.testing.assert_close(pout[..., :hd], out, rtol=1e-5, atol=1e-5)
+    assert not pout[..., hd:].any()
+    torch.testing.assert_close(plse, lse, rtol=1e-5, atol=1e-5)
+    grads = t_attention.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                      True, scale)
+    pgrads = t_attention.flash_attention_bwd_reference(pq, pk, pv, pout,
+                                                       plse, pdo, True,
+                                                       scale)
+    for g, pg in zip(grads, pgrads):
+        torch.testing.assert_close(pg[..., :hd], g, rtol=1e-5, atol=1e-5)
+        assert not pg[..., hd:].any()
+
+
+@pytest.mark.parametrize("hd", [12, 100, 64])
+def test_flash_autograd_pads_once_for_the_kernels(hd, monkeypatch):
+    """On the kernel path `flash_attention`'s autograd Function zero-pads
+    q, k and v once to `padded_head_dim` in its forward and dO once in its
+    backward; K2, K3 and K4 each get those padded tensors (no wrapper pads
+    again) and the output and dq, dk, dv come back at the true head_dim.
+    Meta tensors, with the three kernel wrappers replaced by recorders."""
+    from ray_tpu_torch.ops import _build
+    d8 = _build.padded_head_dim(hd)
+    seen, padded = [], []
+    real_pad = _build.pad_cols
+
+    def pad_cols(width, *ts):
+        padded.extend(t.shape[-1] for t in ts if t.shape[-1] != width)
+        return real_pad(width, *ts)
+
+    def fwd(q, k, v, causal, scale, with_lse=False):
+        seen.append(("fwd", q.shape[-1], k.shape[-1], v.shape[-1]))
+        b, s, h, _ = q.shape
+        return torch.empty_like(q), torch.empty(b * h, s, device=q.device)
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen.append(("dq", q.shape[-1], k.shape[-1], do.shape[-1]))
+        return torch.empty_like(q)
+
+    def dkv(q, k, v, do, lse, delta, causal, scale):
+        seen.append(("dkv", q.shape[-1], k.shape[-1], do.shape[-1]))
+        return torch.empty_like(k), torch.empty_like(v)
+
+    monkeypatch.setattr(_build, "pad_cols", pad_cols)
+    for name, fn in (("flash_attention_fwd", fwd), ("flash_bwd_dq", dq),
+                     ("flash_bwd_dkv", dkv)):
+        monkeypatch.setattr(t_attention, name, fn)
+    meta = dict(device="meta", requires_grad=True)
+    q = torch.empty(2, 8, 4, hd, **meta)
+    k, v = (torch.empty(2, 8, 2, hd, **meta) for _ in range(2))
+    out = flash_attention(q, k, v, impl="pallas")
+    assert out.shape == q.shape
+    out.backward(torch.empty_like(out))
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+    assert v.grad.shape == v.shape
+    assert seen == [("fwd", d8, d8, d8), ("dq", d8, d8, d8),
+                    ("dkv", d8, d8, d8)]
+    assert padded == ([hd] * 4 if d8 != hd else [])   # q, k, v; then dO
