@@ -119,6 +119,21 @@ no result line):
               resumed from the manifest with bit-equal fp32 losses; two
               ranks at gpus_per_worker=0.5 under TorchDistributedConfig
               (gloo) whose all-reduce of a CUDA tensor sums.
+18. serve-runtime — `serve.run(build_openai_app(...))` on the port's
+              runtime: the LLM replica an actor reserving the card (its
+              class the probe `ProbeServer`, which reads the replica's
+              launch counts), the OpenAI router and the HTTP proxy on a
+              free port. llama-125m bf16 at the serve phase's engine
+              shape: the serve phase's traffic as text through
+              /v1/completions from 36 client threads, tokens/s beside
+              the serve phase's, the boot (serve.run to the first
+              answer), K1 12 launches per replica decode step and no
+              plain run, a streamed request with logprobs (time to its
+              first chunk), /v1/models, the replica's peak memory; fp32
+              tokens through HTTP == the in-process engine's == a
+              forward argmax, a LoRA adapter registered through the
+              handle == an engine built with the merged params, then
+              the base tokens again; no runtime process outlives it.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -2613,6 +2628,303 @@ def trainer_phase(torch, smi, train) -> dict:
     return out
 
 
+# ---------------- phase 18: serving through the runtime ----------------
+
+
+def __getattr__(name):
+    """`ProbeServer`, made on first use: the runtime's workers unpickle
+    the replica's class by this module's name, and making it at import
+    would import the port before main() has checked that it is this
+    checkout's."""
+    if name != "ProbeServer":
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from ray_tpu_torch.llm.serve import _LLMServerImpl
+
+    class ProbeServer(_LLMServerImpl):
+        """The port's LLM replica, with reads of its own process: the
+        paged-decode kernel's launch counts, the engine's decode steps,
+        its peak device memory, and the prompt and generated token ids
+        of each request it answered (an HTTP answer carries text only)."""
+
+        def __init__(self, llm_config):
+            super().__init__(llm_config)
+            self.answered = []
+
+        async def _submit(self, prompt_ids, *args, **kwargs):
+            req = await super()._submit(prompt_ids, *args, **kwargs)
+            self.answered.append((list(prompt_ids), list(req.generated)))
+            return req
+
+        def probe(self, reset: bool = False) -> dict:
+            import torch
+            from ray_tpu_torch.ops import paged_attention as PA
+            out = dict(k1=dict(PA.launches),
+                       decode_steps=self.engine.decode_steps,
+                       peak=torch.cuda.max_memory_allocated(),
+                       device=torch.cuda.get_device_name(0),
+                       answered=list(self.answered))
+            if reset:
+                reset_counts()
+                self.answered.clear()
+                torch.cuda.reset_peak_memory_stats()
+            return out
+
+    ProbeServer.__module__ = __name__
+    ProbeServer.__qualname__ = ProbeServer.__name__ = "ProbeServer"
+    globals()["ProbeServer"] = ProbeServer
+    return ProbeServer
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(url: str, body: dict, timeout: float = 120.0) -> dict:
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.load(r)
+
+
+def _serve_probe_app(serve, me, cfg, name: str, port: int):
+    """`serve.run(build_openai_app(cfg))` with the replica's class made
+    the probe (the same deployment options): returns the probe's
+    handle."""
+    from ray_tpu_torch.llm.serve import build_openai_app
+    app = build_openai_app(cfg)
+    server = app.root.init_args[0].root   # the LLM deployment, bound
+    server.deployment = serve.deployment(
+        me.ProbeServer, name=server.deployment.name).options(
+        num_replicas=cfg.num_replicas,
+        ray_actor_options=dict(server.deployment.config.ray_actor_options))
+    serve.run(app, name=name, route_prefix=f"/{name}", http_port=port,
+              blocking_timeout_s=300)
+    return serve.get_deployment_handle(server.deployment.name, name)
+
+
+def _runtime_processes() -> list:
+    """Pids of the port's runtime processes still alive on this host (its
+    workers and head daemons)."""
+    pids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ")
+        except OSError:
+            continue
+        if b"ray_tpu_torch.core" in cmd:
+            pids.append(int(pid))
+    return pids
+
+
+def serve_runtime_phase(torch, results, smi, serve_inproc) -> dict:
+    """The OpenAI app through the port's runtime on the card: a replica
+    actor reserving the GPU (the probe class, `ProbeServer`), the router
+    and the HTTP proxy on a free port. bf16 llama-125m at the serve
+    phase's engine shape: the serve phase's traffic as text (36 prompts
+    of 127 and 144 tokens, 64 greedy tokens each) from 36 client threads
+    at once; K1 n_layers launches per replica decode step, plain 0; a
+    streamed request with logprobs; /v1/models. fp32: tokens through
+    HTTP == the in-process engine's == a forward argmax loop, and those
+    of a LoRA adapter registered through the handle == an engine built
+    with the merged params, then the base tokens again."""
+    import dataclasses as dc
+    import http.client
+    import importlib
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import (EngineConfig, InferenceEngine, LLMConfig,
+                                   LoraConfig)
+    from ray_tpu_torch.llm.lora import init_lora, merge_lora
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.models import configs
+    me = importlib.import_module("chip_smoke")
+    tok = ByteTokenizer()
+    port = _free_port()
+    out = {}
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=8, object_store_memory=1 << 30)
+    try:
+        model = configs.bench_125m()
+        cfg = LLMConfig(model_id="llama-125m", model=model,
+                        engine=EngineConfig(max_slots=32, max_len=1024,
+                                            prompt_buckets=(128,),
+                                            eos_token=-1),
+                        num_gpus_per_replica=1, seed=0)
+        url = f"http://127.0.0.1:{port}/bf16"
+        t0 = time.perf_counter()
+        h = _serve_probe_app(serve, me, cfg, "bf16", port)
+        first = _post(url + "/v1/completions",
+                      {"prompt": "hello", "max_tokens": 4,
+                       "temperature": 0.0})
+        boot_s = time.perf_counter() - t0
+        if first["usage"]["completion_tokens"] != 4:
+            raise AssertionError(f"first answer: {first}")
+        rng = np.random.default_rng(0)
+
+        def text(n):
+            return "".join(chr(c) for c in rng.integers(32, 127, n))
+        prompts = [text(126) for _ in range(32)]   # 127 tokens with BOS
+        shared = text(127)                         # BOS + 127: a page
+        prompts += [shared + text(16) for _ in range(4)]
+        before = h.probe.remote(reset=True).result(timeout_s=60)
+        answers = [None] * len(prompts)
+
+        def client(i):
+            answers[i] = _post(url + "/v1/completions", {
+                "prompt": prompts[i], "max_tokens": 64,
+                "temperature": 0.0})
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or None in answers:
+            raise AssertionError("an HTTP request did not finish")
+        after = h.probe.remote().result(timeout_s=60)
+        steps = after["decode_steps"] - before["decode_steps"]
+        n_tok = sum(a["usage"]["completion_tokens"] for a in answers)
+        k1 = after["k1"]
+        log(f"  bf16 through HTTP: {len(prompts)} requests from as many "
+            f"client threads, {n_tok} tokens in {wall:.3f} s: "
+            f"{n_tok / wall:.1f} tokens/s (the in-process serve phase: "
+            f"{serve_inproc['tokens_per_s']:.1f}); {steps} replica decode "
+            f"steps, K1 launches {k1['cuda']}, plain {k1['plain']}; "
+            f"replica on {after['device']}, peak device memory "
+            f"{after['peak'] / 2**30:.3f} GiB; boot (serve.run to the "
+            f"first answer) {boot_s:.2f} s [{smi}]")
+        if any(a["usage"]["completion_tokens"] != 64 for a in answers):
+            raise AssertionError("a request did not finish with 64 tokens")
+        if k1["cuda"] != model.n_layers * steps or steps == 0:
+            raise AssertionError(f"replica K1 launches {k1['cuda']} != "
+                                 f"{model.n_layers} x {steps} decode steps")
+        if k1["plain"] != 0:
+            raise AssertionError("the plain paged path ran in the replica")
+        results["paged_decode"]["serve_replica_launches"] = k1["cuda"]
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        t0 = time.perf_counter()
+        conn.request("POST", "/bf16/v1/completions", body=json.dumps({
+            "prompt": prompts[0], "max_tokens": 64, "temperature": 0.0,
+            "stream": True, "logprobs": True}).encode(),
+            headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        ttft = None
+        entries, done = [], False
+        for line in resp:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                done = True
+                break
+            chunk = json.loads(line[6:])["choices"][0]
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            entries += chunk["logprobs"]["token_logprobs"]
+        stream_s = time.perf_counter() - t0
+        conn.close()
+        with urllib.request.urlopen(url + "/v1/models", timeout=60) as r:
+            models = json.load(r)
+        log(f"  stream=true with logprobs: first chunk after "
+            f"{1e3 * ttft:.1f} ms, {len(entries)} tokens in "
+            f"{stream_s:.3f} s; /v1/models {models}")
+        if not done or len(entries) != 64 or not all(
+                math.isfinite(x) and x <= 0 for x in entries):
+            raise AssertionError(f"stream: done {done}, {len(entries)} "
+                                 f"logprob entries")
+        if [m["id"] for m in models["data"]] != ["llama-125m"]:
+            raise AssertionError(f"/v1/models: {models}")
+        out.update(tokens_per_s=n_tok / wall, boot_s=boot_s, ttft_s=ttft,
+                   peak=after["peak"], launches=k1["cuda"])
+        serve.delete("bf16")
+
+        # fp32: tokens through HTTP against the in-process engine
+        m32 = dc.replace(configs.bench_125m(), dtype="float32")
+        cfg32 = LLMConfig(model_id="llama-125m-fp32", model=m32,
+                          engine=EngineConfig(max_slots=4, max_len=256,
+                                              prompt_buckets=(128,),
+                                              eos_token=-1),
+                          lora=LoraConfig(rank=8), num_gpus_per_replica=1,
+                          seed=1)
+        url = f"http://127.0.0.1:{port}/fp32"
+        h32 = _serve_probe_app(serve, me, cfg32, "fp32", port)
+        texts = [text(n) for n in (19, 56, 99)]
+        ids = [tok.encode(t) for t in texts]
+
+        def over_http(model_id=None):
+            h32.probe.remote(reset=True).result(timeout_s=60)
+            got = [_post(url + "/v1/completions", {
+                "prompt": t, "max_tokens": 16, "temperature": 0.0,
+                **({"model": model_id} if model_id else {})})
+                for t in texts]
+            answered = h32.probe.remote().result(timeout_s=60)["answered"]
+            if [a[0] for a in answered] != ids:
+                raise AssertionError("the replica answered other prompts")
+            toks = [a[1] for a in answered]
+            if [g["choices"][0]["text"] for g in got] != [
+                    tok.decode(t) for t in toks]:
+                raise AssertionError("HTTP text != the decoded tokens")
+            return toks
+        base = over_http()
+        eng = InferenceEngine(m32, cfg32.engine, seed=cfg32.seed,
+                              device="cuda")
+        want = eng.generate(ids, max_new_tokens=16, temperature=0.0)
+        argmax = forward_argmax(torch, eng.params, m32, ids, 16)
+        log(f"  fp32 through HTTP: 3 prompts x 16 greedy tokens == the "
+            f"in-process engine: {base == want}, == forward argmax: "
+            f"{base == argmax}")
+        if not base == want == argmax:
+            raise AssertionError(f"HTTP {base} / engine {want} / forward "
+                                 f"{argmax}")
+        gen = torch.Generator().manual_seed(7)
+        lora = init_lora(m32, 8, gen)
+        for ab in lora.values():
+            ab["B"] = torch.randn(ab["B"].shape, generator=gen)
+        lora_np = {t: {k: v.numpy() for k, v in ab.items()}
+                   for t, ab in lora.items()}
+        h32.load_adapter.remote("llama-125m-fp32-ft", lora_np).result(
+            timeout_s=120)
+        adapted = over_http("llama-125m-fp32-ft")
+        merged = InferenceEngine(m32, cfg32.engine, params=merge_lora(
+            eng.params, lora_np, alpha=cfg32.lora.alpha), device="cuda")
+        want_ft = merged.generate(ids, max_new_tokens=16, temperature=0.0)
+        again = over_http()
+        log(f"  LoRA adapter (rank 8, nonzero B) by model=: tokens == an "
+            f"engine built with the merged params: {adapted == want_ft}, "
+            f"differ from the base: {adapted != base}; the base model "
+            f"after it: {again == base}")
+        if adapted != want_ft or adapted == base or again != base:
+            raise AssertionError(f"adapter {adapted} / merged engine "
+                                 f"{want_ft}; base after {again}")
+        del eng, merged
+        serve.delete("fp32")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    while _runtime_processes() and time.monotonic() < deadline:
+        time.sleep(0.5)
+    left = _runtime_processes()
+    if left:
+        raise AssertionError(f"runtime processes outlived shutdown: {left}")
+    return out
+
+
 def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
     """What a padded-width call costs, by torch.profiler's device trace:
     each kernel's device time a call (the pads, the kernel, the cut), and
@@ -2890,13 +3202,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/17] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/18] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/17] build: {len(build_logs)} kernels in "
+    log(f"[2/18] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -2933,7 +3245,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/17] kernels against their plain versions")
+    log("[3/18] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -2942,7 +3254,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/17] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/18] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -2955,7 +3267,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/17] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/18] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -2965,18 +3277,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/17] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/18] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/17] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/18] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/17] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/18] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -2985,19 +3297,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/17] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/18] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/17] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/18] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/17] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/18] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -3007,7 +3319,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/17] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/18] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -3017,7 +3329,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/17] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/18] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -3028,7 +3340,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/17] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/18] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -3038,7 +3350,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/17] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/18] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -3048,7 +3360,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/17] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/18] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -3056,7 +3368,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/17] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/18] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -3066,6 +3378,17 @@ def main() -> int:
     for kernel, key in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
                         ("flash_bwd_dkv", "dkv")):
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
+
+    t0 = time.perf_counter()
+    log("[18/18] serve-runtime: serve.run(build_openai_app(...)) on the "
+        "port's runtime, a replica holding the card, HTTP on a free port; "
+        "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
+    sr = serve_runtime_phase(torch, results, smi, serve)
+    log(f"  serve-runtime phase {time.perf_counter() - t0:.1f} s; "
+        f"{sr['tokens_per_s']:.1f} tokens/s through HTTP vs "
+        f"{serve['tokens_per_s']:.1f} in process; boot {sr['boot_s']:.2f} "
+        f"s, first streamed chunk {1e3 * sr['ttft_s']:.1f} ms, replica "
+        f"peak {sr['peak'] / 2**30:.3f} GiB")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

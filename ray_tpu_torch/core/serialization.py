@@ -48,6 +48,8 @@ class _CollectingPickler(cloudpickle.Pickler if cloudpickle is not None
         if isinstance(obj, ObjectRef):
             self.contained_refs.append(obj)
             return obj.__reduce__()
+        if cloudpickle is None:  # pickle.Pickler has no reducer_override
+            return NotImplemented
         return super().reducer_override(obj)
 
 

@@ -1,12 +1,25 @@
 """ray_tpu_torch.llm — the continuous-batching engine (paged or dense KV,
-guided decoding, speculation) and the prefill engine of disaggregated
-serving (counterpart of `ray_tpu.llm`). The guide compilers are in
-`llm/guided.py`. The serve deployment, OpenAI router and batch processor
-need the serve runtime and come with their own slice of the port."""
+guided decoding, speculation), the prefill engine of disaggregated
+serving, LoRA adapters and serving through the port's runtime
+(counterpart of `ray_tpu.llm`):
+- engine.py  <- the engine and the prefill engine;
+- serve.py   <- the LLM deployment and the OpenAI router in front of it
+                (`build_openai_app`), adapters registered cluster-wide;
+- lora.py    <- `init_lora`, `merge_lora`;
+- config.py  <- LLMConfig (the replica's GPU reservation and device).
+The guide compilers are in `llm/guided.py`. The disaggregated serving
+plane, tensor-parallel replicas and the batch processor are later slices
+(ROADMAP queue 1 items 7 (e) and 7 (f)).
+"""
 
 from ray_tpu_torch.llm.config import EngineConfig, LLMConfig, LoraConfig
 from ray_tpu_torch.llm.engine import InferenceEngine, PrefillEngine, Request
+from ray_tpu_torch.llm.serve import (build_disagg_deployment,
+                                     build_disagg_openai_app,
+                                     build_llm_deployment, build_openai_app)
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer, get_tokenizer
 
 __all__ = ["InferenceEngine", "PrefillEngine", "EngineConfig", "Request",
-           "LLMConfig", "LoraConfig", "ByteTokenizer", "get_tokenizer"]
+           "LLMConfig", "LoraConfig", "ByteTokenizer", "get_tokenizer",
+           "build_llm_deployment", "build_openai_app",
+           "build_disagg_deployment", "build_disagg_openai_app"]

@@ -1,6 +1,12 @@
 """LLM deployment/processor configuration (counterpart of
-`ray_tpu/llm/config.py`, as data: the serve deployment that consumes it
-belongs to a later slice of the port)."""
+`ray_tpu/llm/config.py`), read by the serve deployment (`llm/serve.py`).
+
+Parity: reference `python/ray/llm/_internal/serve/configs/` (LLMConfig:
+engine sizing consumed for placement). `num_gpus_per_replica` takes the
+role of the JAX package's `num_tpus_per_replica` under the port's "GPU"
+resource: each replica actor reserves it, and its engine runs on the card
+it reserved (`device`, CUDA unless the caller asks for the CPU).
+"""
 
 from __future__ import annotations
 
@@ -24,10 +30,11 @@ class LLMConfig:
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
     tensor_parallelism: int = 1               # "tp" mesh size per replica
     num_replicas: int = 1
-    num_tpus_per_replica: float = 0.0
+    num_gpus_per_replica: float = 1.0         # the replica's "GPU" reservation
     tokenizer: str = "byte"                   # byte | hf:<name>
     lora: LoraConfig | None = None
     seed: int = 0
+    device: str = "cuda"                      # "cuda" | "cpu" (tests)
 
     def resolve_model(self) -> ModelConfig:
         if self.model is not None:

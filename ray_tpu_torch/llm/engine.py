@@ -56,6 +56,7 @@ import collections
 import dataclasses
 import math
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -702,6 +703,12 @@ def _resolve_params(c: ModelConfig, params, seed: int, device, mesh=None,
             raise NotImplementedError(
                 f"an engine over a mesh with {a}={deg[a]}: data-parallel "
                 f"serving is separate engines; an engine shards over tp only")
+    tp = deg.get("tp", 1)
+    if c.n_kv_heads % tp:
+        raise ValueError(
+            f"an engine over tp={tp} needs tp to divide n_kv_heads="
+            f"{c.n_kv_heads}: its KV pool is split by kv head, as the JAX "
+            f"engine's is")
     placed = shard_params(params, param_logical_axes(c),
                           rules or ShardingRules.default(), mesh)
     with torch.no_grad():
@@ -740,10 +747,12 @@ class InferenceEngine:
         self.e = e
         self.mesh = mesh
         # Under a tp mesh: this rank's param blocks and config view.
-        self.params, self.c = _resolve_params(model_config, params, seed,
-                                              self.device, mesh, rules)
+        params, self.c = _resolve_params(model_config, params, seed,
+                                         self.device, mesh, rules)
         c = self.c
-        self._fused = decode_weights(self.params, c)
+        self._weights = None       # (params, decode weights): the setter's
+        self._weights_gen = -1     # trees assigned so far, less one
+        self.params = params
         dev = self.device
         self.paged = e.kv_layout == "paged"
         self.decode_steps = 0              # decode_paged/decode_step calls
@@ -783,9 +792,41 @@ class InferenceEngine:
         self.slot_req: list[Request | None] = [None] * B
         self.queue: collections.deque[Request] = collections.deque()
         self.finished: dict[int, Request] = {}
+        # rid -> live Request, weakly: streaming readers (logprobs through
+        # serve) read a request's append-only fields without any pop
+        # bookkeeping; an entry vanishes with its request.
+        self._req_by_id: "weakref.WeakValueDictionary[int, Request]" = (
+            weakref.WeakValueDictionary())
         self._next_id = 0
         self._lock = threading.Lock()
         self._cancel_rids: set[int] = set()
+
+    @property
+    def params(self):
+        """The weights every step runs (under a tp mesh, this rank's
+        blocks)."""
+        return self._weights[0]
+
+    @params.setter
+    def params(self, tree):
+        """Swap the weights, as serving swaps a LoRA adapter's merged tree
+        in and the base tree back: the decode weights (`decode_weights`)
+        are derived again from the tree, so prefill, the plain and dense
+        decode, the windows (guided ones included) and the speculative
+        verify all run the tree assigned last. Each admission's prefills
+        and each decode step, window or verify read the pair once, so a
+        swap from another thread lands between them. Under a tp mesh the
+        tree is this rank's blocks, as the getter returns them. Assigning
+        the tree in use keeps its decode weights; another tree also starts
+        a new generation of prefix-cache keys, since the cached pages hold
+        KV of the weights they were computed with."""
+        if self._weights is not None and tree is self._weights[0]:
+            return
+        if tree["embed"].device != self.device:
+            raise ValueError(f"params live on {tree['embed'].device}, the "
+                             f"engine on {self.device}")
+        self._weights = (tree, decode_weights(tree, self.c))
+        self._weights_gen += 1
 
     def _init_paged(self):
         c, e, dev = self.c, self.e, self.device
@@ -881,7 +922,15 @@ class InferenceEngine:
             req.generated.append(int(resume_token))
             req.resume_token = int(resume_token)
         self.queue.append(req)
+        self._req_by_id[rid] = req
         return rid
+
+    def request(self, request_id: int) -> Request | None:
+        """The live (or finished but still referenced) Request of
+        `request_id`, None once the object is gone. Incremental readers
+        (streaming logprobs) may read its append-only fields such as
+        token_logprobs."""
+        return self._req_by_id.get(request_id)
 
     def cancel(self, request_id: int):
         """Abort a request from any thread: applied at the next admission
@@ -1029,11 +1078,13 @@ class InferenceEngine:
             self._decref_page(pid)
         self.slot_pages[slot] = []
 
-    @staticmethod
-    def _prefix_hash(tokens: list) -> bytes:
-        """Exact key (the token bytes themselves): a hash collision would
-        silently serve another prompt's KV."""
-        return np.asarray(tokens, np.int32).tobytes()
+    def _prefix_hash(self, tokens: list) -> bytes:
+        """Exact key (the token bytes themselves: a hash collision would
+        silently serve another prompt's KV), under the weights' generation:
+        pages cached under other weights (before an adapter swap) never
+        match."""
+        return (self._weights_gen.to_bytes(8, "little")
+                + np.asarray(tokens, np.int32).tobytes())
 
     def _find_prefix(self, prompt: list) -> list[int]:
         """Longest run of already-cached full prompt pages (at least one
@@ -1174,6 +1225,7 @@ class InferenceEngine:
                 nohit_by_bucket.setdefault(p["bucket"], []).append(p)
         groups = [(b, pb, g) for (b, pb), g in hit_by_key.items()]
         groups += [(b, 0, g) for b, g in nohit_by_bucket.items()]
+        params = self.params
         for bucket, pre_bucket, group in groups:
             # Pad the batch to a power of two (bounded batch shapes).
             n_pad = 1
@@ -1193,12 +1245,12 @@ class InferenceEngine:
                 plens[j] = p["hit"] * page
             if pre_bucket:
                 logits, ks, vs = prefill_with_prefix_batch(
-                    self.params, self._upload(toks), self.cache_k,
+                    params, self._upload(toks), self.cache_k,
                     self.cache_v, self._upload(pres), self._upload(plens),
                     self.c)
             else:
-                logits, ks, vs = prefill_batch(self.params,
-                                               self._upload(toks), self.c)
+                logits, ks, vs = prefill_batch(params, self._upload(toks),
+                                               self.c)
             insert_pages_batch(self.cache_k, self.cache_v, ks, vs,
                                self._upload(tabs), self._upload(lens))
             for j, p in enumerate(group):
@@ -1356,10 +1408,11 @@ class InferenceEngine:
                 return emitted
         else:
             self.decode_steps += 1
+            params, fused = self._weights
             logits, _, _ = decode_step(
-                self.params, self.cache_k, self.cache_v,
+                params, self.cache_k, self.cache_v,
                 self._upload(self.last_tokens), self._upload(self.lengths),
-                self._upload(self.active), self.c, self._fused)
+                self._upload(self.active), self.c, fused)
         temps_d = self._upload(temps)
         mask = self._host_guide_mask(self.slot_req)
         if (top_ks == 0).all() and (top_ps >= 1.0).all():
@@ -1439,11 +1492,11 @@ class InferenceEngine:
             return None
         tables = self._build_tables()
         self.decode_steps += 1
+        params, fused = self._weights
         return decode_paged(
-            self.params, self.cache_k, self.cache_v,
+            params, self.cache_k, self.cache_v,
             self._upload(self.last_tokens), self._upload(self.lengths),
-            self._upload(self.active), self._upload(tables), self.c,
-            self._fused)
+            self._upload(self.active), self._upload(tables), self.c, fused)
 
     def _build_tables(self) -> np.ndarray:
         e = self.e
@@ -1566,12 +1619,12 @@ class InferenceEngine:
         tables = self._upload(self._build_tables())
         toks_d, lens_d, act_d = self._dev
         temps_d, tps_d, tks_d = self._dev_sampling
+        params, fused = self._weights
         toks_d, lens_d, act_d, out_d, logp_d = decode_window(
-            self.params, self.cache_k, self.cache_v, toks_d, lens_d, act_d,
+            params, self.cache_k, self.cache_v, toks_d, lens_d, act_d,
             tables, temps_d, tps_d, tks_d, gtables_d, gstates_d, self._gen,
             self.c, eos_token=int(e.eos_token), n_steps=k_bucket,
-            trunc=trunc, guided=guided, want_logp=want_logp,
-            fused=self._fused)
+            trunc=trunc, guided=guided, want_logp=want_logp, fused=fused)
         self.decode_steps += k_bucket
         self._dev = (toks_d, lens_d, act_d)
         out = out_d.cpu().numpy()  # one readback per window
@@ -1657,11 +1710,11 @@ class InferenceEngine:
         self._sync_sampling()
         temps_d = self._dev_sampling[0]
         toks_d, lens_d, act_d = self._dev
+        params, fused = self._weights
         toks_d, lens_d, act_d, self._dev_hist, out_d = decode_window_spec(
-            self.params, self.cache_k, self.cache_v, toks_d, lens_d, act_d,
+            params, self.cache_k, self.cache_v, toks_d, lens_d, act_d,
             self._dev_hist, tables, temps_d, self._gen, self.c,
-            eos_token=int(e.eos_token), n_steps=iters, spec_k=K,
-            fused=self._fused)
+            eos_token=int(e.eos_token), n_steps=iters, spec_k=K, fused=fused)
         self.verify_steps += iters
         self._dev = (toks_d, lens_d, act_d)
         out = out_d.cpu().numpy()  # [iters, B, K+1]; one readback

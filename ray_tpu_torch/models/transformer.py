@@ -19,11 +19,19 @@ the model on its share:
   backward reduce-scatters (fsdp) and all-reduces (dp) it. Without that
   declaration each rank would keep its own local gradient: a step that
   trains without error on gradients wrong by the data degree.
-- tp: each rank runs its n_heads / tp query heads, n_kv_heads / tp kv
-  heads and d_ff / tp columns (`local_config`), so the flash kernels see
-  the local head counts; Megatron's all-reduce after `wo` and `wd`
-  (`parallel.collectives`). The embedding is vocab-parallel (masked
-  lookup + all-reduce) and the loss the vocab-parallel cross entropy.
+- tp: each rank runs its d_ff / tp columns and, where tp divides the
+  head counts, its n_heads / tp query heads and n_kv_heads / tp kv heads
+  (`local_config`), so the flash kernels see the local head counts;
+  Megatron's all-reduce after `wo` and `wd` (`parallel.collectives`).
+  Where tp is a multiple of n_kv_heads, each rank runs its query heads
+  with the one kv head they read, gathered whole (Megatron's GQA rule;
+  the kv head's gradient sums over the ranks that share it). Where a
+  split cuts inside a head, the attention block's weights are gathered
+  and attention runs whole on every rank. The params are placed as the
+  JAX package's table places them in every case (tp need only divide
+  the flat head widths, d_ff and vocab). The embedding is vocab-parallel
+  (masked lookup + all-reduce) and the loss the vocab-parallel cross
+  entropy.
 - sp, pp and ep above 1 raise NotImplementedError (later slices).
 """
 
@@ -39,8 +47,8 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.layers import apply_rope, rmsnorm, rope, swiglu
 from ray_tpu_torch.parallel.collectives import (copy_to_tp, gather_from_tp,
-                                                max_over, reduce_from_tp,
-                                                sum_over)
+                                                gather_weight_tp, max_over,
+                                                reduce_from_tp, sum_over)
 from ray_tpu_torch.parallel.mesh import axis_group, axis_rank, mesh_degrees
 
 # The model's fp32 products (the logits head, fp32 configs) run in full
@@ -169,19 +177,29 @@ def param_logical_axes(config: ModelConfig) -> dict:
     return axes
 
 
+# How attention splits over tp (`ShardedConfig.attn_split`).
+SPLIT_HEADS = "heads"              # each rank its h / tp and hkv / tp heads
+SPLIT_KV_REPLICATED = "kv_replicated"  # its h / tp heads, their kv head
+SPLIT_REPLICATED = "replicated"    # every head on every rank
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedConfig(ModelConfig):
     """A rank's view of a ModelConfig under tensor parallelism: its local
-    n_heads, n_kv_heads and d_ff (the global ones / tp), the global
-    head_dim, and the tp group (None at tp = 1) its collectives run on."""
+    d_ff (the global one / tp), the heads it runs (`attn_split`: its
+    n_heads / tp and n_kv_heads / tp; its n_heads / tp and 1 kv head; or
+    all of them), the global head_dim (`hd`), and the tp group (None at
+    tp = 1) its collectives run on."""
     tp: int = 1
     tp_rank: int = 0
     tp_group: object = dataclasses.field(default=None, compare=False,
                                          repr=False)
+    attn_split: str = SPLIT_HEADS
+    hd: int = 0
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // (self.n_heads * self.tp)
+        return self.hd
 
 
 def check_mesh(mesh, what: str) -> dict[str, int]:
@@ -197,21 +215,31 @@ def check_mesh(mesh, what: str) -> dict[str, int]:
 
 
 def local_config(config: ModelConfig, mesh) -> ModelConfig:
-    """This rank's ShardedConfig under `mesh`. A head or kv-head count
-    that tp does not divide raises NotImplementedError."""
+    """This rank's ShardedConfig under `mesh`. tp must divide what the
+    rules table splits over it (the flat n_heads * head_dim and
+    n_kv_heads * head_dim widths, d_ff and vocab), as placing the params
+    needs; else ValueError, as the JAX package's placement refuses."""
     c = config
     tp = check_mesh(mesh, "the model").get("tp", 1)
-    if c.n_heads % tp or c.n_kv_heads % tp or c.d_ff % tp:
-        raise NotImplementedError(
-            f"tp={tp} must divide n_heads={c.n_heads}, n_kv_heads="
-            f"{c.n_kv_heads} and d_ff={c.d_ff}: uneven head splits are not "
-            f"ported")
+    hd = c.head_dim
+    for what, n in (("n_heads * head_dim", c.n_heads * hd),
+                    ("n_kv_heads * head_dim", c.n_kv_heads * hd),
+                    ("d_ff", c.d_ff), ("vocab", c.vocab)):
+        if n % tp:
+            raise ValueError(f"tp={tp} must divide {what}={n}: the params "
+                             f"are split over tp along it")
+    if c.n_heads % tp == 0 and c.n_kv_heads % tp == 0:
+        split, h, hkv = SPLIT_HEADS, c.n_heads // tp, c.n_kv_heads // tp
+    elif c.n_heads % tp == 0 and tp % c.n_kv_heads == 0:
+        split, h, hkv = SPLIT_KV_REPLICATED, c.n_heads // tp, 1
+    else:
+        split, h, hkv = SPLIT_REPLICATED, c.n_heads, c.n_kv_heads
     fields = {f.name: getattr(c, f.name)
               for f in dataclasses.fields(ModelConfig)}
-    fields.update(n_heads=c.n_heads // tp, n_kv_heads=c.n_kv_heads // tp,
-                  d_ff=c.d_ff // tp)
+    fields.update(n_heads=h, n_kv_heads=hkv, d_ff=c.d_ff // tp)
     return ShardedConfig(**fields, tp=tp, tp_rank=axis_rank(mesh, "tp"),
-                         tp_group=axis_group(mesh, "tp"))
+                         tp_group=axis_group(mesh, "tp"), attn_split=split,
+                         hd=hd)
 
 
 def tp_group(config: ModelConfig):
@@ -279,19 +307,40 @@ def lm_head(params: dict, config: ModelConfig):
     return params["embed"].T if config.tie_embeddings else params["lm_head"]
 
 
+def _attention_weights(lp, c: ModelConfig):
+    """(wq, wk, wv, wo, group) as this rank runs attention: its blocks
+    where tp splits whole heads; the one kv head its query heads read,
+    gathered (Megatron's GQA rule); or the whole block, run replicated
+    with no tp collective (group None), where a split cuts a head."""
+    g = tp_group(c)
+    wq, wk, wv, wo = lp["wq"], lp["wk"], lp["wv"], lp["wo"]
+    if g is None or c.attn_split == SPLIT_HEADS:
+        return wq, wk, wv, wo, g
+    hd = c.head_dim
+    if c.attn_split == SPLIT_KV_REPLICATED:
+        # the rank's query heads read kv head j of the gathered n_kv_heads
+        wk, wv = (gather_weight_tp(w, g, -1, sum_grad=True) for w in (wk, wv))
+        j = c.tp_rank * (wk.shape[-1] // hd) // c.tp
+        cols = slice(j * hd, (j + 1) * hd)
+        return wq, wk[..., cols], wv[..., cols], wo, g
+    wq, wk, wv = (gather_weight_tp(w, g, -1, sum_grad=False)
+                  for w in (wq, wk, wv))
+    return wq, wk, wv, gather_weight_tp(wo, g, 0, sum_grad=False), None
+
+
 def _attention(x, lp, c: ModelConfig, sin, cos):
     b, s, d = x.shape
     h, hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim
-    g = tp_group(c)
+    wq, wk, wv, wo, g = _attention_weights(lp, c)
     x = copy_to_tp(x, g)
-    q = torch.einsum("bsd,dk->bsk", x, lp["wq"]).reshape(b, s, h, hd)
-    k = torch.einsum("bsd,dk->bsk", x, lp["wk"]).reshape(b, s, hkv, hd)
-    v = torch.einsum("bsd,dk->bsk", x, lp["wv"]).reshape(b, s, hkv, hd)
+    q = torch.einsum("bsd,dk->bsk", x, wq).reshape(b, s, h, hd)
+    k = torch.einsum("bsd,dk->bsk", x, wk).reshape(b, s, hkv, hd)
+    v = torch.einsum("bsd,dk->bsk", x, wv).reshape(b, s, hkv, hd)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     o = flash_attention(q, k, v, causal=True, impl=c.attn_impl)
     return reduce_from_tp(
-        torch.einsum("bsk,kd->bsd", o.reshape(b, s, h * hd), lp["wo"]), g)
+        torch.einsum("bsk,kd->bsd", o.reshape(b, s, h * hd), wo), g)
 
 
 def _moe(x, lp, c: ModelConfig):

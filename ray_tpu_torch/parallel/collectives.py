@@ -9,7 +9,11 @@ autograd Functions, and the vocab gather:
 - `reduce_from_tp`: all-reduce forward, identity backward (after a
   row-parallel product: each rank holds a partial sum of the output);
 - `gather_from_tp`: all-gather along the last dim forward, the rank's
-  slice backward (vocab-parallel logits to full ones).
+  slice backward (vocab-parallel logits to full ones);
+- `gather_weight_tp`: a param block all-gathered along a dim, for
+  attention that tp does not split by whole heads; its backward is the
+  rank's slice of the gradient, summed over the group first where ranks
+  share the weight's columns (a kv head replicated over several ranks).
 A group of None (no mesh, or tp = 1) makes each an identity, so the
 one-device path is unchanged. The collectives are `torch.distributed`'s,
 on whatever backend the process group runs (NCCL, or gloo, which takes
@@ -48,20 +52,23 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
-class _GatherFromTP(torch.autograd.Function):
+class _GatherTP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, dim, sum_grad):
+        ctx.group, ctx.dim, ctx.sum_grad = group, dim, sum_grad
         n = dist.get_world_size(group)
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=-1)
+        return torch.cat(parts, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.sum_grad:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=ctx.group)
         n = dist.get_world_size(ctx.group)
         r = dist.get_rank(ctx.group)
-        return g.chunk(n, dim=-1)[r].contiguous(), None
+        return g.chunk(n, dim=ctx.dim)[r].contiguous(), None, None, None
 
 
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
@@ -73,7 +80,17 @@ def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def gather_from_tp(x: torch.Tensor, group) -> torch.Tensor:
-    return x if group is None else _GatherFromTP.apply(x, group)
+    return x if group is None else _GatherTP.apply(x, group, -1, False)
+
+
+def gather_weight_tp(w: torch.Tensor, group, dim: int,
+                     sum_grad: bool) -> torch.Tensor:
+    """The whole of a param split over tp along `dim`. `sum_grad`: each
+    rank's gradient of the whole is a partial sum (the ranks use
+    different parts of it), so the backward sums it over the group before
+    each rank takes its slice; else every rank computes the same whole
+    gradient and takes its slice as it is."""
+    return w if group is None else _GatherTP.apply(w, group, dim, sum_grad)
 
 
 def max_over(x: torch.Tensor, group) -> torch.Tensor:

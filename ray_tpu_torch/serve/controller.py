@@ -1,0 +1,410 @@
+"""ServeController: singleton reconciler actor (counterpart of
+`ray_tpu/serve/controller.py`, on the port's runtime).
+
+Parity: reference `python/ray/serve/_private/controller.py:84`
+(run_control_loop:369) + `_private/deployment_state.py:1248,2343` (replica
+FSM, rolling updates) + `_private/autoscaling_state.py` (queue-metric
+autoscaling). One async actor: the control loop reconciles desired state
+(apps -> deployments -> target replica count/version) against live replica
+actors, restarts dead ones, applies autoscaling decisions, and serves target
+snapshots to routers (the long-poll substitute).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import math
+import pickle
+import time
+import uuid
+
+import ray_tpu_torch
+from ray_tpu_torch.core.status import RayTpuError
+from ray_tpu_torch.serve.config import (
+    AutoscalingConfig,
+    DeploymentTarget,
+    ReplicaInfo,
+)
+from ray_tpu_torch.serve.replica import ReplicaActor
+
+RUNNING, DEPLOYING, DELETING, UNHEALTHY = (
+    "RUNNING", "DEPLOYING", "DELETING", "UNHEALTHY")
+
+
+class _ReplicaState:
+    def __init__(self, replica_id, actor_name, handle, version):
+        self.replica_id = replica_id
+        self.actor_name = actor_name
+        self.handle = handle
+        self.version = version
+        self.healthy = False
+        self.last_health_check = 0.0
+        self.health_check_failures = 0
+
+
+class _DeploymentState:
+    """FSM for one deployment (parity: deployment_state.py DeploymentState)."""
+
+    def __init__(self, app_name, name, spec):
+        self.app_name = app_name
+        self.name = name
+        self.spec = spec                       # dict from serve.run
+        self.code_version = 0                  # bumped on redeploy
+        self.target_version = 0
+        self.target_num_replicas = spec["config"].target_initial_replicas()
+        self.replicas: list[_ReplicaState] = []
+        self.deleting = False
+        self.snapshot_version = 0
+        # autoscaling bookkeeping
+        self.handle_metrics: dict = {}         # reporter -> (count, ts)
+        self.shed_events: list = []            # (count_delta, ts) reports
+        self.last_scale_up = 0.0
+        self.last_scale_down = 0.0
+        self.scale_decision_since = None
+
+    @property
+    def config(self):
+        return self.spec["config"]
+
+    def status(self) -> str:
+        healthy = sum(1 for r in self.replicas if r.healthy)
+        if self.deleting:
+            return DELETING
+        if (healthy == len(self.replicas) == self.target_num_replicas
+                and all(r.version == self.target_version for r in self.replicas)):
+            return RUNNING
+        return DEPLOYING
+
+
+class ServeController:
+    """The singleton controller actor (async)."""
+
+    CONTROL_LOOP_PERIOD_S = 0.25
+
+    def __init__(self, http_port: int | None):
+        self.apps: dict[str, dict] = {}     # app -> {"deployments": {...}, "route_prefix", "ingress"}
+        self.http_port = http_port
+        self._proxy_started = False
+        self._loop_task = None
+        self._shutdown = False
+
+    async def _ensure_loop(self):
+        if self._loop_task is None:
+            self._loop_task = asyncio.ensure_future(self._control_loop())
+
+    # ---------------- deploy API ----------------
+    async def deploy_application(self, app_name, route_prefix, ingress_name,
+                                 deployments):
+        """deployments: {name: {"def": blob-or-callable, "init_args": ...,
+        "init_kwargs": ..., "config": DeploymentConfig}}"""
+        await self._ensure_loop()
+        app = self.apps.get(app_name)
+        if app is None:
+            app = {"deployments": {}, "route_prefix": route_prefix,
+                   "ingress": ingress_name}
+            self.apps[app_name] = app
+        app["route_prefix"] = route_prefix
+        app["ingress"] = ingress_name
+        gone = set(app["deployments"]) - set(deployments)
+        for name in gone:
+            app["deployments"][name].deleting = True
+        for name, spec in deployments.items():
+            ds = app["deployments"].get(name)
+            if ds is None:
+                app["deployments"][name] = _DeploymentState(app_name, name, spec)
+            else:
+                ds.deleting = False
+                changed = self._spec_changed(ds.spec, spec)
+                user_config_changed = (
+                    ds.spec["config"].user_config != spec["config"].user_config)
+                ds.spec = spec
+                if changed:
+                    ds.code_version += 1
+                    ds.target_version = ds.code_version
+                elif user_config_changed:
+                    # Lightweight update: reconfigure in place.
+                    for r in ds.replicas:
+                        try:
+                            r.handle.reconfigure.remote(
+                                spec["config"].user_config)
+                        except RayTpuError:
+                            pass
+                if ds.config.autoscaling_config is None:
+                    ds.target_num_replicas = spec["config"].num_replicas
+                else:
+                    ac = ds.config.autoscaling_config
+                    ds.target_num_replicas = max(
+                        ac.min_replicas,
+                        min(ds.target_num_replicas, ac.max_replicas))
+        return "ok"
+
+    @staticmethod
+    def _spec_changed(old, new) -> bool:
+        return (old["def_blob"] != new["def_blob"]
+                or old["init_args_blob"] != new["init_args_blob"])
+
+    async def delete_application(self, app_name):
+        app = self.apps.get(app_name)
+        if app is None:
+            return "no-op"
+        for ds in app["deployments"].values():
+            ds.deleting = True
+        return "ok"
+
+    # ---------------- router-facing ----------------
+    async def get_deployment_target(self, app_name, deployment_name):
+        app = self.apps.get(app_name)
+        if app is None:
+            return None
+        ds = app["deployments"].get(deployment_name)
+        if ds is None or ds.deleting:
+            return None
+        infos = [ReplicaInfo(r.replica_id, r.actor_name,
+                             ds.config.max_ongoing_requests)
+                 for r in ds.replicas
+                 if r.healthy and r.version == ds.target_version]
+        # Fall back to any healthy replica mid-rollout so traffic never stops.
+        if not infos:
+            infos = [ReplicaInfo(r.replica_id, r.actor_name,
+                                 ds.config.max_ongoing_requests)
+                     for r in ds.replicas if r.healthy]
+        return DeploymentTarget(app_name, deployment_name, infos,
+                                ds.snapshot_version)
+
+    async def report_replica_death(self, app_name, deployment_name, replica_id):
+        ds = self._get_ds(app_name, deployment_name)
+        if ds is None:
+            return
+        for r in ds.replicas:
+            if r.replica_id == replica_id:
+                r.healthy = False
+                r.health_check_failures = 99
+        ds.snapshot_version += 1
+
+    async def record_handle_metrics(self, app_name, deployment_name, ongoing,
+                                    reporter_id=None):
+        ds = self._get_ds(app_name, deployment_name)
+        if ds is None:
+            return
+        ds.handle_metrics[reporter_id or "default"] = (ongoing, time.monotonic())
+
+    async def record_shed_metrics(self, app_name, deployment_name,
+                                  shed_delta: int):
+        """Admission-shed report attributed to `deployment_name` (the
+        `ray_tpu_serve_shed_total{pool=...}` signal, forwarded by the
+        coordinator that runs admission control): feeds the shed-rate
+        upscale rule in _autoscale."""
+        ds = self._get_ds(app_name, deployment_name)
+        if ds is None or shed_delta <= 0:
+            return
+        now = time.monotonic()
+        ds.shed_events.append((int(shed_delta), now))
+        # Bound the ledger: only the configured window ever matters.
+        ac = ds.config.autoscaling_config
+        horizon = (ac.shed_window_s if ac is not None else 60.0) + 60.0
+        ds.shed_events = [(c, t) for c, t in ds.shed_events
+                          if now - t < horizon]
+
+    # ---------------- introspection ----------------
+    async def get_status(self):
+        out = {}
+        for app_name, app in self.apps.items():
+            deps = {}
+            for name, ds in app["deployments"].items():
+                deps[name] = {
+                    "status": ds.status(),
+                    "target_num_replicas": ds.target_num_replicas,
+                    "running_replicas": sum(1 for r in ds.replicas if r.healthy),
+                    "version": ds.target_version,
+                }
+            statuses = [d["status"] for d in deps.values()]
+            app_status = (RUNNING if all(s == RUNNING for s in statuses)
+                          else (DELETING if statuses and all(
+                              s == DELETING for s in statuses) else DEPLOYING))
+            out[app_name] = {
+                "status": app_status,
+                "route_prefix": app["route_prefix"],
+                "ingress": app["ingress"],
+                "deployments": deps,
+            }
+        return out
+
+    async def get_http_routes(self):
+        out = {}
+        for name, app in self.apps.items():
+            if app["route_prefix"] is None or not app["deployments"]:
+                continue
+            ingress = app["ingress"]
+            ds = app["deployments"].get(ingress)
+            streaming = (ds.spec.get("streaming") or "") if ds else ""
+            out[app["route_prefix"]] = (name, ingress, streaming)
+        return out
+
+    async def graceful_shutdown(self):
+        self._shutdown = True
+        for app in self.apps.values():
+            for ds in app["deployments"].values():
+                ds.deleting = True
+        await self._reconcile_once()
+        return "ok"
+
+    # ---------------- control loop ----------------
+    def _get_ds(self, app_name, deployment_name):
+        app = self.apps.get(app_name)
+        return None if app is None else app["deployments"].get(deployment_name)
+
+    async def _control_loop(self):
+        while not self._shutdown:
+            try:
+                await self._reconcile_once()
+            except Exception:
+                import traceback
+                traceback.print_exc()
+            await asyncio.sleep(self.CONTROL_LOOP_PERIOD_S)
+
+    async def _reconcile_once(self):
+        await self._ensure_proxy()
+        for app_name in list(self.apps):
+            app = self.apps[app_name]
+            for name in list(app["deployments"]):
+                ds = app["deployments"][name]
+                self._autoscale(ds)
+                await self._reconcile_deployment(ds)
+                if ds.deleting and not ds.replicas:
+                    del app["deployments"][name]
+            if not app["deployments"]:
+                del self.apps[app_name]
+
+    def _autoscale(self, ds: _DeploymentState):
+        ac: AutoscalingConfig | None = ds.config.autoscaling_config
+        if ac is None or ds.deleting:
+            return
+        now = time.monotonic()
+        fresh = [c for c, ts in ds.handle_metrics.values() if now - ts < 10.0]
+        total_ongoing = sum(fresh)
+        desired = math.ceil(
+            total_ongoing / ac.target_ongoing_requests) if fresh else (
+                ds.target_num_replicas)
+        if ac.upscale_shed_rate is not None:
+            # Overload signal: sustained admission-shed rate attributed
+            # to this pool asks for one more replica regardless of the
+            # queue-depth estimate (a shedding pool's ongoing count is
+            # capped BY the shedding — queue depth alone never sees it).
+            window = [c for c, ts in ds.shed_events
+                      if now - ts < ac.shed_window_s]
+            if sum(window) / ac.shed_window_s >= ac.upscale_shed_rate:
+                desired = max(desired, ds.target_num_replicas + 1)
+        desired = max(ac.min_replicas, min(desired, ac.max_replicas))
+        cur = ds.target_num_replicas
+        if desired == cur:
+            ds.scale_decision_since = None
+            return
+        # Hold the decision for the configured delay before acting.
+        if ds.scale_decision_since is None or ds.scale_decision_since[0] != (
+                desired > cur):
+            ds.scale_decision_since = (desired > cur, now)
+            return
+        direction_up, since = ds.scale_decision_since
+        delay = ac.upscale_delay_s if direction_up else ac.downscale_delay_s
+        if now - since >= delay:
+            ds.target_num_replicas = desired
+            ds.scale_decision_since = None
+
+    async def _reconcile_deployment(self, ds: _DeploymentState):
+        cfg = ds.config
+        target = 0 if ds.deleting else ds.target_num_replicas
+        # 1) health-check running replicas.
+        now = time.monotonic()
+        for r in list(ds.replicas):
+            if now - r.last_health_check < cfg.health_check_period_s:
+                continue
+            r.last_health_check = now
+            asyncio.ensure_future(self._check_replica(ds, r))
+        # 2) cull replicas that failed health checks or are from old versions
+        #    once enough new-version replicas are healthy (rolling update).
+        dead = [r for r in ds.replicas if r.health_check_failures >= 3]
+        for r in dead:
+            await self._stop_replica(ds, r, graceful=False)
+        healthy_new = [r for r in ds.replicas
+                       if r.healthy and r.version == ds.target_version]
+        old = [r for r in ds.replicas if r.version != ds.target_version]
+        if old and len(healthy_new) >= target:
+            for r in old:
+                await self._stop_replica(ds, r, graceful=True)
+        # 3) converge count on the target version.
+        cur = [r for r in ds.replicas if r.version == ds.target_version]
+        if len(cur) < target:
+            for _ in range(target - len(cur)):
+                self._start_replica(ds)
+        elif len(cur) > target and not old:
+            excess = len(cur) - target
+            victims = [r for r in sorted(
+                cur, key=lambda r: r.healthy)][:excess]
+            for r in victims:
+                await self._stop_replica(ds, r, graceful=True)
+
+    async def _check_replica(self, ds, r):
+        try:
+            await asyncio.wait_for(
+                _await_ref(r.handle.check_health.remote()),
+                timeout=ds.config.health_check_timeout_s)
+            if not r.healthy:
+                ds.snapshot_version += 1
+            r.healthy = True
+            r.health_check_failures = 0
+        except Exception:
+            r.health_check_failures += 1
+            if r.healthy:
+                r.healthy = False
+                ds.snapshot_version += 1
+
+    def _start_replica(self, ds: _DeploymentState):
+        replica_id = uuid.uuid4().hex[:12]
+        actor_name = (f"SERVE_REPLICA::{ds.app_name}#{ds.name}#{replica_id}")
+        opts = dict(ds.config.ray_actor_options)
+        opts.setdefault("num_cpus", 0)
+        opts["name"] = actor_name
+        opts["max_restarts"] = 0      # controller owns restarts
+        # blobs that serve.run pickled in this cluster (dumps_code)
+        deployment_def = pickle.loads(ds.spec["def_blob"])
+        init_args, init_kwargs = pickle.loads(ds.spec["init_args_blob"])
+        handle = ray_tpu_torch.remote(ReplicaActor).options(**opts).remote(
+            deployment_def, init_args, init_kwargs,
+            ds.config.user_config, ds.name, replica_id)
+        ds.replicas.append(_ReplicaState(
+            replica_id, actor_name, handle, ds.target_version))
+        ds.snapshot_version += 1
+
+    async def _stop_replica(self, ds, r, graceful=True):
+        if r in ds.replicas:
+            ds.replicas.remove(r)
+        ds.snapshot_version += 1
+        try:
+            if graceful:
+                await asyncio.wait_for(
+                    _await_ref(r.handle.prepare_shutdown.remote(
+                        ds.config.graceful_shutdown_timeout_s)),
+                    timeout=ds.config.graceful_shutdown_timeout_s + 2)
+        except Exception:
+            pass
+        try:
+            ray_tpu_torch.kill(r.handle)
+        except Exception:
+            pass
+
+    async def _ensure_proxy(self):
+        if self._proxy_started or self.http_port is None:
+            return
+        from ray_tpu_torch.serve.proxy import ProxyActor
+        from ray_tpu_torch.serve.config import PROXY_NAME
+        proxy = ray_tpu_torch.remote(ProxyActor).options(
+            name=PROXY_NAME, num_cpus=0).remote(self.http_port)
+        proxy.run.remote()
+        self._proxy_started = True
+
+
+async def _await_ref(ref):
+    """Await an ObjectRef from inside the controller's asyncio loop without
+    blocking other controller work (runs the blocking get in a thread)."""
+    loop = asyncio.get_running_loop()
+    return await loop.run_in_executor(None, lambda: ray_tpu_torch.get(ref, timeout=None))

@@ -1,0 +1,269 @@
+"""HTTP ingress proxy actor
+(counterpart of `ray_tpu/serve/proxy.py`).
+
+Parity: reference `python/ray/serve/_private/proxy.py:1131` (ProxyActor —
+uvicorn/starlette HTTP ingress, route table from the controller, request ->
+DeploymentHandle). Here the server is a dependency-free asyncio HTTP/1.1
+server; routing is longest-prefix match on route_prefix; responses are
+JSON/text/bytes depending on what the deployment returns.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import time
+import urllib.parse
+
+import ray_tpu_torch
+from ray_tpu_torch.core.status import RayTpuError
+from ray_tpu_torch.serve.config import CONTROLLER_NAME
+from ray_tpu_torch.serve.handle import DeploymentHandle
+
+
+class Request:
+    """What an ingress deployment's __call__ receives for an HTTP request.
+
+    A deliberately small starlette.Request-alike: method, path (with the
+    route prefix stripped), query params, headers, body; .json() helper.
+    """
+
+    def __init__(self, method, path, query, headers, body):
+        self.method = method
+        self.path = path
+        self.query_params = query
+        self.headers = headers
+        self.body = body
+
+    def json(self):
+        return json.loads(self.body or b"null")
+
+    def __reduce__(self):
+        return (Request, (self.method, self.path, self.query_params,
+                          self.headers, self.body))
+
+
+class ProxyActor:
+    """Async actor hosting the HTTP server; refreshes routes from controller."""
+
+    ROUTE_REFRESH_S = 1.0
+
+    def __init__(self, port: int):
+        self.port = port
+        self._routes = {}          # prefix -> (app_name, ingress_deployment)
+        self._handles = {}         # app_name -> DeploymentHandle
+        self._last_refresh = 0.0
+        self._server = None
+        self._num_requests = 0
+
+    async def run(self):
+        self._server = await asyncio.start_server(
+            self._serve_conn, host="127.0.0.1", port=self.port)
+        return f"listening on 127.0.0.1:{self.port}"
+
+    async def ready(self):
+        return self._server is not None
+
+    async def num_requests(self):
+        return self._num_requests
+
+    async def _refresh_routes(self):
+        now = time.monotonic()
+        if now - self._last_refresh < self.ROUTE_REFRESH_S:
+            return
+        self._last_refresh = now
+        try:
+            controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+            ref = controller.get_http_routes.remote()
+            loop = asyncio.get_running_loop()
+            self._routes = await loop.run_in_executor(
+                None, lambda: ray_tpu_torch.get(ref, timeout=5))
+        except (RayTpuError, ValueError):
+            pass
+
+    def _match(self, path: str):
+        best = None
+        for prefix, target in self._routes.items():
+            norm = prefix.rstrip("/") or "/"
+            if path == norm or path.startswith(
+                    norm + "/") or norm == "/":
+                if best is None or len(norm) > len(best[0]):
+                    # Route tuples grew a streaming mode; tolerate cached
+                    # 2-tuples from an older controller snapshot.
+                    if len(target) == 2:
+                        target = (*target, "")
+                    best = (norm, target)
+        return best
+
+    @staticmethod
+    def _wants_stream(req: "Request") -> bool:
+        """Opt-in probe: SSE accept header, or an OpenAI-style JSON body
+        with "stream": true."""
+        if "text/event-stream" in req.headers.get("accept", ""):
+            return True
+        body = req.body or b""
+        if b'"stream"' in body and len(body) < (1 << 20):
+            try:
+                return bool(json.loads(body).get("stream"))
+            except (json.JSONDecodeError, AttributeError):
+                return False
+        return False
+
+    async def _serve_conn(self, reader, writer):
+        try:
+            while True:
+                req = await self._read_request(reader)
+                if req is None:
+                    break
+                self._num_requests += 1
+                out = await self._dispatch(req)
+                keep_alive = req.headers.get("connection", "").lower() != "close"
+                if out[0] == "stream":
+                    # Chunked/SSE: items are written as they arrive; the
+                    # connection closes afterwards (no content-length).
+                    await self._write_streaming_response(writer, out[1])
+                    break
+                status, headers, body = out
+                await self._write_response(
+                    writer, status, headers, body, keep_alive)
+                if not keep_alive:
+                    break
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except Exception:
+                pass
+
+    async def _read_request(self, reader):
+        try:
+            line = await reader.readline()
+        except (ConnectionError, asyncio.LimitOverrunError):
+            return None
+        if not line or line in (b"\r\n", b"\n"):
+            return None
+        try:
+            method, target, _version = line.decode("latin1").split()
+        except ValueError:
+            return None
+        headers = {}
+        while True:
+            h = await reader.readline()
+            if h in (b"\r\n", b"\n", b""):
+                break
+            k, _, v = h.decode("latin1").partition(":")
+            headers[k.strip().lower()] = v.strip()
+        body = b""
+        n = int(headers.get("content-length", 0) or 0)
+        if n:
+            body = await reader.readexactly(n)
+        parsed = urllib.parse.urlsplit(target)
+        query = dict(urllib.parse.parse_qsl(parsed.query))
+        return Request(method, parsed.path, query, headers, body)
+
+    async def _dispatch(self, req: Request):
+        await self._refresh_routes()
+        if req.path == "/-/healthz":
+            return 200, {}, b"success"
+        if req.path == "/-/routes":
+            table = {p: f"{t[0]}:{t[1]}" for p, t in self._routes.items()}
+            return 200, {"content-type": "application/json"}, json.dumps(
+                table).encode()
+        m = self._match(req.path)
+        if m is None:
+            return 404, {}, b"no deployment route matches"
+        prefix, (app_name, ingress, streaming) = m
+        sub = req.path[len(prefix):] if prefix != "/" else req.path
+        inner = Request(req.method, sub or "/", req.query_params,
+                        req.headers, req.body)
+        handle = self._handles.get(app_name)
+        if handle is None or handle._deployment != ingress:
+            handle = DeploymentHandle(app_name, ingress)
+            self._handles[app_name] = handle
+        loop = asyncio.get_running_loop()
+        try:
+            # Router.assign can block (replica wait, controller RPC): keep it
+            # off the event loop so other connections and healthz stay live.
+            if streaming == "always" or (streaming == "opt-in"
+                                         and self._wants_stream(req)):
+                if streaming == "opt-in":
+                    handle = handle.options(method_name="__stream__")
+                it = await loop.run_in_executor(
+                    None, lambda: handle.remote_streaming(inner))
+                return ("stream", it)
+            out = await loop.run_in_executor(
+                None, lambda: handle.remote(inner).result(timeout_s=60))
+            return self._encode(out)
+        except Exception as e:
+            return 500, {}, f"Internal Server Error: {e}".encode()
+
+    @staticmethod
+    def _encode(out):
+        if isinstance(out, tuple) and len(out) == 2 and isinstance(out[0], int):
+            status, payload = out
+        else:
+            status, payload = 200, out
+        if isinstance(payload, bytes):
+            return status, {"content-type": "application/octet-stream"}, payload
+        if isinstance(payload, str):
+            return status, {"content-type": "text/plain; charset=utf-8"
+                            }, payload.encode()
+        return status, {"content-type": "application/json"}, json.dumps(
+            payload).encode()
+
+    async def _write_streaming_response(self, writer, value_iter):
+        """Chunked transfer encoding, one chunk per streamed item; str
+        items pass through as-is (SSE framing is the deployment's job)."""
+        head = ("HTTP/1.1 200 OK\r\n"
+                "content-type: text/event-stream\r\n"
+                "cache-control: no-cache\r\n"
+                "transfer-encoding: chunked\r\n"
+                "connection: close\r\n\r\n")
+        writer.write(head.encode())
+        await writer.drain()
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+        _END = object()
+
+        def pump():
+            try:
+                for item in value_iter:
+                    loop.call_soon_threadsafe(q.put_nowait, item)
+            except Exception as e:  # noqa: BLE001 — surface mid-stream
+                loop.call_soon_threadsafe(q.put_nowait, e)
+            loop.call_soon_threadsafe(q.put_nowait, _END)
+
+        import threading
+        threading.Thread(target=pump, daemon=True).start()
+        while True:
+            item = await q.get()
+            if item is _END:
+                break
+            if isinstance(item, Exception):
+                chunk = f"error: {item}\n".encode()
+            elif isinstance(item, bytes):
+                chunk = item
+            elif isinstance(item, str):
+                chunk = item.encode()
+            else:
+                chunk = (json.dumps(item) + "\n").encode()
+            writer.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
+            await writer.drain()
+        writer.write(b"0\r\n\r\n")
+        await writer.drain()
+
+    @staticmethod
+    async def _write_response(writer, status, headers, body, keep_alive):
+        reason = {200: "OK", 404: "Not Found", 500: "Internal Server Error"
+                  }.get(status, "OK")
+        head = [f"HTTP/1.1 {status} {reason}"]
+        headers = dict(headers)
+        headers["content-length"] = str(len(body))
+        headers.setdefault("connection",
+                           "keep-alive" if keep_alive else "close")
+        for k, v in headers.items():
+            head.append(f"{k}: {v}")
+        writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + body)
+        await writer.drain()

@@ -27,9 +27,11 @@ placements to restore into. `save_checkpoint` commits such a directory
 under a manifest (with no dict shards, as an orbax directory is
 committed), so `latest_committed` only ever points at a whole checkpoint.
 
-Not ported: the manifest's arena path (restoring a shard over the object
-plane, `_load_shard_arena`) needs the runtime, which is a later slice;
-`load_shard` reads the disk shard.
+The arena path: a rank's report seals its dict shard into the port's
+object store too (`train/session.py`), and the manifest records the
+object ids. `load_shard` reads that object first under the port's
+runtime (a `get` with a 1 s deadline) and the disk shard when there is no
+runtime or the object is gone; the disk shard is the source of truth.
 """
 
 from __future__ import annotations
@@ -248,8 +250,33 @@ class Checkpoint:
                 "written state, e.g. a sharded save_state dir) — restore "
                 "it with checkpoint.restore_state, not load_shard")
         src = rank % n if n else 0
+        data = self._load_shard_arena(m, src)
+        if data is not None:
+            return data
         with open(os.path.join(self.path, m["shards"][src]), "rb") as f:
             return pickle.load(f)
+
+    def _load_shard_arena(self, manifest: dict, src_rank: int):
+        """Best-effort arena restore: the manifest's sealed shard object
+        from the port's object store. Any failure (no runtime, the object
+        freed or evicted, its owner gone) falls back to the disk shard."""
+        hex_id = (manifest.get("arena") or {}).get(str(src_rank))
+        if not hex_id:
+            return None
+        try:
+            import ray_tpu_torch
+            from ray_tpu_torch.core.ids import ObjectID
+            from ray_tpu_torch.core.object_ref import ObjectRef
+            from ray_tpu_torch.core.runtime import current_runtime
+            if current_runtime() is None:
+                return None
+            ref = ObjectRef(ObjectID.from_hex(hex_id), _add_ref=False)
+            # A short deadline: the common miss is an object freed with its
+            # dead owner, and every rank's restore would otherwise wait out
+            # a long resolution before the disk read the restart needs.
+            return ray_tpu_torch.get(ref, timeout=1)
+        except Exception:  # noqa: BLE001 — the disk is the source of truth
+            return None
 
     @classmethod
     def from_directory(cls, path: str) -> "Checkpoint":

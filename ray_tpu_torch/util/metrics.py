@@ -291,8 +291,21 @@ def _system_lines() -> list[str]:
     for name, v in rows:
         lines += [f"# TYPE {name} gauge", f"{name} {v}"]
     lines += _task_pipeline_lines(rt)
-    # The serve replica gauges join here with serve itself (ROADMAP queue
-    # 1 item 7 (d)).
+    # Serve replica gauges, rendered from controller state at scrape time
+    # (the serve_* request/latency series come from router processes).
+    try:
+        from ray_tpu_torch.serve import api as serve_api
+        st = serve_api.status()
+        if st:
+            lines.append("# TYPE serve_num_replicas gauge")
+            for app, info in st.items():
+                for dep, d in info.get("deployments", {}).items():
+                    labels = _fmt_label_pairs(
+                        ("application", "deployment"), (app, dep))
+                    lines.append(f"serve_num_replicas{{{labels}}} "
+                                 f'{d.get("running_replicas", 0)}')
+    except Exception:  # noqa: BLE001 — serve absent or controller busy
+        pass
     return lines
 
 

@@ -120,6 +120,12 @@ def sharded_steps(rank, world, cfg_kw, mesh_kw, params_np, batch_np,
     return losses, _numpy_tree(state.params)
 
 
+def sharded_steps_each(rank, world, runs):
+    """`sharded_steps` for each (cfg_kw, mesh_kw, params_np, batch_np,
+    steps, lr) of `runs` in turn, in one process group."""
+    return [sharded_steps(rank, world, *run) for run in runs]
+
+
 def sharded_grads(rank, world, cfg_kw, mesh_kw, params_np, batch_np):
     """The loss and the gradients (gathered, as numpy) of one backward of
     the sharded loss on a mesh of `mesh_kw`, with no optimizer step."""
@@ -398,3 +404,21 @@ class Counter:
     def die(self):
         import os
         os._exit(1)
+
+
+# ---- serve deployments ----
+
+
+def _serve_batch(**kw):
+    from ray_tpu_torch import serve
+    return serve.batch(**kw)
+
+
+class BatchedDoubler:
+    """A serve deployment whose concurrent calls `@serve.batch` gathers
+    into one: each caller gets its own element, with the size of the
+    batch it rode in."""
+
+    @_serve_batch(max_batch_size=4, batch_wait_timeout_s=0.5)
+    async def __call__(self, xs):
+        return [(2 * x, len(xs)) for x in xs]

@@ -416,3 +416,121 @@ def test_head_dim_12_engine_pads_its_pools(spec):
     jeng = JInferenceEngine(JModelConfig(**kw), JEngineConfig(**ecfg),
                             params=pj)
     assert got == jeng.generate(prompts, max_new_tokens=10, temperature=0.0)
+
+
+# ---- request(): the live Request by id (F5) ----
+
+
+def _drive(eng, path):
+    return eng.step() if path in ("plain", "dense") else eng.step_window()
+
+
+@pytest.mark.parametrize("path", ["plain", "window", "admission"])
+def test_request_returns_the_live_request_and_its_logprobs(params, path):
+    """`request(rid)` is the queued Request object itself; its
+    token_logprobs grow with the emitted tokens and match the JAX
+    engine's `request(rid)` within the logprob tolerance (1e-4, fp32), on
+    the single-step path, the window path and for a request admitted
+    behind a full engine; once the object is dropped it returns None."""
+    import gc
+    pj, pt = params
+    ecfg = dict(max_slots=1 if path == "admission" else 2, max_len=64,
+                prompt_buckets=(16,), eos_token=-1)
+    prompt = [5, 6, 7, 8]
+    got = {}
+    for name, eng in (("port", _engine(pt, **ecfg)),
+                      ("jax", JInferenceEngine(_jax_cfg(),
+                                               JEngineConfig(**ecfg),
+                                               params=pj))):
+        if path == "admission":
+            eng.add_request([9, 10, 11], max_new_tokens=6, temperature=0.0)
+        rid = eng.add_request(prompt, 8, 0.0, logprobs=True)
+        req = eng.request(rid)
+        assert req is eng.queue[-1] and req.request_id == rid
+        sizes = [len(req.token_logprobs)]
+        while eng.has_work():
+            eng.step() if path == "plain" else eng.step_window()
+            assert len(req.token_logprobs) == len(req.generated)
+            sizes.append(len(req.token_logprobs))
+        assert sizes == sorted(sizes) and sizes[0] == 0 and sizes[-1] == 8
+        if path == "plain":
+            # the admission's token and a decode step's, then one a step
+            assert sizes[1:] == list(range(2, 9))
+        got[name] = list(req.token_logprobs)
+        assert eng.finished.pop(rid) is req
+        del req
+        gc.collect()
+        assert eng.request(rid) is None
+    np.testing.assert_allclose(got["port"], got["jax"], rtol=0, atol=1e-4)
+    assert all(lp <= 0.0 for lp in got["port"])
+
+
+# ---- the params setter reaches the decode weights (F7) ----
+
+
+@pytest.fixture(scope="module")
+def swap_trees():
+    """configs.tiny() weights (fp32, from the JAX package's init) and the
+    same tree with rank-4 deltas (scale 0.5) added to wq, wk and wv, as
+    numpy trees."""
+    from ray_tpu.models import configs as j_configs
+    from ray_tpu.models import init_params as j_init_params
+    base = jax.tree.map(np.asarray,
+                        j_init_params(j_configs.tiny(), jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(7)
+    merged = jax.tree.map(np.copy, base)
+    for t in ("wq", "wk", "wv"):
+        w = base["layers"][t]
+        a = rng.normal(size=(w.shape[0], w.shape[1], 4)).astype(np.float32)
+        b = rng.normal(size=(w.shape[0], 4, w.shape[2])).astype(np.float32)
+        merged["layers"][t] = w + 0.5 * np.einsum("lir,lrj->lij", a, b) / 4
+    return base, merged
+
+
+_SWAP_ECFG = {
+    "plain": {}, "window": {}, "dense": dict(kv_layout="dense"),
+    "spec": dict(speculation="ngram", spec_k=4)}
+
+
+@pytest.mark.parametrize("path", list(_SWAP_ECFG))
+def test_params_swap_reaches_the_decode_weights(swap_trees, path):
+    """An adapter swap as serving makes it (`engine.params = merged`):
+    the base engine then gives the greedy tokens of an engine built with
+    `params=merged`, token for token, on the single-step, window, dense
+    and speculative paths; a JAX engine given the same swap gives the
+    same tokens; swapping the base tree back gives the base tokens again.
+    The prompt spans a full page, which the base run leaves in the prefix
+    cache: the swapped engine must not reuse KV of the other weights."""
+    from ray_tpu.models import configs as j_configs
+    from ray_tpu_torch.models import configs
+    base_np, merged_np = swap_trees
+    cfg = configs.tiny()
+    ecfg = EngineConfig(max_slots=2, max_len=64, prompt_buckets=(16,),
+                        eos_token=-1, page_size=8, **_SWAP_ECFG[path])
+    base = params_from_numpy(base_np, device="cpu")
+    merged = params_from_numpy(merged_np, device="cpu")
+    prompt = [5, 6, 7, 8, 5, 6, 7, 8, 5, 6]
+
+    def greedy(eng):
+        rid = eng.add_request(prompt, 8, 0.0)
+        while eng.has_work():
+            _drive(eng, path)
+        return eng.finished.pop(rid).generated
+
+    want_base = greedy(InferenceEngine(cfg, ecfg, params=base, device="cpu"))
+    want = greedy(InferenceEngine(cfg, ecfg, params=merged, device="cpu"))
+    assert want != want_base
+    eng = InferenceEngine(cfg, ecfg, params=base, device="cpu")
+    assert greedy(eng) == want_base
+    eng.params = merged
+    assert eng.params is merged
+    assert greedy(eng) == want
+    eng.params = base
+    assert greedy(eng) == want_base
+    if path == "spec":
+        assert eng.kv_stats()["verify_steps"] > 0
+    jeng = JInferenceEngine(j_configs.tiny(), JEngineConfig(
+        **{f: getattr(ecfg, f) for f in ecfg.__dataclass_fields__}),
+        params=jax.tree.map(jnp.asarray, base_np))
+    jeng.params = jax.tree.map(jnp.asarray, merged_np)
+    assert greedy(jeng) == want

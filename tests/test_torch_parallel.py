@@ -148,10 +148,10 @@ def test_placements_follow_the_spec():
 
 
 def test_meshes_refuse_what_is_not_ported():
-    """sp, pp or ep above 1, and a tp that does not divide the heads,
-    raise NotImplementedError before any collective; a node count that
-    does not factor into the dcn axes is refused as the JAX package
-    refuses it."""
+    """sp, pp or ep above 1 raise NotImplementedError before any
+    collective; a tp that does not divide the flat head widths is refused
+    (ValueError), as the JAX package's placement refuses it; so is a node
+    count that does not factor into the dcn axes."""
     cfg = configs.tiny()
     for axis in ("sp", "pp", "ep"):
         mesh = _standin_mesh(**{axis: 2})
@@ -162,7 +162,7 @@ def test_meshes_refuse_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="later slice"):
             loss_fn({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
                     cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="must divide"):
+    with pytest.raises(ValueError, match="must divide"):
         local_config(configs.tiny(), _standin_mesh(tp=3))
     with pytest.raises(ValueError, match="do not factor"):
         make_hybrid_mesh(MeshConfig(fsdp=-1), num_nodes=2, device="cpu")
@@ -227,6 +227,98 @@ def test_sharded_step_matches_jax_sharded_step(sharded_run):
             np.testing.assert_allclose(flat[k], want_params[k], rtol=0,
                                        atol=2e-4, err_msg=k)
     assert want[-1] < want[0]
+
+
+# ---- tp splits that cut the heads (F6) ----
+
+# tiny (4 heads, 2 kv heads) at tp 4: each rank one query head and a
+# whole copy of the kv head it reads; 6 heads of 16 over 4 ranks: the
+# split cuts heads, so attention runs whole on every rank
+_UNEVEN = {"kv_replicated": dict(), "replicated": dict(
+    d_model=96, n_heads=6, n_kv_heads=2)}
+
+
+def _uneven_cfg_kw(name):
+    return {**dataclasses.asdict(configs.tiny()), **_UNEVEN[name]}
+
+
+@pytest.fixture(scope="module")
+def uneven_tp_run():
+    """3 AdamW 1e-3 steps of the port's step on 4 gloo ranks at dp 1,
+    fsdp 1, tp 4 for each config of _UNEVEN (one group), and the JAX step
+    on 4 CPU devices, on 4 x 33 tokens from default_rng(0)."""
+    from ray_tpu.models import ModelConfig as JModelConfig
+    mesh_kw = dict(dp=1, fsdp=1, tp=4)
+    lr, steps = 1e-3, 3
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, 256, (4, 33)).astype(np.int32)}
+    runs, want = [], {}
+    mesh = j_make_mesh(JMeshConfig(**mesh_kw), devices=jax.devices()[:4])
+    for name in _UNEVEN:
+        kw = _uneven_cfg_kw(name)
+        jcfg = JModelConfig(**{**kw, "attn_impl": "reference"})
+        w = _weights(jcfg, seed=0)
+        runs.append((kw, mesh_kw, w, batch, steps, lr))
+        init_fn, _, compile_for, _ = j_make_train_step(
+            lambda p, b, jcfg=jcfg: j_loss_fn(p, b, jcfg, mesh),
+            optax.adamw(lr), mesh, j_param_logical_axes(jcfg))
+        state = init_fn(jax.tree.map(jnp.asarray, w))
+        jb = jax.tree.map(jnp.asarray, batch)
+        step = compile_for(state, jb)
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, jb)
+            losses.append(float(loss))
+        want[name] = (losses, _flat(state.params))
+    got = workers.run_group(workers.sharded_steps_each, 4, runs,
+                            timeout=150)
+    return {name: ([r[i] for r in got], want[name])
+            for i, name in enumerate(_UNEVEN)}
+
+
+@pytest.mark.parametrize("name", list(_UNEVEN))
+def test_uneven_tp_step_matches_jax_sharded_step(uneven_tp_run, name):
+    """tp = 4 over heads it does not divide evenly, as the reference's
+    placement takes it: each rank's losses within 1e-5 (relative) of the
+    JAX step's and its gathered params within 2e-4 (the tolerance of
+    test_sharded_step_matches_jax_sharded_step); the local config runs
+    the split it names."""
+    got, (want, want_params) = uneven_tp_run[name]
+    cfg = ModelConfig(**_uneven_cfg_kw(name))
+    mesh = _standin_mesh(tp=4)
+    mesh.get_group = mesh.get_local_rank = lambda axis: 0
+    assert local_config(cfg, mesh).attn_split == name
+    for losses, params in got:
+        np.testing.assert_allclose(losses, want, rtol=1e-5)
+        flat = _flat(params)
+        assert flat.keys() == want_params.keys()
+        for k in flat:
+            np.testing.assert_allclose(flat[k], want_params[k], rtol=0,
+                                       atol=2e-4, err_msg=k)
+    assert want[-1] < want[0]
+    if name == "kv_replicated":   # the reference's own tp = 4 losses
+        np.testing.assert_allclose(want, [5.5695, 5.4090, 5.2895],
+                                   atol=1e-4)
+
+
+def test_engines_refuse_a_tp_that_splits_kv_heads():
+    """The engines keep the reference's refusal: the KV pool is split by
+    kv head, so tp must divide n_kv_heads (configs.tiny() at tp 4). The
+    JAX engine's pool placement refuses it (ValueError), and so do the
+    port's engines, before any collective."""
+    cfg = configs.tiny()
+    w = _weights(j_configs.tiny(), seed=0)
+    mesh = j_make_mesh(JMeshConfig(tp=4, fsdp=1, dp=1),
+                       devices=jax.devices()[:4])
+    with pytest.raises(ValueError):
+        JInferenceEngine(j_configs.tiny(), JEngineConfig(
+            max_slots=2, max_len=64, prompt_buckets=(16,)),
+            params=jax.tree.map(jnp.asarray, w), mesh=mesh)
+    pt = params_from_numpy(w, device="cpu")
+    for cls in (InferenceEngine, PrefillEngine):
+        with pytest.raises(ValueError, match="n_kv_heads=2"):
+            cls(cfg, EngineConfig(), params=pt, mesh=_standin_mesh(tp=4),
+                device="cpu")
 
 
 # ---- 2 ranks: tp engines, fsdp gradients ----

@@ -192,7 +192,9 @@ def test_task_and_actor_without_cloudpickle_or_protobuf(tmp_path):
     """With cloudpickle and google.protobuf unimportable (sys.modules
     entries of None, in the driver and, through a sitecustomize first on
     the path, in every worker) a task and an actor still run: functions
-    and classes pickle by reference, every frame is pickle-framed."""
+    and classes pickle by reference, every frame is pickle-framed, and
+    arguments that are no scalars (a list, a numpy array: the collecting
+    pickler's path) pickle too."""
     block = tmp_path / "block"
     block.mkdir()
     (block / "sitecustomize.py").write_text(
@@ -210,6 +212,10 @@ def test_task_and_actor_without_cloudpickle_or_protobuf(tmp_path):
         assert rt.get(rt.remote(W.add_one).remote(1), timeout=60) == 2
         c = rt.remote(W.Counter).remote(5)
         assert rt.get(c.add.remote(2), timeout=60) == 7
+        import numpy as np
+        got = rt.get(rt.remote(W.add_one).remote(np.arange(3)), timeout=60)
+        assert got.tolist() == [1, 2, 3], got
+        assert rt.get(c.add.remote(*[3]), timeout=60) == 10
         missing = rt.get(rt.remote(W.imports_fail).remote(
             ["cloudpickle", "google.protobuf"]), timeout=60)
         assert missing == ["cloudpickle", "google.protobuf"], missing

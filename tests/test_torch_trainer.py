@@ -99,6 +99,37 @@ def test_failure_restart_resumes_from_checkpoint(port_rt, tmp_path):
     assert steps.count(2) >= 1 and steps[-1] == 5
 
 
+def test_load_shard_reads_the_arena_object_first(port_rt, tmp_path,
+                                                 monkeypatch):
+    """The arena restore: a committed manifest that records an arena
+    object for the shard gives that object under the port's runtime; with
+    no runtime, or once the object is freed, the disk shard."""
+    import gc
+    import time
+
+    from ray_tpu_torch.core import runtime as runtime_mod
+    from ray_tpu_torch.train.checkpoint import (Checkpoint, commit_manifest,
+                                                step_dir, write_shard)
+    path = step_dir(str(tmp_path), 3)
+    name = write_shard({"from": "disk"}, path, 0, 1)
+    ref = rt.put({"from": "arena"})
+    commit_manifest(path, step=3, world_size=1, shards=[name],
+                    arena={"0": ref.hex()})
+    ckpt = Checkpoint(path)
+    assert ckpt.load_shard(0) == {"from": "arena"}
+    assert ckpt.load_shard(1, world=2) == {"from": "arena"}  # 1 % 1 = 0
+    with monkeypatch.context() as m:
+        m.setattr(runtime_mod, "current_runtime", lambda: None)
+        assert ckpt.load_shard(0) == {"from": "disk"}
+    del ref
+    gc.collect()
+    deadline = time.monotonic() + 30
+    while (ckpt.load_shard(0) != {"from": "disk"}
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    assert ckpt.load_shard(0) == {"from": "disk"}
+
+
 def test_local_ranks_assigned(port_rt, tmp_path):
     """Co-located workers get distinct local ranks (torch LOCAL_RANK
     semantics); one host => local_world == world."""
