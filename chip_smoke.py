@@ -134,6 +134,24 @@ no result line):
               forward argmax, a LoRA adapter registered through the
               handle == an engine built with the merged params, then
               the base tokens again; no runtime process outlives it.
+19. disagg  — `serve.run(build_disagg_openai_app(...))` on the port's
+              runtime: a prefill worker and two decode replicas sharing
+              the card by fractional GPU shares (their classes the probes
+              `ProbePrefill` and `ProbeDecode`), the coordinator and the
+              router holding none. llama-125m bf16, the decode replicas
+              at the serve phase's engine shape (bucket 256 added for the
+              prefill worker, which prefills a prompt whole): phase 18's
+              traffic through /v1/completions from 36 client threads,
+              tokens/s beside phases 4 and 18, the coordinator's stats,
+              the handoff's bytes, the export time, each replica's peak,
+              the boot; K1 12 launches per decode step summed over the
+              decode replicas and no plain paged run anywhere; fp32
+              tokens through HTTP == the in-process engine's == a forward
+              argmax, the handoff after the store bit-equal to an
+              engine's own prefill pages, a decode replica SIGKILLed
+              mid-stream (every stream still exact, the replica respawned
+              on its share) and a burst past max_ongoing_requests shed
+              with HTTP 429 while the admitted finish exact.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -2632,12 +2650,42 @@ def trainer_phase(torch, smi, train) -> dict:
 
 
 def __getattr__(name):
-    """`ProbeServer`, made on first use: the runtime's workers unpickle
-    the replica's class by this module's name, and making it at import
-    would import the port before main() has checked that it is this
-    checkout's."""
-    if name != "ProbeServer":
+    """The probes `ProbeServer`, `ProbePrefill` and `ProbeDecode`, made on
+    first use: the runtime's workers unpickle a replica's class by this
+    module's name, and making them at import would import the port
+    before main() has checked that it is this checkout's."""
+    makers = {"ProbeServer": _make_probe_server,
+              "ProbePrefill": _make_probe_prefill,
+              "ProbeDecode": _make_probe_decode}
+    if name not in makers:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    cls = makers[name]()
+    cls.__module__ = __name__
+    cls.__qualname__ = cls.__name__ = name
+    globals()[name] = cls
+    return cls
+
+
+def _replica_reads(engine=None) -> dict:
+    """What a probe reports of its own process: the paged kernels' launch
+    counts, its peak device memory, the device, its pid, and the engine's
+    decode steps."""
+    import torch
+    from ray_tpu_torch.ops import paged_attention as PA
+    return dict(k1=dict(PA.launches), verify=dict(PA.verify_launches),
+                verify_insert=dict(PA.verify_insert_launches),
+                decode_steps=engine.decode_steps if engine else 0,
+                peak=torch.cuda.max_memory_allocated(),
+                device=torch.cuda.get_device_name(0), pid=os.getpid())
+
+
+def _reset_replica_reads():
+    import torch
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _make_probe_server():
     from ray_tpu_torch.llm.serve import _LLMServerImpl
 
     class ProbeServer(_LLMServerImpl):
@@ -2656,23 +2704,85 @@ def __getattr__(name):
             return req
 
         def probe(self, reset: bool = False) -> dict:
-            import torch
-            from ray_tpu_torch.ops import paged_attention as PA
-            out = dict(k1=dict(PA.launches),
-                       decode_steps=self.engine.decode_steps,
-                       peak=torch.cuda.max_memory_allocated(),
-                       device=torch.cuda.get_device_name(0),
+            out = dict(_replica_reads(self.engine),
                        answered=list(self.answered))
             if reset:
-                reset_counts()
+                _reset_replica_reads()
                 self.answered.clear()
-                torch.cuda.reset_peak_memory_stats()
+            return out
+    return ProbeServer
+
+
+def _make_probe_prefill():
+    from ray_tpu_torch.llm.serve import _PrefillWorkerImpl
+
+    class ProbePrefill(_PrefillWorkerImpl):
+        """The port's prefill worker, with reads of its own process (as
+        `_replica_reads`) and the host clock's start and end of each
+        export (prefill, first-token sampling, the copy to the host and
+        the seal into the store; CLOCK_MONOTONIC, which every process of
+        the host shares)."""
+
+        def __init__(self, llm_config):
+            super().__init__(llm_config)
+            self.exports = []
+
+        def prefill(self, prompt_ids, *args, **kwargs):
+            t0 = time.monotonic()
+            out = super().prefill(prompt_ids, *args, **kwargs)
+            self.exports.append((t0, time.monotonic()))
             return out
 
-    ProbeServer.__module__ = __name__
-    ProbeServer.__qualname__ = ProbeServer.__name__ = "ProbeServer"
-    globals()["ProbeServer"] = ProbeServer
-    return ProbeServer
+        def probe(self, reset: bool = False) -> dict:
+            out = dict(_replica_reads(), exports=list(self.exports))
+            if reset:
+                _reset_replica_reads()
+                self.exports.clear()
+            return out
+    return ProbePrefill
+
+
+def _make_probe_decode():
+    from ray_tpu_torch.llm.serve import _DecodeReplicaImpl
+
+    class ProbeDecode(_DecodeReplicaImpl):
+        """The port's decode replica, with reads of its own process (as
+        `_replica_reads`), the bytes of each handoff it fetched from the
+        store, and the prompt and full token ids of each stream it
+        finished (the tokens the client held, then the ones it sent):
+        an HTTP answer carries text only."""
+
+        def __init__(self, llm_config):
+            super().__init__(llm_config)
+            self.handoff_bytes = []
+            self.streams = []
+
+        def _fetch_handoff(self, kv, prompt_ids):
+            out = super()._fetch_handoff(kv, prompt_ids)
+            if out is not None:
+                self.handoff_bytes.append(sum(
+                    t.numel() * t.element_size() for t in out))
+            return out
+
+        def decode_stream(self, prompt_ids, generated, *args, **kwargs):
+            sent = []
+            for chunk in super().decode_stream(prompt_ids, generated,
+                                               *args, **kwargs):
+                yield chunk
+                sent += [x if isinstance(x, int) else x[0] for x in chunk]
+            self.streams.append((list(prompt_ids),
+                                 [int(t) for t in generated] + sent))
+
+        def probe(self, reset: bool = False) -> dict:
+            out = dict(_replica_reads(self.engine),
+                       handoff_bytes=list(self.handoff_bytes),
+                       streams=list(self.streams))
+            if reset:
+                _reset_replica_reads()
+                self.handoff_bytes.clear()
+                self.streams.clear()
+            return out
+    return ProbeDecode
 
 
 def _free_port() -> int:
@@ -2912,6 +3022,404 @@ def serve_runtime_phase(torch, results, smi, serve_inproc) -> dict:
                                  f"{want_ft}; base after {again}")
         del eng, merged
         serve.delete("fp32")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    while _runtime_processes() and time.monotonic() < deadline:
+        time.sleep(0.5)
+    left = _runtime_processes()
+    if left:
+        raise AssertionError(f"runtime processes outlived shutdown: {left}")
+    return out
+
+
+# -------- phase 19: the disaggregated plane through the runtime --------
+
+
+def _as_probe(serve, app, cls):
+    """Make the deployment at `app`'s root run `cls` (a probe subclass of
+    its class), with the same name and options."""
+    node = app.root
+    c = node.deployment.config
+    node.deployment = serve.deployment(
+        cls, name=node.deployment.name, num_replicas=c.num_replicas,
+        health_check_period_s=c.health_check_period_s,
+        autoscaling_config=c.autoscaling_config,
+        ray_actor_options=dict(c.ray_actor_options))
+
+
+def _serve_disagg_probe_app(serve, me, cfg, disagg, name: str, port: int):
+    """`serve.run(build_disagg_openai_app(cfg, disagg))` with the pools'
+    classes made the probes (the same deployments and options): returns
+    the handles of the coordinator, the prefill pool and the decode
+    pool."""
+    from ray_tpu_torch.llm import build_disagg_openai_app
+    app = build_disagg_openai_app(cfg, disagg)
+    coord = app.root.init_args[0].root
+    _llm, _d, prefill, decode = coord.init_args
+    _as_probe(serve, prefill, me.ProbePrefill)
+    _as_probe(serve, decode, me.ProbeDecode)
+    serve.run(app, name=name, route_prefix=f"/{name}", http_port=port,
+              blocking_timeout_s=300)
+    return tuple(serve.get_deployment_handle(n.name, name)
+                 for n in (coord, prefill.root, decode.root))
+
+
+def _each_replica(rt, handle, method: str, *args) -> list:
+    """Call `method` on every live replica of a deployment (the probe
+    reads each replica's own process), in the router's order."""
+    router = handle._get_router()
+    router._refresh(force=True)
+    return [rt.get(router._handle_for(info).handle_request.remote(
+        method, list(args), {}, ""), timeout=120)
+        for info in router.live_replicas()]
+
+
+def _post_status(url: str, body: dict, timeout: float = 180.0):
+    """(HTTP status, JSON body) of a POST; an HTTP error's too."""
+    import urllib.error
+    try:
+        return 200, _post(url, body, timeout)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _concurrently(fn, items, timeout: float = 300.0) -> list:
+    """fn(item) for every item, each on a thread of its own, all started
+    together; their results in order. Raises if one did not finish."""
+    import threading
+    out = [None] * len(items)
+
+    def run(i):
+        out[i] = fn(items[i])
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    if any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError("a client thread did not finish")
+    return out
+
+
+def _stream_tokens(reads: list) -> dict:
+    """prompt ids -> the full token ids of the longest stream the decode
+    replicas finished for it (a resumed stream's holds the tokens the
+    client got before the resume)."""
+    got = {}
+    for r in reads:
+        for prompt, toks in r["streams"]:
+            if len(toks) > len(got.get(tuple(prompt), ())):
+                got[tuple(prompt)] = toks
+    return got
+
+
+def _export_reads(reads: list, t0: float, t1: float) -> dict:
+    """Of the prefill workers' export intervals: the count, the mean and
+    median ms, the most in flight at once, and the share of [t0, t1]
+    that at least one was running."""
+    spans = sorted(iv for r in reads for iv in r["exports"])
+    ms = sorted(1e3 * (b - a) for a, b in spans)
+    busy, end, most = 0.0, t0, 0
+    for a, b in spans:
+        busy += max(0.0, min(b, t1) - max(a, end))
+        end = max(end, b)
+        most = max(most, sum(1 for c, d in spans if c <= a < d))
+    return dict(n=len(ms), mean_ms=sum(ms) / max(len(ms), 1),
+                median_ms=ms[len(ms) // 2] if ms else 0.0,
+                most_in_flight=most, busy_share=busy / (t1 - t0))
+
+
+def disagg_phase(torch, results, smi, serve_inproc, http_phase) -> dict:
+    """The disaggregated plane through the port's runtime on the card:
+    `serve.run(build_disagg_openai_app(cfg, DisaggConfig(prefill_replicas=
+    1, decode_replicas=2)))`, the three pool replicas sharing the card by
+    fractional GPU shares (their classes the probes `ProbePrefill` and
+    `ProbeDecode`), the coordinator and the OpenAI router holding none,
+    the HTTP proxy on a free port. bf16 llama-125m, the decode replicas at
+    the serve phase's engine shape: phase 18's traffic as text from 36
+    client threads; K1 n_layers launches per decode step summed over the
+    decode replicas, plain 0; the prefill worker launches no plain paged
+    kernel. fp32: tokens through HTTP == the in-process engine's == a
+    forward argmax; the handoff after the store bit-equal to the pages of
+    an engine that prefilled the prompt itself; a decode replica
+    SIGKILLed mid-stream leaves every stream equal to the engine's and is
+    respawned on its share; a burst past max_ongoing_requests sheds with
+    HTTP 429 while the admitted requests finish exact."""
+    import dataclasses as dc
+    import importlib
+
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import (DisaggConfig, EngineConfig,
+                                   InferenceEngine, LLMConfig)
+    from ray_tpu_torch.llm.serve import _open_kv
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.models import configs
+    me = importlib.import_module("chip_smoke")
+    tok = ByteTokenizer()
+    port = _free_port()
+    out = {}
+    rng = np.random.default_rng(0)
+
+    def text(n):
+        return "".join(chr(c) for c in rng.integers(32, 127, n))
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=8, object_store_memory=1 << 30)
+    try:
+        model = configs.bench_125m()
+        # The prefill worker prefills a prompt whole, in one bucket: the
+        # 144-token prompts need the 256 bucket; the decode replicas
+        # prefill this traffic's suffixes in the 128 one, as the serve
+        # phase does.
+        cfg = LLMConfig(model_id="llama-125m", model=model,
+                        engine=EngineConfig(max_slots=32, max_len=1024,
+                                            prompt_buckets=(128, 256),
+                                            eos_token=-1),
+                        num_gpus_per_replica=0.3, seed=0)
+        url = f"http://127.0.0.1:{port}/disagg"
+        t0 = time.perf_counter()
+        coord, pre, dec = _serve_disagg_probe_app(
+            serve, me, cfg, DisaggConfig(prefill_replicas=1,
+                                         decode_replicas=2), "disagg", port)
+        first = _post(url + "/v1/completions",
+                      {"prompt": "hello", "max_tokens": 4,
+                       "temperature": 0.0})
+        boot_s = time.perf_counter() - t0
+        if first["usage"]["completion_tokens"] != 4:
+            raise AssertionError(f"first answer: {first}")
+        prompts = [text(126) for _ in range(32)]   # 127 tokens with BOS
+        shared = text(127)                         # BOS + 127: a page
+        prompts += [shared + text(16) for _ in range(4)]
+        _each_replica(rt, pre, "probe", True)
+        steps0 = {r["pid"]: r["decode_steps"]
+                  for r in _each_replica(rt, dec, "probe", True)}
+        st0 = coord.stats.remote().result(timeout_s=60)
+        t0, m0 = time.perf_counter(), time.monotonic()
+        answers = _concurrently(lambda p: _post(url + "/v1/completions", {
+            "prompt": p, "max_tokens": 64, "temperature": 0.0}), prompts)
+        wall, m1 = time.perf_counter() - t0, time.monotonic()
+        st = coord.stats.remote().result(timeout_s=60)
+        pre_r = _each_replica(rt, pre, "probe")
+        dec_r = _each_replica(rt, dec, "probe")
+        d = {k: st.get(k, 0) - st0.get(k, 0)
+             for k in ("admitted", "completed", "shed", "shed_requests",
+                       "shed_prefill", "shed_decode", "shed_slo",
+                       "route_prefix_hits", "handoff_tokens",
+                       "streams_resumed")}
+        n_tok = sum(a["usage"]["completion_tokens"] for a in answers)
+        for r in dec_r:
+            r["decode_steps"] -= steps0[r["pid"]]
+        steps = sum(r["decode_steps"] for r in dec_r)
+        k1 = {k: sum(r["k1"][k] for r in dec_r) for k in ("cuda", "plain")}
+        hand = [b for r in dec_r for b in r["handoff_bytes"]]
+        exp = _export_reads(pre_r, m0, m1)
+        log(f"  bf16 through HTTP: {len(prompts)} requests from as many "
+            f"client threads, {n_tok} tokens in {wall:.3f} s: "
+            f"{n_tok / wall:.1f} tokens/s (the in-process serve phase: "
+            f"{serve_inproc['tokens_per_s']:.1f}; phase 18 through HTTP: "
+            f"{http_phase['tokens_per_s']:.1f}); boot (serve.run to the "
+            f"first answer) {boot_s:.2f} s [{smi}]")
+        log(f"  coordinator: {d}; ongoing {st['ongoing']}, live decode "
+            f"replicas {st['n_decode_live']}")
+        log(f"  decode replicas: decode steps "
+            f"{[r['decode_steps'] for r in dec_r]}, K1 launches "
+            f"{[r['k1'] for r in dec_r]}, handoffs {len(hand)} of "
+            f"{sorted(set(hand))} bytes, peak device memory "
+            f"{[round(r['peak'] / 2**30, 3) for r in dec_r]} GiB on "
+            f"{sorted({r['device'] for r in dec_r})}")
+        log(f"  prefill worker: {exp['n']} exports, {exp['mean_ms']:.2f} "
+            f"ms each (median {exp['median_ms']:.2f}), up to "
+            f"{exp['most_in_flight']} at once, some export running "
+            f"{100 * exp['busy_share']:.1f} % of the wall; paged launches "
+            f"{[r['k1'] for r in pre_r]}, peak device memory "
+            f"{[round(r['peak'] / 2**30, 3) for r in pre_r]} GiB")
+        if any(a["usage"]["completion_tokens"] != 64 for a in answers):
+            raise AssertionError("a request did not finish with 64 tokens")
+        if (d["admitted"] != len(prompts) or d["completed"] != len(prompts)
+                or d["shed"] or st["ongoing"]):
+            raise AssertionError(f"coordinator stats {st} (from {st0})")
+        if d["handoff_tokens"] != 4 * 128 or len(hand) != 4:
+            raise AssertionError(f"handoffs: {d['handoff_tokens']} tokens, "
+                                 f"fetched {hand}")
+        if k1["cuda"] != model.n_layers * steps or steps == 0:
+            raise AssertionError(f"decode replicas' K1 launches "
+                                 f"{k1['cuda']} != {model.n_layers} x "
+                                 f"{steps} decode steps")
+        if k1["plain"] != 0 or any(
+                r[k]["plain"] for r in pre_r
+                for k in ("k1", "verify", "verify_insert")):
+            raise AssertionError("a plain paged path ran in a replica")
+        results["paged_decode"]["disagg_decode_launches"] = k1["cuda"]
+        # the prefill hop alone: one request at a time, its first token
+        # only (no decode stream), the decode replicas idle
+        _each_replica(rt, pre, "probe", True)
+        solo, m0 = [], time.monotonic()
+        for p in prompts[:2] + prompts[32:34]:
+            t1 = time.perf_counter()
+            a = _post(url + "/v1/completions", {"prompt": p, "max_tokens": 1,
+                                                "temperature": 0.0})
+            solo.append(1e3 * (time.perf_counter() - t1))
+            if a["usage"]["completion_tokens"] != 1:
+                raise AssertionError(f"a one-token answer: {a}")
+        alone = _export_reads(_each_replica(rt, pre, "probe"), m0,
+                              time.monotonic())
+        log(f"  one request at a time, max_tokens 1 (127, 127, 144, 144 "
+            f"tokens): {[round(x, 2) for x in solo]} ms through HTTP, "
+            f"their exports {alone['mean_ms']:.2f} ms each (median "
+            f"{alone['median_ms']:.2f})")
+        out.update(tokens_per_s=n_tok / wall, boot_s=boot_s,
+                   launches=k1["cuda"], steps=steps, stats=d,
+                   export_ms=exp["mean_ms"], solo_ms=solo,
+                   export_alone_ms=alone["mean_ms"],
+                   handoff_bytes=hand[0] if hand else 0,
+                   peaks=[r["peak"] for r in pre_r + dec_r])
+        serve.delete("disagg")
+
+        # fp32: exactness, the handoff bits, a kill and a shed burst
+        m32 = dc.replace(configs.bench_125m(), dtype="float32")
+        ecfg = EngineConfig(max_slots=8, max_len=1024,
+                            prompt_buckets=(128, 512), eos_token=-1)
+        cfg32 = LLMConfig(model_id="llama-125m-fp32", model=m32,
+                          engine=ecfg, num_gpus_per_replica=0.3, seed=1)
+        url = f"http://127.0.0.1:{port}/disagg32"
+        coord, pre, dec = _serve_disagg_probe_app(
+            serve, me, cfg32, DisaggConfig(prefill_replicas=1,
+                                           decode_replicas=2,
+                                           max_ongoing_requests=4),
+            "disagg32", port)
+        eng = InferenceEngine(m32, ecfg, seed=cfg32.seed, device="cuda")
+
+        def post_all(texts, n_new):
+            """[(HTTP status, body)] of the texts' requests, all at
+            once."""
+            return _concurrently(lambda t: _post_status(
+                url + "/v1/completions", {"prompt": t, "max_tokens": n_new,
+                                          "temperature": 0.0}), texts)
+
+        def answered_tokens(texts, got, reads, n_new):
+            """The token ids of each answered text, from the decode
+            replicas' streams (None for a refused request); an answer's
+            text must be its tokens' text and its length n_new."""
+            streams = _stream_tokens(reads)
+            toks = []
+            for t, (code, body) in zip(texts, got):
+                ids = streams.get(tuple(tok.encode(t)))
+                if code != 200:
+                    toks.append(None)
+                elif (ids is None or len(ids) != n_new
+                        or body["choices"][0]["text"] != tok.decode(ids)):
+                    raise AssertionError(f"answer {body} / stream {ids}")
+                else:
+                    toks.append(ids)
+            return toks
+
+        def over_http(texts, n_new):
+            _each_replica(rt, dec, "probe", True)
+            got = post_all(texts, n_new)
+            return (answered_tokens(texts, got,
+                                    _each_replica(rt, dec, "probe"), n_new),
+                    [code for code, _ in got])
+
+        texts = [text(n) for n in (18, 139, 299)]  # 19, 140, 300 tokens
+        ids = [tok.encode(t) for t in texts]
+        base = [over_http([t], 16)[0][0] for t in texts]
+        want = eng.generate(ids, max_new_tokens=16, temperature=0.0)
+        argmax = forward_argmax(torch, eng.params, m32, ids, 16)
+        log(f"  fp32 through HTTP: 3 prompts (19, 140, 300 tokens) x 16 "
+            f"greedy tokens == the in-process engine: {base == want}, == "
+            f"forward argmax: {base == argmax}")
+        if not base == want == argmax:
+            raise AssertionError(f"HTTP {base} / engine {want} / forward "
+                                 f"{argmax}")
+
+        # the handoff of the 300-token prompt after the store, against
+        # the pages of an engine that prefilled the prompt itself
+        sealed = pre.prefill.remote(ids[2], 0.0).result(timeout_s=120)
+        ks, vs = _open_kv(rt.get(sealed["kv"], timeout=60))
+        imp = InferenceEngine(m32, ecfg, params=eng.params, device="cuda")
+        if imp.import_kv(ids[2], ks, vs) != 2:
+            raise AssertionError("the handoff did not import 2 pages")
+        own = InferenceEngine(m32, ecfg, params=eng.params, device="cuda")
+        own.generate([ids[2]], max_new_tokens=1, temperature=0.0)
+        page = ecfg.page_size
+        same = []
+        for i in range(2):
+            key = imp._prefix_hash(ids[2][:(i + 1) * page])
+            a, b = imp.page_hash[key], own.page_hash[key]
+            same += [torch.equal(imp.cache_k[:, :, a], own.cache_k[:, :, b]),
+                     torch.equal(imp.cache_v[:, :, a], own.cache_v[:, :, b])]
+        log(f"  fp32 handoff after the store: {tuple(ks.shape)} "
+            f"{ks.dtype}, import_kv'd pages bit-equal to an engine's own "
+            f"prefill: {all(same)}")
+        if not all(same):
+            raise AssertionError(f"handoff pages differ: {same}")
+        del imp, own
+
+        # a decode replica SIGKILLed mid-stream
+        reads = _each_replica(rt, dec, "probe", True)
+        pids0 = {r["pid"] for r in reads}
+        router = dec._get_router()
+        killed = rt.get(router._handle_for(router.live_replicas()[0])
+                        .handle_request.remote(
+                            "configure_chaos", ["serve.decode.kill:2", 3],
+                            {}, ""), timeout=60)
+        st0 = coord.stats.remote().result(timeout_s=60)
+        texts = [text(n) for n in (59, 149, 199, 259)]
+        got = post_all(texts, 32)
+        st = coord.stats.remote().result(timeout_s=60)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            try:
+                reads = _each_replica(rt, dec, "probe")
+            except (rt.RayTpuError, ValueError):
+                reads = []  # the dead replica still listed: ask again
+            pids = {r["pid"] for r in reads}
+            if len(pids) == 2 and killed not in pids:
+                break
+            time.sleep(1.0)
+        codes = [code for code, _ in got]
+        toks = answered_tokens(texts, got, reads, 32)
+        want = eng.generate([tok.encode(t) for t in texts],
+                            max_new_tokens=32, temperature=0.0)
+        resumed = st.get("streams_resumed", 0) - st0.get("streams_resumed", 0)
+        log(f"  kill: replica pid {killed} armed with serve.decode.kill:2; "
+            f"4 streams x 32 tokens, HTTP {codes}, == the in-process "
+            f"engine: {toks == want}; streams resumed {resumed}, decode "
+            f"failures {st.get('decode_failures', 0)}; decode pool pids "
+            f"{sorted(pids0)} -> {sorted(pids)} on "
+            f"{sorted({r['device'] for r in reads})}")
+        if codes != [200] * 4 or toks != want or resumed < 1:
+            raise AssertionError(f"kill: {codes}, {toks} != {want}, "
+                                 f"resumed {resumed}")
+        if len(pids) != 2 or killed in pids or not all(
+                r["device"] == torch.cuda.get_device_name(0)
+                for r in reads):
+            raise AssertionError(f"decode pool not respawned on the card: "
+                                 f"{reads}")
+
+        # a burst past max_ongoing_requests = 4
+        st0 = coord.stats.remote().result(timeout_s=60)
+        texts = [text(24) for _ in range(12)]
+        got, codes = over_http(texts, 16)
+        st = coord.stats.remote().result(timeout_s=60)
+        ok = [i for i, c in enumerate(codes) if c == 200]
+        want = eng.generate([tok.encode(texts[i]) for i in ok],
+                            max_new_tokens=16, temperature=0.0)
+        sheds = st.get("shed_requests", 0) - st0.get("shed_requests", 0)
+        log(f"  burst of 12 past max_ongoing_requests 4: HTTP {codes}; "
+            f"{len(ok)} admitted == the in-process engine: "
+            f"{[got[i] for i in ok] == want}; sheds (requests) {sheds}")
+        if (codes.count(429) == 0 or not ok or set(codes) - {200, 429}
+                or [got[i] for i in ok] != want
+                or sheds != codes.count(429)):
+            raise AssertionError(f"burst: {codes}, {st}")
+        del eng
+        serve.delete("disagg32")
     finally:
         serve.shutdown()
         rt.shutdown()
@@ -3202,13 +3710,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/18] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/19] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/18] build: {len(build_logs)} kernels in "
+    log(f"[2/19] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -3245,7 +3753,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/18] kernels against their plain versions")
+    log("[3/19] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -3254,7 +3762,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/18] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/19] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -3267,7 +3775,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/18] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/19] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -3277,18 +3785,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/18] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/19] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/18] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/19] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/18] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/19] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -3297,19 +3805,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/18] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/19] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/18] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/19] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/18] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/19] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -3319,7 +3827,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/18] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/19] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -3329,7 +3837,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/18] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/19] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -3340,7 +3848,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/18] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/19] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -3350,7 +3858,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/18] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/19] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -3360,7 +3868,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/18] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/19] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -3368,7 +3876,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/18] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/19] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -3380,7 +3888,7 @@ def main() -> int:
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     t0 = time.perf_counter()
-    log("[18/18] serve-runtime: serve.run(build_openai_app(...)) on the "
+    log("[18/19] serve-runtime: serve.run(build_openai_app(...)) on the "
         "port's runtime, a replica holding the card, HTTP on a free port; "
         "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
     sr = serve_runtime_phase(torch, results, smi, serve)
@@ -3389,6 +3897,21 @@ def main() -> int:
         f"{serve['tokens_per_s']:.1f} in process; boot {sr['boot_s']:.2f} "
         f"s, first streamed chunk {1e3 * sr['ttft_s']:.1f} ms, replica "
         f"peak {sr['peak'] / 2**30:.3f} GiB")
+
+    t0 = time.perf_counter()
+    log("[19/19] disagg: serve.run(build_disagg_openai_app(...)) on the "
+        "port's runtime, a prefill worker and two decode replicas sharing "
+        "the card, HTTP on a free port; llama-125m bf16 timed, fp32 exact "
+        "with a handoff check, a decode replica killed mid-stream and a "
+        "shed burst")
+    dg = disagg_phase(torch, results, smi, serve, sr)
+    log(f"  disagg phase {time.perf_counter() - t0:.1f} s; "
+        f"{dg['tokens_per_s']:.1f} tokens/s through HTTP vs "
+        f"{sr['tokens_per_s']:.1f} in phase 18 and "
+        f"{serve['tokens_per_s']:.1f} in process; boot {dg['boot_s']:.2f} "
+        f"s, export {dg['export_ms']:.2f} ms under load and "
+        f"{dg['export_alone_ms']:.2f} ms alone, handoff "
+        f"{dg['handoff_bytes']} B a request")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

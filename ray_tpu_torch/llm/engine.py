@@ -121,6 +121,13 @@ class Request:
     # prefill engine (PrefillEngine.prefill_export), imported into the
     # prefix cache right before this request's admission.
     kv_handoff: tuple | None = None
+    # The prompt's length as submitted: a preemption re-prefills it plus
+    # the tokens fed back since, so a later preemption must not count
+    # those twice.
+    n_prompt: int = dataclasses.field(init=False, default=0)
+
+    def __post_init__(self):
+        self.n_prompt = len(self.prompt)
 
 
 # ---------------- pure model steps ----------------
@@ -1128,7 +1135,7 @@ class InferenceEngine:
         # Re-prefill everything the model has seen (prompt + all fed-back
         # tokens); the final sampled-but-never-fed token resumes decoding
         # exactly where it stopped, without re-sampling its position.
-        req.prompt = req.prompt + req.generated[:-1]
+        req.prompt = req.prompt[:req.n_prompt] + req.generated[:-1]
         req.resume_token = req.generated[-1]
         self.queue.appendleft(req)
         self.preemptions += 1

@@ -1,6 +1,6 @@
-"""LLM serving: the engine-backed deployment and the OpenAI-compatible
-router in front of it (counterpart of `ray_tpu/llm/serve.py`, its
-monolithic deployment).
+"""LLM serving: the engine-backed deployment, the OpenAI-compatible
+router in front of it and the disaggregated prefill/decode plane
+(counterpart of `ray_tpu/llm/serve.py`).
 
 Parity: reference `python/ray/llm/_internal/serve/` — `LLMServer`
 deployment wrapping the engine (`deployments/llm/`), OpenAI-compatible
@@ -10,18 +10,27 @@ in-process continuous-batching engine (`llm/engine.py`) on the card the
 replica reserved (`LLMConfig.num_gpus_per_replica`), its decode attention
 the hand-written paged-decode kernel.
 
-Not in this slice (ROADMAP queue 1 item 7 (f)): replicas with
-tensor_parallelism > 1 (the port's tp engine is SPMD, so such a replica
-is a gang of processes in lockstep) and the disaggregated prefill/decode
-plane (`build_disagg_deployment`, `build_disagg_openai_app`). Both raise
+The disaggregated plane (`build_disagg_deployment`,
+`build_disagg_openai_app`) runs prefill and decode as separate replica
+pools: a prefill worker exports the prompt's full-page KV sealed as one
+store object, a decode replica splices it into its paged pool
+(`import_kv`) and streams the tokens after the ones the client holds;
+the coordinator admits or sheds by per-pool token budgets, routes by
+prompt prefix and re-resolves a stream whose decode replica died.
+
+Not in this slice (ROADMAP queue 1 item 7 (f), its second half):
+replicas with tensor_parallelism > 1 (the port's tp engine is SPMD, so
+such a replica is a gang of processes in lockstep). They raise
 NotImplementedError.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import dataclasses
 import pickle
+import sys
 import threading
 import time
 import uuid
@@ -29,16 +38,20 @@ import uuid
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch import resolve_device, serve
-from ray_tpu_torch.core.status import OverloadedError
+from ray_tpu_torch.core import chaos
+from ray_tpu_torch.core.retry import Backoff
+from ray_tpu_torch.core.status import (ActorDiedError, GetTimeoutError,
+                                       OverloadedError, RayTpuError)
 from ray_tpu_torch.llm.config import LLMConfig
-from ray_tpu_torch.llm.engine import EngineConfig, InferenceEngine
+from ray_tpu_torch.llm.engine import (EngineConfig, InferenceEngine,
+                                      PrefillEngine)
 from ray_tpu_torch.llm.lora import adapter_seed, init_lora, merge_lora
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
 
-_LATER = ("a later slice of the PyTorch port (ROADMAP queue 1 item 7 (f): "
-          "tensor-parallel replicas as process gangs and the disaggregated "
-          "prefill/decode plane)")
+_LATER = ("a later slice of the PyTorch port (ROADMAP queue 1 item 7 (f), "
+          "its second half: tensor-parallel replicas as process gangs)")
 
 
 def _wire_eos(engine_cfg: EngineConfig, tokenizer) -> EngineConfig:
@@ -633,11 +646,824 @@ def build_openai_app(llm_config: LLMConfig):
     return router.bind(server)
 
 
-def build_disagg_deployment(llm_config: LLMConfig, disagg=None):
-    """The disaggregated prefill/decode plane: not ported yet."""
-    raise NotImplementedError(f"the disaggregated serving plane is {_LATER}")
 
 
-def build_disagg_openai_app(llm_config: LLMConfig, disagg=None):
-    """The OpenAI app over the disaggregated plane: not ported yet."""
-    raise NotImplementedError(f"the disaggregated serving plane is {_LATER}")
+# ================= disaggregated prefill/decode plane =================
+
+
+_shed_metric = None
+
+
+def _record_shed(pool: str) -> None:
+    """Bump `ray_tpu_serve_shed_total{pool=...}` — rendered at /metrics
+    by the local registry (driver-side serving) or shipped to the head
+    on the worker metric-delta frames (replica processes). Lazy: the
+    metric registers on the first shed so importing this module never
+    touches the registry."""
+    global _shed_metric
+    if _shed_metric is None:
+        from ray_tpu_torch.util.metrics import Counter as _MetricCounter
+        _shed_metric = _MetricCounter(
+            "ray_tpu_serve_shed_total",
+            "requests shed by serving-plane admission control, by the "
+            "pool whose budget tripped (requests|prefill|decode|slo)",
+            tag_keys=("pool",))
+    _shed_metric.inc(tags={"pool": pool})
+
+
+@dataclasses.dataclass
+class DisaggConfig:
+    """Knobs for the disaggregated serving plane (module docstring).
+
+    Admission control is per-pool token-budget backpressure: a request
+    costs `prompt_tokens` against the prefill queue until its KV is
+    exported, and `prompt_tokens + max_new_tokens` against the decode
+    pool until its stream completes. Overflow — either budget, the
+    request cap, or the estimated queue wait against `admission_slo_ms` —
+    sheds immediately with OverloadedError instead of queueing."""
+
+    prefill_replicas: int = 1
+    decode_replicas: int = 2
+    # --- admission control (the overload contract) ---
+    max_prefill_queue_tokens: int = 8192
+    # PER LIVE DECODE REPLICA: the coordinator multiplies this budget by
+    # the decode pool's live replica count (refreshed on dispatch and on
+    # shed reports), so an autoscaled pool admits proportionally more.
+    max_decode_inflight_tokens: int = 16384
+    max_ongoing_requests: int = 256
+    admission_slo_ms: float | None = None  # est decode wait SLO; None=off
+    # --- autoscaling (scale decode on shed rate) ---
+    # AutoscalingConfig kwargs for the DecodePool deployment (e.g.
+    # dict(min_replicas=1, max_replicas=4, upscale_shed_rate=1.0)):
+    # the coordinator attributes decode/slo admission sheds to the pool
+    # (record_shed_metrics), and the controller adds a replica when the
+    # sustained shed rate crosses upscale_shed_rate. None = fixed
+    # decode_replicas.
+    decode_autoscale: dict | None = None
+    # --- routing / handoff ---
+    handoff: bool = True          # False: decode pool always re-prefills
+    route_cache_prefixes: int = 4096  # prefix keys remembered per replica
+    stream_chunk_tokens: int = 8  # decode stream: max tokens per chunk
+    # --- recovery pacing (core/retry.Backoff deadlines) ---
+    dispatch_deadline_s: float = 15.0  # route+prefill redrive budget
+    resume_deadline_s: float = 60.0    # mid-stream death re-resolve budget
+
+
+def _seal_kv(ks, vs) -> tuple:
+    """A prefill export as host arrays: (dtype name, K, V), bfloat16
+    carried as its uint16 bits (numpy has no bfloat16 of its own), so the
+    store's pickle-5 path moves the arrays without a copy and no process
+    needs a numpy bfloat16 dtype to read them."""
+    def bits(t):
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return (str(ks.dtype).removeprefix("torch."), bits(ks), bits(vs))
+
+
+def _open_kv(sealed) -> tuple:
+    """`_seal_kv`'s (dtype name, K, V) -> (K, V) CPU tensors of that
+    dtype, bit for bit, as `import_kv` takes them."""
+    name, k, v = sealed
+
+    def tensor(a):
+        # store reads may be read-only views of the arena: copy those
+        t = torch.from_numpy(np.require(a, requirements="W"))
+        if name == "bfloat16":
+            return t.view(torch.int16).view(torch.bfloat16)
+        return t
+    return tensor(k), tensor(v)
+
+
+class _PrefillWorkerImpl:
+    """One prefill-pool worker: prompt -> (first token, sealed KV handoff).
+
+    The KV export (full prompt pages, post-RoPE) is sealed as ONE store
+    object via `ray_tpu_torch.put` (numpy arrays, `_seal_kv`) and only the
+    small ObjectRef travels through the coordinator. Outside a runtime
+    (serve local testing mode) the arrays ride inline instead."""
+
+    def __init__(self, llm_config: LLMConfig):
+        self.cfg = llm_config
+        model_cfg = llm_config.resolve_model()
+        self.tokenizer = get_tokenizer(llm_config.tokenizer)
+        engine_cfg = _wire_eos(llm_config.engine, self.tokenizer)
+        self.engine = PrefillEngine(model_cfg, engine_cfg,
+                                    mesh=_replica_mesh(llm_config),
+                                    seed=llm_config.seed,
+                                    device=_replica_device(llm_config))
+
+    def prefill(self, prompt_ids, temperature=None, top_p: float = 1.0,
+                top_k: int = 0, want_logp: bool = False) -> dict:
+        chaos.delay("serve.prefill.stall", max_s=0.25)
+        out = self.engine.prefill_export(
+            prompt_ids, temperature=temperature, top_p=top_p, top_k=top_k,
+            want_logp=want_logp)
+        first, ks, vs = out[:3]
+        kv = None
+        if ks.shape[1]:
+            kv = _seal_kv(ks, vs)
+            if ray_tpu_torch.is_initialized():
+                kv = ray_tpu_torch.put(kv)  # sealed store object
+        return {"first": int(first), "kv": kv,
+                "kv_tokens": int(ks.shape[1]),
+                "first_logp": out[3] if want_logp else None}
+
+
+class _DecodeReplicaImpl(_LLMServerImpl):
+    """Decode-pool replica: imports KV handoffs into the engine's prefix
+    cache and serves resumable token streams under continuous batching."""
+
+    def _fetch_handoff(self, kv, prompt_ids):
+        """Resolve the handoff to (ks, vs) CPU tensors, or None — the
+        caller re-prefills. Loss (injected via serve.kv_handoff.lose or
+        real: the owning prefill worker died and took the object with it)
+        degrades to a re-prefill, never a failed stream."""
+        if kv is None:
+            return None
+        if chaos.site("serve.kv_handoff.lose"):
+            return None  # injected in-flight loss
+        if not isinstance(kv, tuple):
+            try:
+                kv = ray_tpu_torch.get(kv, timeout=30)
+            except RayTpuError as e:
+                print(f"serve: KV handoff lost ({e}); re-prefilling "
+                      f"{len(prompt_ids)}-token prompt", file=sys.stderr)
+                return None
+        return _open_kv(kv)
+
+    def configure_chaos(self, schedule: str, seed: int = 0) -> int:
+        """Arm chaos in THIS replica process only and return its pid
+        (test/bench hook: a cluster-wide serve.decode.kill schedule would
+        re-arm every controller-respawned replica and crash-loop the pool
+        at low Nth counts)."""
+        import os
+        chaos.configure(schedule, seed)
+        return os.getpid()
+
+    def decode_stream(self, prompt_ids, generated, kv=None,
+                      max_tokens=None, temperature=None,
+                      top_p: float = 1.0, top_k: int = 0,
+                      chunk_tokens: int = 8, want_logp: bool = False):
+        """Continue a request whose prompt was prefilled elsewhere.
+
+        `generated` = tokens the client already holds (>=1: the prefill's
+        first token; more when resuming a stream whose previous replica
+        died). Yields lists of NEW token ids — exactly the positions
+        after `generated`, each exactly once — or, with `want_logp`,
+        lists of (token, logprob) pairs: a resumed request appends one
+        token_logprobs entry per NEWLY decoded position (the resume
+        token itself is never re-sampled), so the k-th streamed token
+        pairs with token_logprobs[k]. The prompt KV comes from the
+        handoff (import_kv prefix splice) or, when the handoff is lost,
+        a full re-prefill; tokens in `generated` beyond the prompt
+        re-prefill as suffix either way."""
+        import queue as _queue
+        e = self.engine.e
+        max_new = max_tokens or e.default_max_new_tokens
+        generated = [int(t) for t in generated]
+        if not generated:
+            raise ValueError("decode_stream needs >=1 seed token (the "
+                             "prefill's first sample)")
+        rem = max_new - len(generated)
+        if rem <= 0 or generated[-1] == e.eos_token:
+            return
+        handoff = self._fetch_handoff(kv, prompt_ids)
+        sub: "_queue.Queue" = _queue.Queue()
+        with self._lock:
+            rid = self.engine.add_request(
+                list(prompt_ids) + generated[:-1], rem + 1, temperature,
+                top_p=top_p, top_k=top_k, resume_token=generated[-1],
+                kv_handoff=handoff, logprobs=want_logp)
+            req_obj = self.engine.request(rid) if want_logp else None
+            # The pump forwards req.generated from this cursor, and
+            # add_request put the resume token there, which the client
+            # holds already: the stream starts after it. (A constant, not
+            # len(req.generated): the pump may step this request before
+            # the lock is released, and its fanout waits for the lock.)
+            self._sub_sent[rid] = 1
+            self._token_subs[rid] = sub
+        del handoff
+        ended = False
+        # cursor into req_obj.token_logprobs (append-only; the engine
+        # appends the k-th entry before the pump puts the k-th token): a
+        # resumed request has none for the resume token
+        lp_i = 0
+
+        def _pair(tok):
+            nonlocal lp_i
+            if req_obj is None:
+                return tok
+            lp = (float(req_obj.token_logprobs[lp_i])
+                  if lp_i < len(req_obj.token_logprobs) else None)
+            lp_i += 1
+            return (tok, lp)
+
+        try:
+            while True:
+                tok = sub.get(timeout=300)
+                if tok is None:
+                    ended = True
+                    return
+                chunk = [_pair(tok)]
+                while len(chunk) < max(chunk_tokens, 1):
+                    try:
+                        nxt = sub.get_nowait()
+                    except _queue.Empty:
+                        break
+                    if nxt is None:
+                        ended = True
+                        break
+                    chunk.append(_pair(nxt))
+                # The mid-stream crash probe: one hit per emitted chunk,
+                # fired BEFORE the yield so the dying replica takes the
+                # chunk with it — the consumer must re-resolve from its
+                # last DELIVERED position, not ours.
+                chaos.kill("serve.decode.kill")
+                yield chunk
+                if ended:
+                    return
+        finally:
+            with self._lock:
+                self._token_subs.pop(rid, None)
+                self._sub_sent.pop(rid, None)
+                if ended:
+                    pass  # pump already popped the finished record
+                elif rid in self.engine.finished:
+                    self.engine.finished.pop(rid, None)
+                else:
+                    # Abandoned mid-decode (consumer gone): free the slot.
+                    self.engine.cancel(rid)
+                    self._discard.add(rid)
+
+    def kv_stats(self) -> dict:
+        return self.engine.kv_stats()
+
+
+class _DisaggServerImpl:
+    """The disaggregated serving coordinator: SLO-aware admission,
+    prefix-aware decode routing, prefill->decode KV handoff, and
+    exactly-once stream recovery across decode replica death. Exposes the
+    same request surface as _LLMServerImpl (completions / chat /
+    completions_stream / model_ids) so the OpenAI ingress composes with
+    either backend unchanged. It holds no engine and reserves no GPU."""
+
+    def __init__(self, llm_config: LLMConfig, disagg: DisaggConfig | None,
+                 prefill_handle, decode_handle):
+        import concurrent.futures
+        self.cfg = llm_config
+        self.d = disagg or DisaggConfig()
+        self.tokenizer = get_tokenizer(llm_config.tokenizer)
+        engine_cfg = _wire_eos(llm_config.engine, self.tokenizer)
+        self._page = engine_cfg.page_size
+        self._eos = engine_cfg.eos_token
+        self._max_new_default = engine_cfg.default_max_new_tokens
+        self.prefill = prefill_handle
+        self.decode = decode_handle
+        # Local-testing mode: the "pools" are single in-process instances.
+        self._local_decode = getattr(decode_handle, "_target", None)
+        self._lock = threading.Lock()
+        # ---- admission accounting (token budgets per pool) ----
+        self._prefill_queue_tokens = 0
+        self._decode_inflight_tokens = 0
+        self._ongoing = 0
+        self._tok_rate_ema = 0.0  # decode tokens/s across the pool
+        # Live decode replica count (scales the decode token budget):
+        # refreshed on dispatch and on shed reports — starts at 1, the
+        # local-testing pool size, and never blocks the admission path.
+        self._n_decode_live = 1
+        self._shed_pending = 0      # sheds not yet reported upstream
+        self._shed_reporting = False
+        # ---- routing state ----
+        self._route_cache: dict = {}    # replica_id -> OrderedDict(keys)
+        self._replica_load: dict = {}   # replica_id -> inflight tokens
+        self.counters = collections.Counter()
+        # Blocking prefill/stream work runs here, NOT on the replica's
+        # asyncio loop (and not on its tiny default executor): admitted
+        # concurrency is bounded by admission control, not thread count.
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=max(self.d.max_ongoing_requests, 8),
+            thread_name_prefix="disagg")
+
+    # ---- admission control ----
+
+    def _admit(self, n_prompt: int, max_new: int) -> int:
+        """Admit or shed, synchronously and fast (called on the request
+        path BEFORE any pool work is scheduled). Returns the decode-pool
+        token cost the caller must release. Every shed is attributed to
+        the POOL whose budget tripped and exported as
+        `ray_tpu_serve_shed_total{pool=...}` — the per-pool signal the
+        serve autoscaler scales decode replicas on."""
+        d = self.d
+        cost = n_prompt + max_new
+        with self._lock:
+            decode_budget = (d.max_decode_inflight_tokens
+                             * max(1, self._n_decode_live))
+            est_ms = None
+            if d.admission_slo_ms is not None and self._tok_rate_ema > 1.0:
+                est_ms = 1e3 * (self._decode_inflight_tokens
+                                / self._tok_rate_ema)
+            shed_pool = None
+            if self._ongoing >= d.max_ongoing_requests:
+                shed_pool = "requests"
+            elif (self._prefill_queue_tokens + n_prompt
+                    > d.max_prefill_queue_tokens):
+                shed_pool = "prefill"
+            elif (self._decode_inflight_tokens + cost
+                    > decode_budget):
+                shed_pool = "decode"
+            elif est_ms is not None and est_ms > d.admission_slo_ms:
+                shed_pool = "slo"
+            if shed_pool is not None:
+                self.counters["shed"] += 1
+                self.counters[f"shed_{shed_pool}"] += 1
+                _record_shed(shed_pool)
+                if shed_pool in ("decode", "slo"):
+                    # Decode-capacity signal: feed the serve autoscaler
+                    # (reported off-path; the shed itself stays fast).
+                    self._shed_pending += 1
+                msg = ("serving plane overloaded: request shed "
+                       f"(pool={shed_pool}, ongoing={self._ongoing}, "
+                       f"prefill_q={self._prefill_queue_tokens}tok, "
+                       f"decode_inflight={self._decode_inflight_tokens}"
+                       "tok"
+                       + (f", est_wait={est_ms:.0f}ms"
+                          if est_ms is not None else "") + ")")
+            else:
+                self._ongoing += 1
+                self._prefill_queue_tokens += n_prompt
+                self._decode_inflight_tokens += cost
+                self.counters["admitted"] += 1
+        if shed_pool is not None:
+            self._maybe_report_sheds()
+            raise OverloadedError(msg)
+        return cost
+
+    def _maybe_report_sheds(self):
+        """Forward pending decode-capacity sheds to the serve controller
+        (record_shed_metrics on the DecodePool deployment) — the signal
+        the shed-rate autoscaler scales decode replicas on. The shed
+        path only flips a flag and (at most once per burst) spawns a
+        short-lived drainer thread, so a shed stays fast even when the
+        controller is busy; the drainer also refreshes the live-replica
+        count so the decode budget tracks scale-ups."""
+        if self._local_decode is not None:
+            return  # local-testing mode: no controller, fixed pool
+        with self._lock:
+            if self._shed_pending == 0 or self._shed_reporting:
+                return
+            self._shed_reporting = True
+        threading.Thread(target=self._shed_report_loop, daemon=True,
+                         name="disagg-shed-report").start()
+
+    def _shed_report_loop(self):
+        """Drain pending shed counts to the controller at ~2Hz until the
+        burst subsides (a storm's sheds land faster than one report per
+        shed could ship them; a trailing remainder must still reach the
+        autoscaler or the observed rate under-counts)."""
+        try:
+            while True:
+                with self._lock:
+                    delta = self._shed_pending
+                    self._shed_pending = 0
+                if delta == 0:
+                    return
+                try:
+                    router = self._decode_router()
+                    reps = router.live_replicas()
+                    if reps:
+                        with self._lock:
+                            self._n_decode_live = len(reps)
+                    router._controller().record_shed_metrics.remote(
+                        router.app, router.deployment, delta)
+                except Exception:  # noqa: BLE001 — best-effort reporting
+                    pass
+                time.sleep(0.5)
+        finally:
+            with self._lock:
+                self._shed_reporting = False
+
+    def _release(self, cost: int, tokens_emitted: int, dt_s: float):
+        with self._lock:
+            self._ongoing -= 1
+            self._decode_inflight_tokens -= cost
+            if tokens_emitted > 0 and dt_s > 0:
+                rate = tokens_emitted / dt_s
+                self._tok_rate_ema = (rate if self._tok_rate_ema == 0.0
+                                      else 0.7 * self._tok_rate_ema
+                                      + 0.3 * rate)
+
+    def _release_prefill(self, n_prompt: int):
+        with self._lock:
+            self._prefill_queue_tokens -= n_prompt
+
+    # ---- prefix-aware routing over the decode pool ----
+
+    def _prefix_keys(self, ids) -> list:
+        """One key per full page of `ids`: the bytes of its page-aligned
+        token prefix. The coordinator holds no engine (an engine's
+        prefix-cache key also carries its weights' generation); the keys
+        only have to agree across the coordinator's own calls."""
+        page = self._page
+        toks = np.asarray(ids, np.int32)
+        return [toks[:(i + 1) * page].tobytes()
+                for i in range(len(ids) // page)]
+
+    def _decode_router(self):
+        return self.decode._get_router()
+
+    def _live_decode_replicas(self) -> list:
+        if self._local_decode is not None:
+            return ["local"]
+        return self._decode_router().live_replicas()
+
+    @staticmethod
+    def _rep_id(rep) -> str:
+        return rep if isinstance(rep, str) else rep.replica_id
+
+    def _pick_by_prefix(self, reps: list, keys: list):
+        """The replica whose recorded prefix keys cover the longest
+        leading run of this prompt's page keys; ties break to the least
+        loaded (the continuous-batching analogue of pow-2)."""
+        best, best_hit, best_load = None, -1, 0
+        for rep in reps:
+            rid = self._rep_id(rep)
+            cache = self._route_cache.get(rid)
+            hit = 0
+            if cache:
+                for k in keys:
+                    if k not in cache:
+                        break
+                    hit += 1
+            load = self._replica_load.get(rid, 0)
+            if hit > best_hit or (hit == best_hit and load < best_load):
+                best, best_hit, best_load = rep, hit, load
+        if best_hit > 0:
+            self.counters["route_prefix_hits"] += 1
+        return best
+
+    def _record_route(self, rep, keys: list):
+        rid = self._rep_id(rep)
+        cache = self._route_cache.setdefault(
+            rid, collections.OrderedDict())
+        for k in keys:
+            cache.pop(k, None)
+            cache[k] = None
+        while len(cache) > self.d.route_cache_prefixes:
+            cache.popitem(last=False)
+
+    def _dispatch_decode(self, ids: list, cost: int):
+        """Pick a decode replica (prefix-aware), surviving injected
+        dispatch drops and empty replica sets; every redrive is paced by
+        the shared Backoff policy."""
+        keys = self._prefix_keys(ids)
+        bo = Backoff(deadline_s=self.d.dispatch_deadline_s)
+        while True:
+            reps = self._live_decode_replicas()
+            if reps:
+                if self._local_decode is None:
+                    with self._lock:
+                        self._n_decode_live = len(reps)
+                rep = self._pick_by_prefix(reps, keys)
+                if chaos.site("serve.router.drop"):
+                    # Injected: the routed dispatch vanished before the
+                    # pool saw it. Redrive, paced — a tight retry loop
+                    # here is exactly the storm the jitter exists for.
+                    self.counters["router_drops"] += 1
+                    if not bo.sleep():
+                        raise RayTpuError(
+                            "serve router: dispatch dropped and redrive "
+                            "deadline exhausted")
+                    continue
+                with self._lock:
+                    rid = self._rep_id(rep)
+                    self._replica_load[rid] = (
+                        self._replica_load.get(rid, 0) + cost)
+                self._record_route(rep, keys)
+                return rep
+            if not bo.sleep():
+                raise RayTpuError(
+                    f"no live decode replicas within "
+                    f"{self.d.dispatch_deadline_s}s")
+
+    def _unload(self, rep, cost: int):
+        with self._lock:
+            rid = self._rep_id(rep)
+            left = self._replica_load.get(rid, 0) - cost
+            if left > 0:
+                self._replica_load[rid] = left
+            else:
+                self._replica_load.pop(rid, None)
+
+    def _note_decode_failure(self, rep, exc):
+        """A decode replica failed mid-stream: forget its prefix cache,
+        report it dead so the controller respawns it, and route around."""
+        self.counters["decode_failures"] += 1
+        rid = self._rep_id(rep)
+        self._route_cache.pop(rid, None)
+        with self._lock:
+            self._replica_load.pop(rid, None)
+        if self._local_decode is None:
+            self._decode_router().mark_replica_dead(rid)
+        print(f"serve: decode replica {rid} failed mid-stream ({exc}); "
+              "re-resolving its streams", file=sys.stderr)
+
+    # ---- prefill + decode streams, with recovery ----
+
+    def _prefill_with_retry(self, ids, temperature, top_p, top_k,
+                            want_logp: bool = False) -> dict:
+        """Prefill through the pool handle; worker death / timeout
+        redrives through the shared backoff (the sealed handoff object,
+        once exported, survives its worker's death)."""
+        bo = Backoff(deadline_s=self.d.dispatch_deadline_s)
+        while True:
+            try:
+                return self.prefill.prefill.remote(
+                    list(ids), temperature, top_p, top_k,
+                    want_logp).result(timeout_s=60)
+            except (ActorDiedError, GetTimeoutError) as e:
+                if not bo.sleep():
+                    raise RayTpuError(
+                        f"prefill pool unavailable: {e}") from e
+
+    def _open_decode_stream(self, rep, ids, generated, kv, max_new,
+                            temperature, top_p, top_k,
+                            want_logp: bool = False):
+        """One decode stream attempt on one replica: yields token chunks
+        ((token, logprob) pair chunks with want_logp); raises RayTpuError
+        when the replica dies mid-stream."""
+        args = [list(ids), list(generated), kv, max_new, temperature,
+                top_p, top_k, self.d.stream_chunk_tokens, want_logp]
+        if self._local_decode is not None:
+            yield from self._local_decode.decode_stream(*args)
+            return
+        router = self._decode_router()
+        gen = router.assign_streaming_to(rep, "decode_stream", args, {})
+        try:
+            for ref in gen:
+                yield ray_tpu_torch.get(ref, timeout=120)
+        finally:
+            gen.close()
+            router.release_streaming(rep.replica_id)
+
+    def _stream_tokens(self, ids, generated, kv, max_new, temperature,
+                       top_p, top_k, cost: int, logps: list | None = None):
+        """Yield the tokens after `generated` EXACTLY ONCE, re-resolving
+        the stream on a surviving replica when a decode replica dies
+        mid-flight. `generated` is mutated in place (the recovery cursor:
+        a resumed stream continues from the last delivered position).
+        When `logps` is a list, the decode pool streams (token, logprob)
+        pairs and logps grows in lockstep with generated — a resumed
+        stream keeps the logprobs of already-delivered positions (they
+        were never re-decoded) and appends only the new ones."""
+        bo = Backoff(deadline_s=self.d.resume_deadline_s)
+        want_logp = logps is not None
+        while len(generated) < max_new and generated[-1] != self._eos:
+            rep = self._dispatch_decode(ids, cost)
+            try:
+                for chunk in self._open_decode_stream(
+                        rep, ids, generated, kv, max_new, temperature,
+                        top_p, top_k, want_logp):
+                    for item in chunk:
+                        if want_logp:
+                            tok, lp = item
+                            logps.append(lp)
+                        else:
+                            tok = item
+                        generated.append(int(tok))
+                        yield int(tok)
+                    bo.reset()  # progress restarts the recovery budget
+                return  # clean close: the engine finished the request
+            except RayTpuError as e:
+                # Mid-stream death (or torn stream): re-resolve from the
+                # last DELIVERED token. Tokens already yielded are never
+                # re-emitted; the next attempt re-prefills (or re-imports
+                # the sealed handoff) and decodes positions
+                # len(generated).. only.
+                self._note_decode_failure(rep, e)
+                self.counters["streams_resumed"] += 1
+                if not bo.sleep():
+                    raise
+            finally:
+                self._unload(rep, cost)
+
+    def _run_admitted(self, ids, max_new, temperature, top_p, top_k,
+                      cost: int, want_logp: bool = False) -> tuple:
+        """Prefill -> route -> stream to completion; returns
+        (tokens, logprobs-or-None) (admission already charged; released
+        here)."""
+        t0 = time.monotonic()
+        toks: list = []
+        logps: list | None = [] if want_logp else None
+        try:
+            try:
+                pre = self._prefill_with_retry(ids, temperature, top_p,
+                                               top_k, want_logp)
+            finally:
+                self._release_prefill(len(ids))
+            kv = pre["kv"] if self.d.handoff else None
+            self.counters["handoff_tokens"] += (pre["kv_tokens"]
+                                                if kv is not None else 0)
+            toks = [pre["first"]]
+            if want_logp:
+                logps.append(pre.get("first_logp"))
+            if toks[0] != self._eos:
+                for tok in self._stream_tokens(
+                        ids, toks, kv, max_new, temperature, top_p,
+                        top_k, cost, logps):
+                    pass  # _stream_tokens appends into toks/logps
+            self.counters["completed"] += 1
+            return toks, logps
+        finally:
+            self._release(cost, len(toks), time.monotonic() - t0)
+
+    # ---- request surface (mirrors _LLMServerImpl) ----
+
+    def _check_plain(self, model, guided_regex=None, guided_json=None):
+        if model is not None and model != self.cfg.model_id:
+            raise ValueError(
+                f"model {model!r}: the disaggregated plane serves only "
+                f"the base model {self.cfg.model_id!r}")
+        if guided_regex or guided_json:
+            raise ValueError("guided decoding is not supported on the "
+                             "disaggregated plane")
+
+    async def completions(self, prompt: str, *, max_tokens=None,
+                          temperature=None, top_p: float = 1.0,
+                          top_k: int = 0, model=None, guided_regex=None,
+                          guided_json=None, stop=None,
+                          logprobs=None) -> dict:
+        self._check_plain(model, guided_regex, guided_json)
+        want_logp = bool(logprobs)
+        ids = self.tokenizer.encode(prompt)
+        max_new = max_tokens or self._max_new_default
+        # Admission runs HERE, on the replica's event loop, before any
+        # executor hop: a shed must stay fast and loud even when every
+        # worker thread is busy decoding admitted traffic.
+        cost = self._admit(len(ids), max_new)
+        loop = asyncio.get_running_loop()
+        toks, logps = await loop.run_in_executor(
+            self._pool, self._run_admitted, ids, max_new, temperature,
+            top_p, top_k, cost, want_logp)
+        text = self.tokenizer.decode(toks)
+        text, stopped = _LLMServerImpl._apply_stop(text, stop)
+        lp = None
+        if want_logp:
+            # Same alignment helper as the dense replica: logprobs
+            # gathered across prefill-export, the decode stream, and any
+            # mid-stream resumes read as ONE per-token array.
+            lp = _logprob_fields(self.tokenizer, text, stopped, toks,
+                                 logps or [])
+        return {
+            "id": f"cmpl-{uuid.uuid4().hex[:24]}",
+            "object": "text_completion",
+            "model": self.cfg.model_id,
+            "choices": [{"index": 0, "text": text, "logprobs": lp,
+                         "finish_reason": "stop" if stopped else
+                         ("length" if len(toks) >= max_new else "stop")}],
+            "usage": {"prompt_tokens": len(ids),
+                      "completion_tokens": len(toks),
+                      "total_tokens": len(ids) + len(toks)},
+        }
+
+    async def chat(self, messages: list, *, max_tokens=None,
+                   temperature=None, top_p: float = 1.0, top_k: int = 0,
+                   model=None, guided_regex=None, guided_json=None,
+                   stop=None) -> dict:
+        prompt = "".join(
+            f"<|{m.get('role', 'user')}|>{m.get('content', '')}"
+            for m in messages) + "<|assistant|>"
+        out = await self.completions(prompt, max_tokens=max_tokens,
+                                     temperature=temperature, top_p=top_p,
+                                     top_k=top_k, model=model,
+                                     guided_regex=guided_regex,
+                                     guided_json=guided_json, stop=stop)
+        return {
+            "id": f"chatcmpl-{uuid.uuid4().hex[:24]}",
+            "object": "chat.completion",
+            "model": out["model"],
+            "choices": [{"index": 0,
+                         "message": {"role": "assistant",
+                                     "content": out["choices"][0]["text"]},
+                         "finish_reason": "stop"}],
+            "usage": out["usage"],
+        }
+
+    def completions_stream(self, prompt: str, max_tokens=None,
+                           temperature=None, top_p: float = 1.0,
+                           top_k: int = 0, model=None, stop=None,
+                           logprobs=False):
+        """Streaming text deltas through the disaggregated plane (same
+        stop-sequence holdback semantics as the dense replica's stream).
+        `logprobs` is the router's argument; a stream with logprobs is
+        refused (ValueError): the plane streams text only, and a
+        non-streaming `completions` request carries logprobs."""
+        if logprobs:
+            raise ValueError("a stream with logprobs is not served on the "
+                             "disaggregated plane (ask without stream)")
+        self._check_plain(model)
+        ids = self.tokenizer.encode(prompt)
+        max_new = max_tokens or self._max_new_default
+        cost = self._admit(len(ids), max_new)
+        t0 = time.monotonic()
+        stops = ([stop] if isinstance(stop, str) else list(stop or []))
+        hold = max((len(s) for s in stops), default=1) - 1
+        toks: list = []
+        try:
+            try:
+                pre = self._prefill_with_retry(ids, temperature, top_p,
+                                               top_k)
+            finally:
+                self._release_prefill(len(ids))
+            kv = pre["kv"] if self.d.handoff else None
+            toks = [pre["first"]]
+
+            def token_iter():
+                yield toks[0]
+                if toks[0] != self._eos:
+                    yield from self._stream_tokens(
+                        ids, toks, kv, max_new, temperature, top_p,
+                        top_k, cost)
+
+            sent = ""
+            done = False
+            seen: list = []
+            it = token_iter()
+            while not done:
+                try:
+                    seen.append(next(it))
+                    text = _hold_incomplete_utf8(
+                        self.tokenizer.decode(seen))
+                except StopIteration:
+                    done = True
+                    text = self.tokenizer.decode(seen)
+                if stops:
+                    cut = min((i for i in (text.find(s) for s in stops
+                                           if s) if i >= 0), default=-1)
+                    if cut >= 0:
+                        text, done = text[:cut], True
+                    elif not done and hold:
+                        text = text[:max(len(text) - hold, len(sent))]
+                if len(text) > len(sent):
+                    delta, sent = text[len(sent):], text
+                    yield delta
+            self.counters["completed"] += 1
+        finally:
+            self._release(cost, len(toks), time.monotonic() - t0)
+
+    def model_ids(self) -> list:
+        return [self.cfg.model_id]
+
+    def stats(self) -> dict:
+        """Admission/routing/recovery counters + live gauges (tests, the
+        smoke run, and dashboards)."""
+        with self._lock:
+            out = dict(self.counters)
+            out.update(
+                ongoing=self._ongoing,
+                prefill_queue_tokens=self._prefill_queue_tokens,
+                decode_inflight_tokens=self._decode_inflight_tokens,
+                decode_tok_rate_ema=round(self._tok_rate_ema, 1),
+                n_decode_live=self._n_decode_live)
+        return out
+
+
+def build_disagg_deployment(llm_config: LLMConfig,
+                            disagg: DisaggConfig | None = None):
+    """The disaggregated serving plane as an Application rooted at the
+    coordinator: a prefill pool + a decode pool + the coordinator wiring
+    them (admission, prefix routing, handoff, recovery). Each pool replica
+    reserves `num_gpus_per_replica` of the "GPU" resource (a fraction
+    lets one card hold several); the coordinator reserves none."""
+    _replica_mesh(llm_config)  # tp > 1: refused before any replica starts
+    d = disagg or DisaggConfig()
+    mid = llm_config.model_id
+    gpus = {"num_gpus": llm_config.num_gpus_per_replica}
+    prefill = serve.deployment(
+        _PrefillWorkerImpl, name=f"PrefillPool:{mid}").options(
+        num_replicas=d.prefill_replicas, ray_actor_options=gpus,
+    ).bind(llm_config)
+    decode = serve.deployment(
+        _DecodeReplicaImpl, name=f"DecodePool:{mid}").options(
+        num_replicas=d.decode_replicas,
+        health_check_period_s=0.5,
+        # Shed-rate autoscaling (DisaggConfig.decode_autoscale): the
+        # coordinator attributes decode-capacity sheds to this pool and
+        # the controller grows it when the rate sustains.
+        autoscaling_config=d.decode_autoscale,
+        ray_actor_options=gpus,
+    ).bind(llm_config)
+    coord = serve.deployment(
+        _DisaggServerImpl, name=f"DisaggLLMServer:{mid}")
+    return coord.bind(llm_config, d, prefill, decode)
+
+
+def build_disagg_openai_app(llm_config: LLMConfig,
+                            disagg: DisaggConfig | None = None):
+    """OpenAI-surface ingress over the disaggregated plane — the drop-in
+    sibling of `build_openai_app` (same routes; overload sheds surface as
+    HTTP 429)."""
+    server = build_disagg_deployment(llm_config, disagg)
+    router = serve.deployment(_OpenAiRouterImpl, name="OpenAiRouter")
+    return router.bind(server)

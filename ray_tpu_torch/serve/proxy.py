@@ -71,7 +71,6 @@ class ProxyActor:
         now = time.monotonic()
         if now - self._last_refresh < self.ROUTE_REFRESH_S:
             return
-        self._last_refresh = now
         try:
             controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
             ref = controller.get_http_routes.remote()
@@ -80,6 +79,11 @@ class ProxyActor:
                 None, lambda: ray_tpu_torch.get(ref, timeout=5))
         except (RayTpuError, ValueError):
             pass
+        # Stamped once the fetch is over: a request that arrives while it
+        # is in flight fetches as well, where it would match the routes
+        # from before the fetch (a new app's first concurrent requests
+        # got 404).
+        self._last_refresh = now
 
     def _match(self, path: str):
         best = None

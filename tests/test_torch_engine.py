@@ -158,6 +158,28 @@ def test_pool_exhaustion_preempts_and_stays_exact(params):
     assert eng.kv_stats()["preemptions"] > 0
 
 
+def test_second_preemption_keeps_the_sequence(params):
+    """A request preempted twice re-prefills its prompt and the tokens
+    fed back since once each (each preemption used to append every
+    generated token to the prompt again, so the second re-prefilled the
+    first's tokens twice) and still ends on the naive greedy tokens."""
+    pj, pt = params
+    eng = _engine(pt, max_slots=1, max_len=64, prompt_buckets=(32,),
+                  eos_token=-1, page_size=8)
+    prompt = [5, 6, 7]
+    rid = eng.add_request(prompt, max_new_tokens=16, temperature=0.0)
+    for _ in range(2):
+        for _ in range(3):
+            eng.step()
+        assert eng._preempt_victim()
+        req = eng.queue[0]
+        assert req.prompt == prompt + req.generated[:-1]
+    while eng.has_work():
+        eng.step()
+    assert eng.kv_stats()["preemptions"] == 2
+    assert eng.finished.pop(rid).generated == _naive_greedy(pj, prompt, 16)
+
+
 def test_logprobs_match_forward(params):
     """log p(token) from the engine against JAX `forward`'s log_softmax:
     fp32 throughout, 1e-4."""

@@ -335,16 +335,49 @@ def test_serve_batch_across_event_loops():
     assert max(dt for _, dt in out.values()) < 2.0, out
 
 
+def test_proxy_requests_during_a_route_fetch_see_its_routes(monkeypatch):
+    """A request that reaches the HTTP proxy while another's route fetch
+    is in flight matches the fetched routes: it used to match the routes
+    from before the fetch, so a new app's first concurrent requests could
+    get 404."""
+    from ray_tpu_torch.serve import proxy
+
+    class _Controller:
+        class get_http_routes:   # noqa: N801 — an actor method's handle
+            @staticmethod
+            def remote():
+                return "ref"
+
+    def slow_get(ref, timeout=None):
+        time.sleep(0.3)
+        return {"/app": ("app", "Ingress", "")}
+
+    monkeypatch.setattr(proxy.ray_tpu_torch, "get_actor",
+                        lambda name: _Controller())
+    monkeypatch.setattr(proxy.ray_tpu_torch, "get", slow_get)
+    p = proxy.ProxyActor(0)
+
+    async def concurrent():
+        async def late():
+            await asyncio.sleep(0.1)   # while the first fetch is in flight
+            await p._refresh_routes()
+            return p._match("/app/v1/completions")
+        _, match = await asyncio.gather(p._refresh_routes(), late())
+        return match
+
+    assert asyncio.run(concurrent()) == ("/app", ("app", "Ingress", ""))
+
+
 def test_not_in_slice_raises():
-    """tp > 1 replicas and the disaggregated builders name ROADMAP item
-    7 (f); a CUDA replica that reserved no GPU raises instead of running
-    on the CPU."""
+    """tp > 1 replicas name ROADMAP item 7 (f), in a replica and in the
+    disaggregated builders; a CUDA replica that reserved no GPU raises
+    instead of running on the CPU."""
     with pytest.raises(NotImplementedError, match=r"item 7 \(f\)"):
         t_serve._replica_mesh(_port_cfg(tensor_parallelism=2))
     for fn in (t_serve.build_disagg_deployment,
                t_serve.build_disagg_openai_app):
         with pytest.raises(NotImplementedError, match=r"item 7 \(f\)"):
-            fn(_port_cfg())
+            fn(_port_cfg(tensor_parallelism=2))
     cuda = dataclasses.replace(_port_cfg(), device="cuda")
     with pytest.raises(ValueError, match="reserve"):
         t_serve._replica_device(cuda)
