@@ -152,6 +152,25 @@ no result line):
               mid-stream (every stream still exact, the replica respawned
               on its share) and a burst past max_ongoing_requests shed
               with HTTP 429 while the admitted finish exact.
+20. tp-gang — replicas with tensor_parallelism=2 as gangs of two
+              processes in lockstep through the port's runtime (rank 0
+              the replica actor, the follower in its placement group,
+              gloo on the one card). `build_openai_app` at
+              num_gpus_per_replica=1.0 (two ranks at 0.5 GPU): phase
+              18's traffic, tokens/s beside phases 16 and 18, the boot,
+              each rank's decode steps (equal) and peak, K1 12 launches
+              a step on each rank and no plain run; fp32 tokens through
+              HTTP == the tp = 1 engine's == a forward argmax, a LoRA
+              adapter through the handle == an engine on the merged
+              params, a follower SIGKILLed and the whole gang replaced
+              on the card, the next requests exact. Then both
+              disaggregated pools as gangs (four processes at 0.25
+              GPU): a bf16 burst of 12 requests timed, K1 on both
+              decode ranks, each one-page handoff as many bytes as
+              phase 19's; fp32 tokens of a 300-token prompt == the
+              monolithic engine's, its sealed handoff full width and
+              within 1e-4 of the tp = 1 export; no runtime process
+              outlives the phase.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -341,13 +360,15 @@ def k1_case(torch, B, h, hkv, hd, page, P, lengths, dtype, seed, layers=1):
 
 
 def check_k1(torch, results):
-    """K1 against its plain version at llama-125m (12/12) and llama3-1b
-    GQA (32/8) widths, g = 7 and 8 at head_dim 128 (qwen2-7b's and
+    """K1 against its plain version at llama-125m (12/12), a tp = 2
+    gang rank's half of it (6/6) and llama3-1b GQA (32/8) widths, g = 7
+    and 8 at head_dim 128 (qwen2-7b's and
     llama3-70b's groups: 8 query heads in one block) and g = 16 at 64 (two
     row groups), bf16 and fp32, over lengths 0, 1, 63-65 and 127-129
     (chunk and split edges), page edges, 1024 and past the 8-page table;
     then the serving plan (P = 2) and 16-token pages (a two-stage ring of
-    16-token chunks); each case under the plan `decode_plan` picks and,
+    16-token chunks), both at 12/12 and at a tp = 2 rank's 6/6; each
+    case under the plan `decode_plan` picks and,
     where that is another, under 8 splits; two calls must give the same
     bytes. Then the times at the serving shape and at a long context,
     beside the verify body's (K1') at S = 1, and every split count timed
@@ -360,12 +381,15 @@ def check_k1(torch, results):
     lens_serve = torch.randint(120, 200, (32,), generator=g).tolist()
     cases = [(label, h, hkv, hd, 128, 8, rng_l, dtype)
              for label, h, hkv, hd in (("llama-125m", 12, 12, 64),
+                                       ("llama-125m tp=2 rank", 6, 6, 64),
                                        ("llama3-1b GQA", 32, 8, 64),
                                        ("g 7 hd 128", 28, 4, 128),
                                        ("g 8 hd 128", 64, 8, 128),
                                        ("g 16 hd 64", 32, 2, 64))
              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [("serving plan P 2", 12, 12, 64, 128, 2, lens_serve, dtype)
+    cases += [(label, h, hkv, 64, 128, 2, lens_serve, dtype)
+              for label, h, hkv in (("serving plan P 2", 12, 12),
+                                    ("serving plan P 2, tp=2 rank", 6, 6))
               for dtype in (torch.bfloat16, torch.float32)]
     cases += [("16-token pages", 16, 4, 128, 16, 16, [0, 1, 15, 16, 17, 63,
                                                        64, 65, 200, 255,
@@ -458,7 +482,8 @@ def check_k1(torch, results):
 def time_k1_plans(torch):
     """K1 under each split count (1, 2, 4, 8) beside the plan
     `decode_plan` picks, at the serving shape, a long context, few slots
-    (1 and 4) and 32-page tables, at llama-125m's heads (12/12, hd 64) and
+    (1 and 4) and 32-page tables, at llama-125m's heads (12/12, hd 64),
+    a tp = 2 gang rank's half of them at the serving shape (6/6) and
     llama3-8b's (32/8, hd 128), bf16: the measurements the split rule is
     set from. Each plan is held against the plain version before it is
     timed. Enough layers' pools are visited in turn that the K/V a run of
@@ -466,6 +491,7 @@ def time_k1_plans(torch):
     from ray_tpu_torch.ops import paged_attention as PA
     for label, B, h, hkv, hd, P, lo, hi in (
             ("serving", 32, 12, 12, 64, 2, 128, 192),
+            ("serving, tp=2 rank", 32, 6, 6, 64, 2, 128, 192),
             ("long", 32, 12, 12, 64, 8, 896, 1024),
             ("4 slots", 4, 12, 12, 64, 2, 128, 192),
             ("4 slots long", 4, 12, 12, 64, 8, 896, 1024),
@@ -2674,7 +2700,7 @@ def _replica_reads(engine=None) -> dict:
     from ray_tpu_torch.ops import paged_attention as PA
     return dict(k1=dict(PA.launches), verify=dict(PA.verify_launches),
                 verify_insert=dict(PA.verify_insert_launches),
-                decode_steps=engine.decode_steps if engine else 0,
+                decode_steps=getattr(engine, "decode_steps", 0),
                 peak=torch.cuda.max_memory_allocated(),
                 device=torch.cuda.get_device_name(0), pid=os.getpid())
 
@@ -2683,6 +2709,15 @@ def _reset_replica_reads():
     import torch
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
+
+
+def _rank_reads(self, reset: bool = False) -> dict:
+    """A probe's reads of this rank's process (`_replica_reads`), read by
+    the replica's `gang_call` on every rank of a tp gang; then reset."""
+    out = _replica_reads(self.engine)
+    if reset:
+        _reset_replica_reads()
+    return out
 
 
 def _make_probe_server():
@@ -2710,6 +2745,8 @@ def _make_probe_server():
                 _reset_replica_reads()
                 self.answered.clear()
             return out
+
+        rank_reads = _rank_reads
     return ProbeServer
 
 
@@ -2739,6 +2776,8 @@ def _make_probe_prefill():
                 _reset_replica_reads()
                 self.exports.clear()
             return out
+
+        rank_reads = _rank_reads
     return ProbePrefill
 
 
@@ -2782,6 +2821,8 @@ def _make_probe_decode():
                 self.handoff_bytes.clear()
                 self.streams.clear()
             return out
+
+        rank_reads = _rank_reads
     return ProbeDecode
 
 
@@ -2802,15 +2843,17 @@ def _post(url: str, body: dict, timeout: float = 120.0) -> dict:
 
 def _serve_probe_app(serve, me, cfg, name: str, port: int):
     """`serve.run(build_openai_app(cfg))` with the replica's class made
-    the probe (the same deployment options): returns the probe's
-    handle."""
+    the probe (the same deployment options, its placement group's too):
+    returns the probe's handle."""
     from ray_tpu_torch.llm.serve import build_openai_app
     app = build_openai_app(cfg)
     server = app.root.init_args[0].root   # the LLM deployment, bound
+    c = server.deployment.config
     server.deployment = serve.deployment(
         me.ProbeServer, name=server.deployment.name).options(
         num_replicas=cfg.num_replicas,
-        ray_actor_options=dict(server.deployment.config.ray_actor_options))
+        ray_actor_options=dict(c.ray_actor_options),
+        placement_group_bundles=c.placement_group_bundles)
     serve.run(app, name=name, route_prefix=f"/{name}", http_port=port,
               blocking_timeout_s=300)
     return serve.get_deployment_handle(server.deployment.name, name)
@@ -3040,14 +3083,16 @@ def serve_runtime_phase(torch, results, smi, serve_inproc) -> dict:
 
 def _as_probe(serve, app, cls):
     """Make the deployment at `app`'s root run `cls` (a probe subclass of
-    its class), with the same name and options."""
+    its class), with the same name and options (a tp gang's placement
+    group's too)."""
     node = app.root
     c = node.deployment.config
     node.deployment = serve.deployment(
         cls, name=node.deployment.name, num_replicas=c.num_replicas,
         health_check_period_s=c.health_check_period_s,
         autoscaling_config=c.autoscaling_config,
-        ray_actor_options=dict(c.ray_actor_options))
+        ray_actor_options=dict(c.ray_actor_options),
+        placement_group_bundles=c.placement_group_bundles)
 
 
 def _serve_disagg_probe_app(serve, me, cfg, disagg, name: str, port: int):
@@ -3433,6 +3478,329 @@ def disagg_phase(torch, results, smi, serve_inproc, http_phase) -> dict:
     return out
 
 
+# ------- phase 20: tensor-parallel replicas as process gangs -------
+
+
+def _gang_reads(handle, reset: bool = False) -> list:
+    """Every rank's reads of a tp replica (`rank_reads` of the probe, by
+    the replica's `gang_call`), by rank."""
+    return handle.gang_call.remote("rank_reads", reset).result(timeout_s=120)
+
+
+def _gang_steps(reads: list, before: list) -> list:
+    """Each rank's decode steps since `before`."""
+    return [r["decode_steps"] - b["decode_steps"]
+            for r, b in zip(reads, before)]
+
+
+def _check_gang_k1(reads: list, before: list, n_layers: int, what: str):
+    """Each rank's decode steps since `before` (equal on every rank, > 0),
+    K1 n_layers launches a step on each rank and never the plain path;
+    the steps."""
+    steps = _gang_steps(reads, before)
+    if len(set(steps)) != 1 or steps[0] == 0:
+        raise AssertionError(f"{what}: the ranks' decode steps {steps}")
+    for r, s in zip(reads, steps):
+        if r["k1"] != {"cuda": n_layers * s, "plain": 0}:
+            raise AssertionError(f"{what}: a rank's K1 launches {r['k1']} "
+                                 f"for {s} decode steps")
+    return steps[0]
+
+
+def _replaced(handle, old: set, timeout: float = 120.0) -> list:
+    """Wait until the replica's gang is a new one (no rank of `old`):
+    its reads by rank."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            reads = _gang_reads(handle)
+            if not {r["pid"] for r in reads} & old:
+                return reads
+        except Exception:  # noqa: BLE001 — the broken gang, still listed
+            pass
+        time.sleep(0.5)
+    raise AssertionError(f"the gang of ranks {sorted(old)} was not replaced "
+                         f"in {timeout} s")
+
+
+def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
+                  disagg) -> dict:
+    """tp = 2 replicas as gangs of two processes through the port's
+    runtime on the card. (a) `serve.run(build_openai_app(cfg))` with
+    tensor_parallelism=2 and num_gpus_per_replica=1.0: two ranks at 0.5
+    GPU over gloo in one placement group (the replica's class the probe
+    `ProbeServer`). llama-125m bf16 at the serve phase's engine shape,
+    phase 18's traffic from 36 client threads: both ranks take the same
+    decode steps, K1 n_layers launches a step on each and no plain run.
+    fp32: tokens through HTTP == the tp = 1 in-process engine's == a
+    forward argmax; a LoRA adapter registered through the handle == an
+    engine on the merged params; a follower SIGKILLed, the whole gang
+    replaced on the card and the next request exact. (b) the
+    disaggregated pools as gangs (`DisaggConfig(prefill_replicas=1,
+    decode_replicas=1)`, num_gpus_per_replica=0.5: four processes on the
+    card): a bf16 burst of 12 requests timed, K1 on both decode ranks,
+    each one-page handoff as many bytes as phase 19's; fp32 tokens of the
+    300-token prompt through HTTP == the monolithic engine's, its sealed
+    handoff full width and within 1e-4 of the tp = 1 export. No runtime
+    process outlives the phase."""
+    import dataclasses as dc
+    import importlib
+    import signal
+
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import (DisaggConfig, EngineConfig,
+                                   InferenceEngine, LLMConfig, LoraConfig,
+                                   PrefillEngine)
+    from ray_tpu_torch.llm.lora import init_lora, merge_lora
+    from ray_tpu_torch.llm.serve import _open_kv
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.models import configs
+    me = importlib.import_module("chip_smoke")
+    tok = ByteTokenizer()
+    port = _free_port()
+    card = torch.cuda.get_device_name(0)
+    out = {}
+    rng = np.random.default_rng(0)
+
+    def text(n):
+        return "".join(chr(c) for c in rng.integers(32, 127, n))
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=8, object_store_memory=1 << 30)
+    try:
+        # (a) the monolithic deployment
+        model = configs.bench_125m()
+        cfg = LLMConfig(model_id="llama-125m", model=model,
+                        engine=EngineConfig(max_slots=32, max_len=1024,
+                                            prompt_buckets=(128,),
+                                            eos_token=-1),
+                        tensor_parallelism=2, num_gpus_per_replica=1.0,
+                        seed=0)
+        url = f"http://127.0.0.1:{port}/tp"
+        t0 = time.perf_counter()
+        h = _serve_probe_app(serve, me, cfg, "tp", port)
+        first = _post(url + "/v1/completions",
+                      {"prompt": "hello", "max_tokens": 4,
+                       "temperature": 0.0})
+        boot_s = time.perf_counter() - t0
+        if first["usage"]["completion_tokens"] != 4:
+            raise AssertionError(f"first answer: {first}")
+        prompts = [text(126) for _ in range(32)]   # 127 tokens with BOS
+        shared = text(127)                         # BOS + 127: a page
+        prompts += [shared + text(16) for _ in range(4)]
+        before = _gang_reads(h, reset=True)
+        t0 = time.perf_counter()
+        answers = _concurrently(lambda p: _post(url + "/v1/completions", {
+            "prompt": p, "max_tokens": 64, "temperature": 0.0}), prompts)
+        wall = time.perf_counter() - t0
+        reads = _gang_reads(h)
+        n_tok = sum(a["usage"]["completion_tokens"] for a in answers)
+        log(f"  (a) bf16 tp=2 through HTTP: {len(prompts)} requests from "
+            f"as many client threads, {n_tok} tokens in {wall:.3f} s: "
+            f"{n_tok / wall:.1f} tokens/s (phase 16, tp=2 in process: "
+            f"{tp_inproc['tokens_per_s']:.1f}; phase 18, tp=1 through "
+            f"HTTP: {http_phase['tokens_per_s']:.1f}; phase 4: "
+            f"{serve_inproc['tokens_per_s']:.1f}); boot (serve.run to the "
+            f"first answer) {boot_s:.2f} s [{smi}]")
+        log(f"  ranks: decode steps {_gang_steps(reads, before)}"
+            f", K1 launches {[r['k1'] for r in reads]}, peak device memory "
+            f"{[round(r['peak'] / 2**30, 3) for r in reads]} GiB, on "
+            f"{sorted({r['device'] for r in reads})}, pids "
+            f"{[r['pid'] for r in reads]}")
+        if any(a["usage"]["completion_tokens"] != 64 for a in answers):
+            raise AssertionError("a request did not finish with 64 tokens")
+        steps = _check_gang_k1(reads, before, model.n_layers, "tp=2 bf16")
+        if len({r["pid"] for r in reads}) != 2 or any(
+                r["device"] != card for r in reads):
+            raise AssertionError(f"the ranks: {reads}")
+        results["paged_decode"]["tp_gang_launches"] = sum(
+            r["k1"]["cuda"] for r in reads)
+        out.update(tokens_per_s=n_tok / wall, boot_s=boot_s, steps=steps,
+                   peaks=[r["peak"] for r in reads])
+        serve.delete("tp")
+
+        m32 = dc.replace(configs.bench_125m(), dtype="float32")
+        cfg32 = LLMConfig(model_id="llama-125m-fp32", model=m32,
+                          engine=EngineConfig(max_slots=4, max_len=256,
+                                              prompt_buckets=(128,),
+                                              eos_token=-1),
+                          lora=LoraConfig(rank=8), tensor_parallelism=2,
+                          num_gpus_per_replica=1.0, seed=1)
+        url = f"http://127.0.0.1:{port}/tp32"
+        h32 = _serve_probe_app(serve, me, cfg32, "tp32", port)
+        texts = [text(n) for n in (19, 56, 99)]
+        ids = [tok.encode(t) for t in texts]
+
+        def over_http(model_id=None):
+            h32.probe.remote(reset=True).result(timeout_s=60)
+            got = [_post(url + "/v1/completions", {
+                "prompt": t, "max_tokens": 16, "temperature": 0.0,
+                **({"model": model_id} if model_id else {})})
+                for t in texts]
+            answered = h32.probe.remote().result(timeout_s=60)["answered"]
+            if [a[0] for a in answered] != ids:
+                raise AssertionError("the replica answered other prompts")
+            toks = [a[1] for a in answered]
+            if [g["choices"][0]["text"] for g in got] != [
+                    tok.decode(t) for t in toks]:
+                raise AssertionError("HTTP text != the decoded tokens")
+            return toks
+        base = over_http()
+        eng = InferenceEngine(m32, cfg32.engine, seed=cfg32.seed,
+                              device="cuda")
+        want = eng.generate(ids, max_new_tokens=16, temperature=0.0)
+        argmax = forward_argmax(torch, eng.params, m32, ids, 16)
+        log(f"  (a) fp32 tp=2 through HTTP: 3 prompts x 16 greedy tokens "
+            f"== the tp=1 in-process engine: {base == want}, == forward "
+            f"argmax: {base == argmax}")
+        if not base == want == argmax:
+            raise AssertionError(f"HTTP {base} / engine {want} / forward "
+                                 f"{argmax}")
+        gen = torch.Generator().manual_seed(7)
+        lora = init_lora(m32, 8, gen)
+        for ab in lora.values():
+            ab["B"] = torch.randn(ab["B"].shape, generator=gen)
+        lora_np = {t: {k: v.numpy() for k, v in ab.items()}
+                   for t, ab in lora.items()}
+        h32.load_adapter.remote("llama-125m-fp32-ft", lora_np).result(
+            timeout_s=120)
+        adapted = over_http("llama-125m-fp32-ft")
+        merged = InferenceEngine(m32, cfg32.engine, params=merge_lora(
+            eng.params, lora_np, alpha=cfg32.lora.alpha), device="cuda")
+        want_ft = merged.generate(ids, max_new_tokens=16, temperature=0.0)
+        del merged
+        log(f"  (a) LoRA adapter through the handle, both ranks: tokens == "
+            f"an engine on the merged params: {adapted == want_ft}, differ "
+            f"from the base: {adapted != base}")
+        if adapted != want_ft or adapted == base:
+            raise AssertionError(f"adapter {adapted} / merged engine "
+                                 f"{want_ft}")
+        old = [r["pid"] for r in _gang_reads(h32)]
+        t0 = time.perf_counter()
+        os.kill(old[1], signal.SIGKILL)
+        new = _replaced(h32, set(old))
+        replace_s = time.perf_counter() - t0
+        again = over_http()
+        log(f"  (a) follower pid {old[1]} SIGKILLed: gang {old} replaced "
+            f"by {[r['pid'] for r in new]} on "
+            f"{sorted({r['device'] for r in new})} in {replace_s:.2f} s; "
+            f"the next requests == the tokens before: {again == base}")
+        if again != base or any(r["device"] != card for r in new):
+            raise AssertionError(f"after the kill: {again} / {new}")
+        out["replace_s"] = replace_s
+        serve.delete("tp32")
+
+        # (b) the disaggregated pools, each a gang of two ranks
+        cfgd = LLMConfig(model_id="llama-125m", model=model,
+                         engine=EngineConfig(max_slots=32, max_len=1024,
+                                             prompt_buckets=(128, 256),
+                                             eos_token=-1),
+                         tensor_parallelism=2, num_gpus_per_replica=0.5,
+                         seed=0)
+        url = f"http://127.0.0.1:{port}/tpd"
+        t0 = time.perf_counter()
+        _coord, pre, dec = _serve_disagg_probe_app(
+            serve, me, cfgd, DisaggConfig(prefill_replicas=1,
+                                          decode_replicas=1), "tpd", port)
+        _post(url + "/v1/completions", {"prompt": "hello", "max_tokens": 4,
+                                        "temperature": 0.0})
+        boot_d = time.perf_counter() - t0
+        burst = prompts[:8] + prompts[32:]
+        before = _gang_reads(dec, reset=True)
+        pre_before = _gang_reads(pre, reset=True)
+        dec.probe.remote(reset=True).result(timeout_s=60)
+        t0 = time.perf_counter()
+        answers = _concurrently(lambda p: _post(url + "/v1/completions", {
+            "prompt": p, "max_tokens": 32, "temperature": 0.0}), burst)
+        wall_d = time.perf_counter() - t0
+        dreads, preads = _gang_reads(dec), _gang_reads(pre)
+        hand = dec.probe.remote().result(timeout_s=60)["handoff_bytes"]
+        n_tok = sum(a["usage"]["completion_tokens"] for a in answers)
+        log(f"  (b) bf16 pools at tp=2 (4 processes at 0.25 GPU): "
+            f"{len(burst)} requests, {n_tok} tokens in {wall_d:.3f} s: "
+            f"{n_tok / wall_d:.1f} tokens/s (phase 19: "
+            f"{disagg['tokens_per_s']:.1f}); boot {boot_d:.2f} s; decode "
+            f"ranks' steps {_gang_steps(dreads, before)}"
+            f", K1 {[r['k1'] for r in dreads]}; handoffs {hand} B (phase "
+            f"19: {disagg['handoff_bytes']} B a page); peak device memory "
+            f"{[round(r['peak'] / 2**30, 3) for r in preads + dreads]} GiB "
+            f"[{smi}]")
+        if any(a["usage"]["completion_tokens"] != 32 for a in answers):
+            raise AssertionError("a request did not finish with 32 tokens")
+        _check_gang_k1(dreads, before, model.n_layers, "tp=2 decode pool")
+        if any(r[k]["plain"] for r in preads for k in
+               ("k1", "verify", "verify_insert")) or any(
+                r["k1"]["cuda"] for r in preads):
+            raise AssertionError(f"the prefill ranks ran paged kernels: "
+                                 f"{preads} (from {pre_before})")
+        if len(hand) != 4 or set(hand) != {disagg["handoff_bytes"]}:
+            raise AssertionError(f"one-page handoffs of {hand} B, phase "
+                                 f"19's {disagg['handoff_bytes']} B")
+        results["paged_decode"]["tp_disagg_launches"] = sum(
+            r["k1"]["cuda"] for r in dreads)
+        out.update(disagg_tokens_per_s=n_tok / wall_d, disagg_boot_s=boot_d)
+        serve.delete("tpd")
+
+        ecfg = EngineConfig(max_slots=8, max_len=1024,
+                            prompt_buckets=(128, 512), eos_token=-1)
+        cfgd32 = LLMConfig(model_id="llama-125m-fp32", model=m32,
+                           engine=ecfg, tensor_parallelism=2,
+                           num_gpus_per_replica=0.5, seed=1)
+        url = f"http://127.0.0.1:{port}/tpd32"
+        _coord, pre, dec = _serve_disagg_probe_app(
+            serve, me, cfgd32, DisaggConfig(prefill_replicas=1,
+                                            decode_replicas=1), "tpd32",
+            port)
+        long = text(299)                            # 300 tokens
+        ids = tok.encode(long)
+        dec.probe.remote(reset=True).result(timeout_s=60)
+        got = _post(url + "/v1/completions", {"prompt": long,
+                                              "max_tokens": 16,
+                                              "temperature": 0.0})
+        streams = _stream_tokens([dec.probe.remote().result(timeout_s=60)])
+        toks = streams.get(tuple(ids))
+        eng = InferenceEngine(m32, ecfg, params=eng.params, device="cuda")
+        want = eng.generate([ids], max_new_tokens=16, temperature=0.0)[0]
+        argmax = forward_argmax(torch, eng.params, m32, [ids], 16)[0]
+        sealed = pre.prefill.remote(ids, 0.0).result(timeout_s=120)
+        ks, vs = _open_kv(rt.get(sealed["kv"], timeout=60))
+        _f, ks1, vs1 = PrefillEngine(m32, ecfg, params=eng.params,
+                                     device="cuda").prefill_export(
+            ids, temperature=0.0)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in ((ks, ks1), (vs, vs1)))
+        log(f"  (b) fp32 pools at tp=2: the 300-token prompt x 16 greedy "
+            f"tokens through HTTP == the monolithic engine: {toks == want}"
+            f", == forward argmax: {toks == argmax}; sealed handoff "
+            f"{tuple(ks.shape)} {ks.dtype} (tp=1's {tuple(ks1.shape)}), "
+            f"max abs err against the tp=1 export {err:.3g} (limit 1e-4)")
+        if (toks != want or toks != argmax
+                or got["choices"][0]["text"] != tok.decode(want)):
+            raise AssertionError(f"HTTP {toks} / engine {want} / forward "
+                                 f"{argmax}")
+        # 1e-4: each rank sums its half of the projections (another
+        # cuBLAS order than tp = 1's); 8.23e-06 read on the H100
+        if ks.shape != ks1.shape or ks.shape[2] != m32.n_kv_heads or \
+                err > 1e-4:
+            raise AssertionError(f"the sealed handoff {tuple(ks.shape)}, "
+                                 f"err {err}")
+        out["handoff_err"] = err
+        del eng
+        serve.delete("tpd32")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    while _runtime_processes() and time.monotonic() < deadline:
+        time.sleep(0.5)
+    left = _runtime_processes()
+    if left:
+        raise AssertionError(f"runtime processes outlived shutdown: {left}")
+    return out
+
+
 def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
     """What a padded-width call costs, by torch.profiler's device trace:
     each kernel's device time a call (the pads, the kernel, the cut), and
@@ -3710,13 +4078,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/19] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/20] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/19] build: {len(build_logs)} kernels in "
+    log(f"[2/20] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -3753,7 +4121,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/19] kernels against their plain versions")
+    log("[3/20] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -3762,7 +4130,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/19] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/20] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -3775,7 +4143,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/19] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/20] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -3785,18 +4153,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/19] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/20] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/19] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/20] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/19] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/20] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -3805,19 +4173,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/19] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/20] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/19] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/20] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/19] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/20] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -3827,7 +4195,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/19] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/20] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -3837,7 +4205,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/19] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/20] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -3848,7 +4216,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/19] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/20] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -3858,7 +4226,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/19] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/20] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -3868,7 +4236,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/19] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/20] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -3876,7 +4244,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/19] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/20] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -3888,7 +4256,7 @@ def main() -> int:
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     t0 = time.perf_counter()
-    log("[18/19] serve-runtime: serve.run(build_openai_app(...)) on the "
+    log("[18/20] serve-runtime: serve.run(build_openai_app(...)) on the "
         "port's runtime, a replica holding the card, HTTP on a free port; "
         "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
     sr = serve_runtime_phase(torch, results, smi, serve)
@@ -3899,7 +4267,7 @@ def main() -> int:
         f"peak {sr['peak'] / 2**30:.3f} GiB")
 
     t0 = time.perf_counter()
-    log("[19/19] disagg: serve.run(build_disagg_openai_app(...)) on the "
+    log("[19/20] disagg: serve.run(build_disagg_openai_app(...)) on the "
         "port's runtime, a prefill worker and two decode replicas sharing "
         "the card, HTTP on a free port; llama-125m bf16 timed, fp32 exact "
         "with a handoff check, a decode replica killed mid-stream and a "
@@ -3912,6 +4280,20 @@ def main() -> int:
         f"s, export {dg['export_ms']:.2f} ms under load and "
         f"{dg['export_alone_ms']:.2f} ms alone, handoff "
         f"{dg['handoff_bytes']} B a request")
+
+    t0 = time.perf_counter()
+    log("[20/20] tp-gang: tensor_parallelism=2 replicas as gangs of two "
+        "processes through the port's runtime: build_openai_app (bf16 "
+        "timed, fp32 and a LoRA adapter exact, a follower killed and the "
+        "gang replaced) and both disaggregated pools (a bf16 burst, fp32 "
+        "exact with a full-width handoff)")
+    tg = tp_gang_phase(torch, results, smi, serve, tps, sr, dg)
+    log(f"  tp-gang phase {time.perf_counter() - t0:.1f} s; "
+        f"{tg['tokens_per_s']:.1f} tokens/s through HTTP at tp=2 vs "
+        f"{tps['tokens_per_s']:.1f} in process at tp=2 and "
+        f"{sr['tokens_per_s']:.1f} through HTTP at tp=1; boot "
+        f"{tg['boot_s']:.2f} s, a gang replaced in {tg['replace_s']:.2f} s;"
+        f" the pools at tp=2 {tg['disagg_tokens_per_s']:.1f} tokens/s")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

@@ -727,11 +727,14 @@ class PlacementGroupState:
     Parity: `gcs_placement_group_manager.h:232` (lifecycle) +
     `gcs_placement_group_scheduler.h:288` (2PC reserve, collapsed to one
     atomic carve-out on the single-node pool). `bundle_avail` tracks the
-    unconsumed remainder of each bundle's reservation.
+    unconsumed remainder of each bundle's reservation, and `bundle_gpus`
+    the device shares a bundle's "GPU" holds ({device id: free share}):
+    a task or actor reserving GPUs out of a bundle takes its device ids
+    from there.
     """
 
     __slots__ = ("pg_id", "bundles", "strategy", "name", "state",
-                 "bundle_avail", "bundle_nodes", "ready_oid")
+                 "bundle_avail", "bundle_nodes", "bundle_gpus", "ready_oid")
 
     def __init__(self, pg_id: bytes, bundles, strategy: str, name: str):
         self.pg_id = pg_id
@@ -741,6 +744,7 @@ class PlacementGroupState:
         self.state = "PENDING"  # PENDING/CREATED/REMOVED/INFEASIBLE
         self.bundle_avail = [dict(b) for b in bundles]
         self.bundle_nodes: list[bytes] = []  # bundle i -> hosting node id
+        self.bundle_gpus: list[dict] = [{} for _ in bundles]
         self.ready_oid = os.urandom(16)
 
 
@@ -4090,9 +4094,13 @@ class Runtime:
         for i in idxs:
             b = st.bundle_avail[i]
             if all(b.get(k, 0.0) + 1e-9 >= v for k, v in req.items()):
+                shares = self._take_shares(st.bundle_gpus[i],
+                                           req.get("GPU", 0.0))
+                if shares is None:
+                    continue
                 for k, v in req.items():
                     b[k] = b.get(k, 0.0) - v
-                return ("pg", pg_id, i, req)
+                return ("pg", pg_id, i, req, shares)
         return None
 
     def _reserve_placement(self, strategy, req: dict[str, float], deps=None):
@@ -4131,12 +4139,13 @@ class Runtime:
             self._give_gpus(token[1], token[3] if len(token) > 3 else ())
             self._release_on(token[1], token[2])
             return
-        _, pg_id, i, req = token
+        _, pg_id, i, req, shares = token
         st = self.placement_groups.get(pg_id)
         if st is not None and st.state == "CREATED":
             b = st.bundle_avail[i]
             for k, v in req.items():
                 b[k] = b.get(k, 0.0) + v
+            self._give_shares(st.bundle_gpus[i], shares)
             # Freed bundle capacity may unblock queued PG tasks/actors.
             self._kick_waiters()
         else:
@@ -4144,6 +4153,7 @@ class Runtime:
             # consumers finish.
             nid = (st.bundle_nodes[i] if st is not None and st.bundle_nodes
                    else self.head_node_id)
+            self._give_gpus(nid, shares)
             self._release_on(nid, req)
 
     def _take_gpus(self, node, amount: float):
@@ -4154,7 +4164,12 @@ class Runtime:
         without device ids (its agent's own accounting); None when the
         count fits but no device has the room (fragmented fractions): the
         request waits as if it did not fit. Caller holds the lock."""
-        free = node.gpu_free
+        return self._take_shares(node.gpu_free, amount)
+
+    @staticmethod
+    def _take_shares(free: dict, amount: float):
+        """`_take_gpus` on a {device id: free share} map (a node's devices
+        or a placement-group bundle's shares)."""
         if amount <= 1e-9 or not free:
             return ()
         whole = int(amount + 1e-9)
@@ -4176,16 +4191,23 @@ class Runtime:
     def _give_gpus(self, node_id: bytes, shares) -> None:
         """Return `_take_gpus`'s shares to the node's devices."""
         node = self.nodes.get(node_id)
-        if node is None or not shares:
-            return
-        for i, s in shares:
-            node.gpu_free[i] = min(1.0, node.gpu_free.get(i, 0.0) + s)
+        if node is not None:
+            self._give_shares(node.gpu_free, shares)
+
+    @staticmethod
+    def _give_shares(free: dict, shares) -> None:
+        for i, s in shares or ():
+            free[i] = min(1.0, free.get(i, 0.0) + s)
 
     def _gpu_ids_of(self, token) -> tuple:
-        """The device ids a reservation token holds (node tokens only)."""
+        """The device ids a reservation token holds: a node token's, or
+        the shares a placement-group token took from its bundle."""
+        shares = ()
         if token and token[0] == "node" and len(token) > 3:
-            return tuple(i for i, _s in token[3])
-        return ()
+            shares = token[3]
+        elif token and token[0] == "pg":
+            shares = token[4]
+        return tuple(i for i, _s in shares)
 
     def _release_on(self, node_id: bytes, req: dict[str, float]):
         node = self.nodes.get(node_id)
@@ -4347,6 +4369,18 @@ class Runtime:
         assign = self._place_bundles(st.bundles, st.strategy)
         if assign is None:
             return False
+        # Each bundle's "GPU" as device shares of its node, so what runs
+        # in the bundle sees those devices (CUDA_VISIBLE_DEVICES).
+        taken = []
+        for i, nid in enumerate(assign):
+            shares = self._take_gpus(self.nodes[nid],
+                                     st.bundles[i].get("GPU", 0.0))
+            if shares is None:   # the count fits, the devices do not
+                for j, got in enumerate(taken):
+                    self._give_gpus(assign[j], got)
+                return False
+            taken.append(shares)
+        st.bundle_gpus = [{d: s for d, s in got} for got in taken]
         for i, nid in enumerate(assign):
             na = self.nodes[nid].available
             for k, v in st.bundles[i].items():
@@ -4385,6 +4419,9 @@ class Runtime:
                         continue
                     for k, v in b.items():
                         node.available[k] = node.available.get(k, 0.0) + v
+                    self._give_gpus(node.node_id,
+                                    tuple(st.bundle_gpus[i].items()))
+                st.bundle_gpus = [{} for _ in st.bundles]
             try:
                 self.pgs_waiting.remove(pg_id)
             except ValueError:
@@ -5310,17 +5347,18 @@ class Runtime:
                 for k, v in token[2].items():
                     node.available[k] = node.available.get(k, 0.0) + v
             return
-        _, pg_id, i, req = token
+        _, pg_id, i, req, shares = token
         st = self.placement_groups.get(pg_id)
         if st is not None and st.state == "CREATED":
             b = st.bundle_avail[i]
             for k, v in req.items():
                 b[k] = b.get(k, 0.0) + v
+            self._give_shares(st.bundle_gpus[i], shares)
         else:
             self._rollback_token_locked(
                 ("node",
                  st.bundle_nodes[i] if st is not None and st.bundle_nodes
-                 else self.head_node_id, req))
+                 else self.head_node_id, req, shares))
 
     def _request_worker_locked(self, node: NodeState, pip: list | None = None):
         """Grow a node's worker pool on demand (rate-limited). With `pip`,

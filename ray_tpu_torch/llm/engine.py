@@ -70,8 +70,9 @@ from ray_tpu_torch.models.transformer import (ModelConfig, _mlp, _moe,
                                               lm_head, local_config,
                                               param_logical_axes, tp_group)
 from ray_tpu_torch.parallel.collectives import gather_from_tp, reduce_from_tp
-from ray_tpu_torch.parallel.sharding import (ShardingRules, shard_params,
-                                             tree_map)
+from ray_tpu_torch.parallel.sharding import (ShardingRules, local_shard,
+                                             logical_to_physical,
+                                             shard_params, tree_map)
 from ray_tpu_torch.ops._build import pad_cols, padded_head_dim
 from ray_tpu_torch.ops.layers import apply_rope, rmsnorm, rope
 from ray_tpu_torch.ops.paged_attention import (
@@ -756,6 +757,8 @@ class InferenceEngine:
         # Under a tp mesh: this rank's param blocks and config view.
         params, self.c = _resolve_params(model_config, params, seed,
                                          self.device, mesh, rules)
+        self._param_specs = None if mesh is None else logical_to_physical(
+            rules or ShardingRules.default(), param_logical_axes(model_config))
         c = self.c
         self._weights = None       # (params, decode weights): the setter's
         self._weights_gen = -1     # trees assigned so far, less one
@@ -832,6 +835,16 @@ class InferenceEngine:
         if tree["embed"].device != self.device:
             raise ValueError(f"params live on {tree['embed'].device}, the "
                              f"engine on {self.device}")
+        if self._weights is not None:
+            shapes = []
+            tree_map(lambda a, b: shapes.append((a.shape, b.shape)),
+                     self._weights[0], tree,
+                     is_leaf=lambda t: not isinstance(t, dict))
+            if any(a != b for a, b in shapes):
+                raise ValueError(
+                    "params of other shapes than the engine's (under a tp "
+                    "mesh a tree of this rank's blocks: local_blocks cuts "
+                    "a full tree)")
         self._weights = (tree, decode_weights(tree, self.c))
         self._weights_gen += 1
 
@@ -890,32 +903,22 @@ class InferenceEngine:
                     temperature=None, top_p: float = 1.0,
                     top_k: int = 0, guide=None, logprobs: bool = False,
                     resume_token: int | None = None,
-                    kv_handoff: tuple | None = None) -> int:
+                    kv_handoff: tuple | None = None,
+                    request_id: int | None = None) -> int:
         """`resume_token`/`kv_handoff` serve disaggregated decoding:
         resume_token is a token already sampled for this sequence (by a
         prefill engine, or by a decode engine that stopped mid-stream):
         decoding resumes from it without re-sampling its position;
         kv_handoff is the exported prompt KV (`PrefillEngine.
         prefill_export`), imported into the prefix cache at admission
-        (`import_kv`) so only the part it does not cover re-prefills."""
-        # Validate at submission, in the caller's thread: an invalid prompt
-        # must fail its own request, not the shared engine pump.
-        if not (self._chunk_size() and len(prompt_tokens) < self.e.max_len):
-            self._bucket(len(prompt_tokens))
-        if (guide is not None or logprobs) and not self.paged:
-            raise ValueError("guided decoding / logprobs require the "
-                             "paged KV layout")
-        if ((resume_token is not None or kv_handoff is not None)
-                and not self.paged):
-            raise ValueError("decode-state resume / KV handoff require "
-                             "the paged KV layout")
-        if guide is not None and guide.table.shape[1] != self.c.vocab:
-            raise ValueError(
-                f"guide compiled for vocab {guide.table.shape[1]}, "
-                f"model vocab is {self.c.vocab}")
-        with self._lock:
-            rid = self._next_id
-            self._next_id += 1
+        (`import_kv`) so only the part it does not cover re-prefills.
+        `request_id`: one `reserve_request_id` returned (a caller that
+        validates and numbers a request in one thread and submits it in
+        another); None takes the next."""
+        self.check_request(prompt_tokens, guide, logprobs, resume_token,
+                           kv_handoff)
+        rid = (self.reserve_request_id() if request_id is None
+               else request_id)
         req = Request(
             rid, list(map(int, prompt_tokens)),
             max_new_tokens or self.e.default_max_new_tokens,
@@ -931,6 +934,47 @@ class InferenceEngine:
         self.queue.append(req)
         self._req_by_id[rid] = req
         return rid
+
+    def local_blocks(self, tree: dict) -> dict:
+        """This rank's blocks of `tree`, full tensors at paths of the
+        param tree (a part of it will do, e.g. {"layers": {"wq": w}}), cut
+        by the mesh and rules the engine placed its own params with;
+        `tree` itself when the engine has no mesh."""
+        if self.mesh is None:
+            return tree
+
+        def cut(t, spec):
+            if isinstance(t, dict):
+                return {k: cut(v, spec[k]) for k, v in t.items()}
+            return local_shard(t, self.mesh, spec)
+        return cut(tree, self._param_specs)
+
+    def reserve_request_id(self) -> int:
+        """The next request id, taken now; `add_request(request_id=)`
+        submits under it."""
+        with self._lock:
+            rid = self._next_id
+            self._next_id += 1
+        return rid
+
+    def check_request(self, prompt_tokens, guide=None, logprobs=False,
+                      resume_token=None, kv_handoff=None) -> None:
+        """Raise ValueError for a request `add_request` would refuse."""
+        # Validate at submission, in the caller's thread: an invalid prompt
+        # must fail its own request, not the shared engine pump.
+        if not (self._chunk_size() and len(prompt_tokens) < self.e.max_len):
+            self._bucket(len(prompt_tokens))
+        if (guide is not None or logprobs) and not self.paged:
+            raise ValueError("guided decoding / logprobs require the "
+                             "paged KV layout")
+        if ((resume_token is not None or kv_handoff is not None)
+                and not self.paged):
+            raise ValueError("decode-state resume / KV handoff require "
+                             "the paged KV layout")
+        if guide is not None and guide.table.shape[1] != self.c.vocab:
+            raise ValueError(
+                f"guide compiled for vocab {guide.table.shape[1]}, "
+                f"model vocab is {self.c.vocab}")
 
     def request(self, request_id: int) -> Request | None:
         """The live (or finished but still referenced) Request of

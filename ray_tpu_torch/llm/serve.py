@@ -18,10 +18,17 @@ store object, a decode replica splices it into its paged pool
 the coordinator admits or sheds by per-pool token budgets, routes by
 prompt prefix and re-resolves a stream whose decode replica died.
 
-Not in this slice (ROADMAP queue 1 item 7 (f), its second half):
-replicas with tensor_parallelism > 1 (the port's tp engine is SPMD, so
-such a replica is a gang of processes in lockstep). They raise
-NotImplementedError.
+A replica with tensor_parallelism = tp > 1, in either deployment and in
+both pools, is a gang of tp processes in lockstep (`llm/_tp_gang.py`):
+the port's tp engine is SPMD, where the reference's tp replica is one
+process over tp chips. Rank 0 is the replica actor. Every mutation of
+its engine (a request with its handoff or resume token, a cancel, an
+adapter swap by model id, a guide by pattern) joins an ordered log that
+rank 0's pump sends to the other ranks once a turn; every rank applies
+it in order and steps, so their schedules never part. A prefill export
+runs on every rank alike, and the ranks' kv heads are gathered to the
+full width before the handoff is sealed; a decode rank imports its own
+heads of it.
 """
 
 from __future__ import annotations
@@ -29,10 +36,12 @@ from __future__ import annotations
 import asyncio
 import collections
 import dataclasses
+import os
 import pickle
 import sys
 import threading
 import time
+import traceback
 import uuid
 
 import numpy as np
@@ -44,14 +53,13 @@ from ray_tpu_torch.core import chaos
 from ray_tpu_torch.core.retry import Backoff
 from ray_tpu_torch.core.status import (ActorDiedError, GetTimeoutError,
                                        OverloadedError, RayTpuError)
+from ray_tpu_torch.llm import _tp_gang
 from ray_tpu_torch.llm.config import LLMConfig
 from ray_tpu_torch.llm.engine import (EngineConfig, InferenceEngine,
-                                      PrefillEngine)
-from ray_tpu_torch.llm.lora import adapter_seed, init_lora, merge_lora
+                                      PrefillEngine, _prompt_bucket)
+from ray_tpu_torch.llm.lora import (adapter_seed, add_deltas, init_lora,
+                                    lora_deltas)
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
-
-_LATER = ("a later slice of the PyTorch port (ROADMAP queue 1 item 7 (f), "
-          "its second half: tensor-parallel replicas as process gangs)")
 
 
 def _wire_eos(engine_cfg: EngineConfig, tokenizer) -> EngineConfig:
@@ -62,15 +70,33 @@ def _wire_eos(engine_cfg: EngineConfig, tokenizer) -> EngineConfig:
     return engine_cfg
 
 
-def _replica_mesh(llm_config: LLMConfig):
-    """The replica's tp mesh: None at tp = 1. A tp > 1 replica is a gang
-    of tp processes in lockstep under the port's SPMD engine, which is
-    not ported yet."""
-    if llm_config.tensor_parallelism <= 1:
-        return None
-    raise NotImplementedError(
-        f"an LLM replica with tensor_parallelism="
-        f"{llm_config.tensor_parallelism} is {_LATER}")
+def _check_replica(llm_config: LLMConfig) -> None:
+    """What a replica would refuse at start, refused when its deployment
+    is built, before any replica starts: a tp that does not divide the model's kv
+    heads (the engine splits its KV pool by kv head) or the widths the
+    rules table splits over tp, and a CUDA replica that reserves no GPU."""
+    tp = llm_config.tensor_parallelism
+    c = llm_config.resolve_model()
+    if tp < 1:
+        raise ValueError(f"tensor_parallelism={tp}: at least 1")
+    for what, n in (("n_kv_heads", c.n_kv_heads), ("d_ff", c.d_ff),
+                    ("vocab", c.vocab)):
+        if n % tp:
+            raise ValueError(
+                f"a replica over tp={tp} needs tp to divide {what}={n}: "
+                f"the engine splits its KV pool by kv head, and the "
+                f"params along {what}, over tp")
+    if llm_config.device != "cpu":
+        _reserved_gpu(llm_config)
+
+
+def _reserved_gpu(llm_config: LLMConfig) -> None:
+    if llm_config.num_gpus_per_replica <= 0:
+        raise ValueError(
+            f"LLMConfig(device={llm_config.device!r}) with "
+            f"num_gpus_per_replica={llm_config.num_gpus_per_replica}: a "
+            f"replica runs on the card it reserves; reserve one, or ask "
+            f"for device='cpu'")
 
 
 def _replica_device(llm_config: LLMConfig) -> torch.device:
@@ -79,13 +105,22 @@ def _replica_device(llm_config: LLMConfig) -> torch.device:
     reserved no GPU raises; it never falls back to the CPU."""
     if llm_config.device == "cpu":
         return torch.device("cpu")
-    if llm_config.num_gpus_per_replica <= 0:
-        raise ValueError(
-            f"LLMConfig(device={llm_config.device!r}) with "
-            f"num_gpus_per_replica={llm_config.num_gpus_per_replica}: a "
-            f"replica runs on the card it reserves; reserve one, or ask "
-            f"for device='cpu'")
+    _reserved_gpu(llm_config)
     return resolve_device(llm_config.device)  # raises if CUDA sees none
+
+
+def _replica_options(llm_config: LLMConfig) -> dict:
+    """Deployment options placing one replica: its GPU reservation, and
+    at tp > 1 a placement group of one bundle a rank (the controller
+    packs it on one node), rank 0 (the replica actor) in bundle 0 with
+    its share of the GPUs."""
+    tp = llm_config.tensor_parallelism
+    if tp <= 1:
+        return {"ray_actor_options": {
+            "num_gpus": llm_config.num_gpus_per_replica}}
+    return {"ray_actor_options": {"num_cpus": 1,
+                                  "num_gpus": _tp_gang.rank_share(llm_config)},
+            "placement_group_bundles": _tp_gang.rank_bundles(llm_config)}
 
 
 def _numpy_tree(tree):
@@ -99,17 +134,22 @@ def _numpy_tree(tree):
 class _LLMServerImpl:
     """One engine per replica; a background thread pumps engine.step() and
     resolves per-request futures (continuous batching across concurrent
-    HTTP callers)."""
+    HTTP callers). Request threads never touch the engine: they put its
+    mutations in `_log`, and the pump applies the log before each step,
+    at tp > 1 on every rank of the gang alike (module docstring)."""
+
+    _gang = None   # this replica's tp gang (llm/_tp_gang.py); None at tp 1
 
     def __init__(self, llm_config: LLMConfig):
         self.cfg = llm_config
         model_cfg = llm_config.resolve_model()
-        mesh = _replica_mesh(llm_config)
+        # at tp > 1 the gang's mesh is the reference's _replica_mesh
+        self._gang = _tp_gang.join(llm_config, type(self))
         self.tokenizer = get_tokenizer(llm_config.tokenizer)
         engine_cfg = _wire_eos(llm_config.engine, self.tokenizer)
         self.engine = InferenceEngine(
-            model_cfg, engine_cfg, mesh=mesh, seed=llm_config.seed,
-            device=_replica_device(llm_config))
+            model_cfg, engine_cfg, mesh=self._gang and self._gang.mesh,
+            seed=llm_config.seed, device=_replica_device(llm_config))
         self.model_cfg = model_cfg
         self._base_params = self.engine.params
         self._adapters: dict[str, object] = {}
@@ -121,26 +161,42 @@ class _LLMServerImpl:
         # the pump discards their finished records instead of stranding
         # them in engine.finished forever.
         self._discard: set[int] = set()
+        # The pump's next turn: (kind, *args) engine mutations, in order.
+        self._log: list[tuple] = []
+        # rank 0: handoffs its request threads opened, by rid, and the
+        # live Requests of its streams (the engine's map is weak)
+        self._opened: dict[int, tuple] = {}
+        self._live: dict[int, object] = {}
         self._lock = threading.Lock()
         self._stop = False
-        self._pump = threading.Thread(target=self._loop, daemon=True,
-                                      name="llm-engine-pump")
-        self._pump.start()
+        if self._leader:
+            self._pump = threading.Thread(target=self._loop, daemon=True,
+                                          name="llm-engine-pump")
+            self._pump.start()
 
     # ---- engine pump ----
 
+    @property
+    def _leader(self) -> bool:
+        """Rank 0, the one that answers (every replica at tp = 1)."""
+        return self._gang is None or self._gang.leader
+
     def _loop(self):
         while not self._stop:
-            if not self.engine.has_work():
-                time.sleep(0.002)
-                continue
             try:
-                emitted = self.engine.step()
-            except Exception:  # noqa: BLE001 — a dead pump hangs every
-                # pending AND future request on the replica; log and go on.
-                import traceback
+                emitted = self._pump_turn()
+            except Exception as e:  # noqa: BLE001
+                if self._gang is not None:
+                    # a rank failed: the gang never goes on with fewer
+                    self._fail_all(self._gang.fail(e))
+                    return
+                # one engine: a dead pump hangs every pending AND future
+                # request on the replica; log and go on.
                 traceback.print_exc()
                 time.sleep(0.1)
+                continue
+            if emitted is None:
+                time.sleep(0.002)
                 continue
             done = []
             with self._lock:
@@ -164,8 +220,11 @@ class _LLMServerImpl:
                         del self._waiters[rid]
                 for rid in list(self._token_subs):
                     if rid in self.engine.finished:
+                        # end of stream: the subscription goes with the
+                        # record, so a consumer that stops before it
+                        # reads the end cancels nothing (F19)
                         self.engine.finished.pop(rid)
-                        self._token_subs[rid].put(None)  # end of stream
+                        self._token_subs.pop(rid).put(None)
                 for rid in list(self._discard):
                     if rid in self.engine.finished:
                         self.engine.finished.pop(rid)
@@ -173,31 +232,153 @@ class _LLMServerImpl:
             for loop, fut, req in done:
                 loop.call_soon_threadsafe(fut.set_result, req)
 
+    def _pump_turn(self):
+        """Rank 0's turn: take the log, send it to the other ranks of a
+        gang, apply it and step; step's emitted tokens, or None when
+        there was nothing to do (the heartbeat keeps an idle gang in
+        touch)."""
+        with self._lock:
+            entries, self._log = self._log, []
+        if not entries and not self.engine.has_work():
+            return None
+        if self._gang is None:
+            return self._turn(entries)
+        with self._gang.lock:
+            self._gang.send("turn", entries)
+            return self._turn(entries)
+
+    def _turn(self, entries) -> dict:
+        """Every rank: apply a turn's log in order, then step."""
+        for kind, *args in entries:
+            getattr(self, "_do_" + kind)(*args)
+        return self.engine.step() if self.engine.has_work() else {}
+
+    def _follow(self, kind: str, payload):
+        """A follower rank: rank 0's message."""
+        if kind == "turn":
+            self._turn(payload)
+            self.engine.finished.clear()   # rank 0 answers; nothing waits
+        else:
+            self._gang_method(*payload)
+
+    def _do_add(self, rid: int, prompt, max_new, temperature, top_p,
+                top_k, pattern, logprobs, resume_token, kv):
+        handoff = self._opened.pop(rid, None)
+        if handoff is None and kv is not None:
+            handoff = _open_kv(kv if isinstance(kv, tuple)
+                               else ray_tpu_torch.get(kv, timeout=30))
+        if handoff is not None:
+            handoff = self._rank_heads(handoff)
+        got = self.engine.add_request(
+            prompt, max_new, temperature, top_p=top_p, top_k=top_k,
+            guide=self._guide_for(pattern), logprobs=logprobs,
+            resume_token=resume_token, kv_handoff=handoff,
+            request_id=rid if self._leader else None)
+        if got != rid:
+            raise _tp_gang.GangBroken(
+                f"tp gang rank {self._gang.rank} numbered a request {got}, "
+                f"rank 0 {rid}")
+        if rid in self._token_subs:
+            self._live[rid] = self.engine.request(rid)
+
+    def _do_cancel(self, rid: int):
+        self.engine.cancel(rid)
+
+    def _do_params(self, model):
+        self.engine.params = self._params_for(model)
+
+    def _do_load(self, model_id: str, lora_np, alpha):
+        if not self._leader:   # rank 0 merged it in load_adapter
+            self._materialize(model_id, lora_np, alpha)
+
+    def _rank_heads(self, handoff) -> tuple:
+        """This rank's kv heads of a full-width (ks, vs) handoff."""
+        c = self.engine.c
+        if getattr(c, "tp", 1) == 1:
+            return handoff
+        lo = c.tp_rank * c.n_kv_heads
+        return tuple(t[:, :, lo:lo + c.n_kv_heads].contiguous()
+                     for t in handoff)
+
+    def _fail_all(self, exc: BaseException):
+        """A broken gang: every waiter and stream gets `exc`."""
+        with self._lock:
+            waiters = list(self._waiters.values())
+            self._waiters.clear()
+            for sub in self._token_subs.values():
+                sub.put(exc)
+        for loop, fut in waiters:
+            loop.call_soon_threadsafe(fut.set_exception, exc)
+
+    def _enqueue(self, prompt, max_new, temperature, *, top_p=1.0,
+                 top_k=0, guide=None, logprobs=False, resume_token=None,
+                 handoff=None, kv=None) -> int:
+        """Submit a request; the caller holds `_lock` and registers its
+        waiter or stream under the returned rid before releasing it. Rank
+        0's engine checks and numbers it now, and the log carries it
+        (`guide` by pattern, the handoff by `kv`, the sealed object or
+        its ref) to every rank's engine at the next turn."""
+        if self._gang is not None and self._gang.error is not None:
+            raise self._gang.error
+        self.engine.check_request(prompt, self._guide_for(guide), logprobs,
+                                  resume_token, handoff)
+        rid = self.engine.reserve_request_id()
+        if handoff is not None:
+            self._opened[rid] = handoff
+        self._log.append(("add", rid, list(map(int, prompt)), max_new,
+                          temperature, float(top_p), int(top_k), guide,
+                          bool(logprobs), resume_token,
+                          kv if handoff is not None else None))
+        return rid
+
+    def _cancel(self, rid: int):
+        """Cancel a request at the next turn (the caller holds `_lock`)."""
+        self._log.append(("cancel", rid))
+
+    def _select(self, model):
+        """Point the engine at `model`'s weights (the base or an adapter)
+        from the next turn on, on every rank (a model id that is no
+        registered adapter raises here)."""
+        self._params_for(model)
+        with self._lock:
+            self._log.append(("params", model))
+
+    def _next_token(self, sub):
+        """A stream's next item: a token, None at its end. A broken gang
+        raises its error."""
+        tok = sub.get(timeout=300)
+        if isinstance(tok, BaseException):
+            raise tok
+        return tok
+
     async def _submit(self, prompt_ids, max_new_tokens, temperature,
                       top_p=1.0, top_k=0, guide=None, logprobs=False):
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
         with self._lock:
-            rid = self.engine.add_request(prompt_ids, max_new_tokens,
-                                          temperature, top_p=top_p,
-                                          top_k=top_k, guide=guide,
-                                          logprobs=logprobs)
+            rid = self._enqueue(prompt_ids, max_new_tokens, temperature,
+                                top_p=top_p, top_k=top_k, guide=guide,
+                                logprobs=logprobs)
             self._waiters[rid] = (loop, fut)
         return await fut
 
-    def _resolve_guide(self, guided_regex=None, guided_json=None):
-        """Compile (and cache) a TokenGuide from the vLLM-style request
-        fields. Compilation is per-pattern, not per-request — repeated
-        schemas (the common case for structured extraction) hit the
-        cache."""
-        if guided_regex is None and guided_json is None:
-            return None
-        from ray_tpu_torch.llm.guided import (compile_token_guide,
-                                              json_schema_to_regex)
+    @staticmethod
+    def _guide_pattern(guided_regex=None, guided_json=None):
+        """The regex of the vLLM-style request fields (None: unguided)."""
         if guided_json is not None:
-            pattern = json_schema_to_regex(guided_json)
-        else:
-            pattern = guided_regex
+            from ray_tpu_torch.llm.guided import json_schema_to_regex
+            return json_schema_to_regex(guided_json)
+        return guided_regex
+
+    def _guide_for(self, pattern):
+        """Compile (and cache) the TokenGuide of a pattern (None: none).
+        Compilation is per-pattern, not per-request — repeated schemas
+        (the common case for structured extraction) hit the cache; every
+        rank of a gang compiles its own from the pattern the log
+        carries."""
+        if pattern is None:
+            return None
+        from ray_tpu_torch.llm.guided import compile_token_guide
         g = self._guide_cache.get(pattern)
         if g is None:
             g = compile_token_guide(pattern, self.tokenizer,
@@ -214,6 +395,37 @@ class _LLMServerImpl:
             self._guide_cache.pop(pattern, None)
         self._guide_cache[pattern] = g
         return g
+
+    # ---- the gang's health and its ranks ----
+
+    def check_health(self):
+        """The serve controller's probe: a broken gang fails it, and the
+        controller replaces the whole replica."""
+        if self._gang is not None:
+            self._gang.check()
+
+    def gang_call(self, method: str, *args) -> list:
+        """`method(*args)` on every rank of the replica, between two
+        engine steps; the results by rank (one at tp = 1)."""
+        if self._gang is None:
+            return [getattr(self, method)(*args)]
+        with self._gang.lock:
+            self._gang.send("call", (method, args))
+            return self._gang_method(method, args)
+
+    def _gang_method(self, method: str, args) -> list:
+        return self._gang.all_gather_object(getattr(self, method)(*args))
+
+    def gang_state(self) -> dict:
+        """This rank's engine state that lockstep keeps equal on every
+        rank: rids numbered, those queued and decoding, pages in use and
+        decode steps (every other rid numbered has finished)."""
+        e = self.engine
+        return dict(pid=os.getpid(), next_rid=e._next_id,
+                    queued=[r.request_id for r in e.queue],
+                    decoding=[r.request_id for r in e.slot_req if r],
+                    pages_in_use=e.kv_stats().get("pages_in_use"),
+                    decode_steps=e.decode_steps)
 
     # ---- model multiplexing (LoRA) ----
 
@@ -240,7 +452,8 @@ class _LLMServerImpl:
         replica can materialize it lazily (parity: the multiplex LoRA
         checkpoint store). None = a demo adapter drawn from a generator
         seeded by the id (tests); production passes trained factors
-        (tensors or numpy arrays)."""
+        (tensors or numpy arrays). In a gang the log carries the factors
+        to every rank."""
         cfg = self.cfg.lora
         if cfg is None:
             raise ValueError("llm_config.lora is not configured")
@@ -253,6 +466,8 @@ class _LLMServerImpl:
         self._kv_put(("llm_adapter", self.cfg.model_id, model_id),
                      pickle.dumps((lora_np, alpha), protocol=5))
         self._materialize(model_id, lora_np, alpha)
+        with self._lock:
+            self._log.append(("load", model_id, lora_np, alpha))
         return list(self._adapters)
 
     def _materialize(self, model_id: str, lora_tree, alpha):
@@ -260,9 +475,12 @@ class _LLMServerImpl:
         if len(self._adapters) >= cfg.max_adapters_per_replica:
             self._adapters.pop(next(iter(self._adapters)))
         # rank inferred from the tree itself: a trained adapter's rank wins
-        # over the config default (wrong rank silently mis-scales).
-        self._adapters[model_id] = merge_lora(self._base_params, lora_tree,
-                                              alpha)
+        # over the config default (wrong rank silently mis-scales). The
+        # engine cuts the full deltas as it cut its params (its rank's
+        # blocks under a tp mesh).
+        deltas = self.engine.local_blocks(
+            lora_deltas(lora_tree, alpha, device=self.engine.device))
+        self._adapters[model_id] = add_deltas(self._base_params, deltas)
 
     def _params_for(self, model: str | None):
         if model is None or model == self.cfg.model_id:
@@ -306,8 +524,8 @@ class _LLMServerImpl:
         # step (the setter derives its decode weights again), so point the
         # engine at the requested tree. Mixed-adapter batches decode with
         # the most recent selection (documented simplification).
-        self.engine.params = self._params_for(model)
-        guide = self._resolve_guide(guided_regex, guided_json)
+        self._select(model)
+        guide = self._guide_pattern(guided_regex, guided_json)
         ids = self.tokenizer.encode(prompt)
         req = await self._submit(ids, max_tokens, temperature,
                                  top_p=top_p, top_k=top_k, guide=guide,
@@ -367,23 +585,23 @@ class _LLMServerImpl:
 
         `logprobs`: each item is {"text": delta, "logprobs": {"tokens",
         "token_logprobs"}} instead, carrying the entries of the tokens the
-        text sent so far covers (read from the live request,
-        `engine.request`); the stream's entries together are the
-        non-streaming `completions` logprobs block of the same text."""
+        text sent so far covers (read from the live request, `_live`,
+        once the pump has applied the add); the stream's entries
+        together are the non-streaming `completions` logprobs block of
+        the same text."""
         import queue as _queue
 
-        self.engine.params = self._params_for(model)
+        self._select(model)
         ids = self.tokenizer.encode(prompt)
         stops = ([stop] if isinstance(stop, str) else list(stop or []))
         hold = max((len(s) for s in stops), default=1) - 1
         sub: "_queue.Queue" = _queue.Queue()
         with self._lock:
-            rid = self.engine.add_request(ids, max_tokens, temperature,
-                                          top_p=top_p, top_k=top_k,
-                                          logprobs=bool(logprobs))
+            rid = self._enqueue(ids, max_tokens, temperature, top_p=top_p,
+                                top_k=top_k, logprobs=bool(logprobs))
             self._token_subs[rid] = sub
         # the pump appends a token's logprob before it puts the token
-        req_obj = self.engine.request(rid) if logprobs else None
+        req_obj = self._live.get(rid) if logprobs else None
         ended = False  # engine finished the request (pump popped it)
         try:
             generated: list[int] = []
@@ -391,7 +609,7 @@ class _LLMServerImpl:
             lp_sent = 0   # logprob entries streamed so far
             done = stopped = False
             while not done:
-                tok = sub.get(timeout=300)
+                tok = self._next_token(sub)
                 if tok is None:
                     done = ended = True
                     text = self.tokenizer.decode(generated)
@@ -415,10 +633,12 @@ class _LLMServerImpl:
                 delta = ""
                 if len(text) > len(sent):
                     delta, sent = text[len(sent):], text
-                if req_obj is None:
+                if not logprobs:
                     if delta:
                         yield delta
                     continue
+                if req_obj is None:
+                    req_obj = self._live.get(rid)
                 if done:
                     n = len(_logprob_fields(self.tokenizer, sent, stopped,
                                             generated, ())["tokens"])
@@ -432,20 +652,26 @@ class _LLMServerImpl:
                                            req_obj.token_logprobs[lp_sent:n]]}}
                     lp_sent = n
         finally:
-            with self._lock:
-                self._token_subs.pop(rid, None)
-                self._sub_sent.pop(rid, None)
-                if ended:
-                    pass  # pump already popped the finished record
-                elif rid in self.engine.finished:
-                    self.engine.finished.pop(rid, None)
-                else:
-                    # Still decoding (early stop / abandoned stream):
-                    # cancel so the slot frees instead of burning to
-                    # max_new_tokens, and have the pump discard the
-                    # finished record when it lands.
-                    self.engine.cancel(rid)
-                    self._discard.add(rid)
+            self._end_stream(rid, ended)
+
+    def _end_stream(self, rid: int, ended: bool):
+        """A stream's consumer is done: drop its subscription and, when
+        the engine has not finished the request (an early stop or an
+        abandoned stream), cancel it so the slot frees instead of burning
+        to max_new_tokens, and have the pump discard the finished record
+        when it lands."""
+        with self._lock:
+            # no subscription left: the pump ended the stream (F19)
+            ended = self._token_subs.pop(rid, None) is None or ended
+            self._sub_sent.pop(rid, None)
+            self._live.pop(rid, None)
+            if ended:
+                pass  # pump already popped the finished record
+            elif rid in self.engine.finished:
+                self.engine.finished.pop(rid, None)
+            else:
+                self._cancel(rid)
+                self._discard.add(rid)
 
     def model_ids(self) -> list:
         return [self.cfg.model_id, *self._adapters]
@@ -629,13 +855,13 @@ class _OpenAiRouterImpl:
 
 def build_llm_deployment(llm_config: LLMConfig):
     """The engine deployment: `num_replicas` replicas, each reserving
-    `num_gpus_per_replica` of the "GPU" resource."""
+    `num_gpus_per_replica` of the "GPU" resource (at tp > 1 a gang of tp
+    ranks, each reserving a tp-th of it: `_replica_options`)."""
+    _check_replica(llm_config)
     d = serve.deployment(
         _LLMServerImpl, name=f"LLMServer:{llm_config.model_id}")
-    return d.options(
-        num_replicas=llm_config.num_replicas,
-        ray_actor_options={"num_gpus": llm_config.num_gpus_per_replica},
-    ).bind(llm_config)
+    return d.options(num_replicas=llm_config.num_replicas,
+                     **_replica_options(llm_config)).bind(llm_config)
 
 
 def build_openai_app(llm_config: LLMConfig):
@@ -742,24 +968,41 @@ class _PrefillWorkerImpl:
     The KV export (full prompt pages, post-RoPE) is sealed as ONE store
     object via `ray_tpu_torch.put` (numpy arrays, `_seal_kv`) and only the
     small ObjectRef travels through the coordinator. Outside a runtime
-    (serve local testing mode) the arrays ride inline instead."""
+    (serve local testing mode) the arrays ride inline instead. At tp > 1
+    every rank of the gang exports alike and the ranks' kv heads are
+    gathered, in rank order, to the full [L, S, hkv, hd] before rank 0
+    seals them: the handoff is the same at every tp."""
+
+    _gang = None   # this worker's tp gang (llm/_tp_gang.py); None at tp 1
 
     def __init__(self, llm_config: LLMConfig):
         self.cfg = llm_config
         model_cfg = llm_config.resolve_model()
+        self._gang = _tp_gang.join(llm_config, type(self))
         self.tokenizer = get_tokenizer(llm_config.tokenizer)
         engine_cfg = _wire_eos(llm_config.engine, self.tokenizer)
         self.engine = PrefillEngine(model_cfg, engine_cfg,
-                                    mesh=_replica_mesh(llm_config),
+                                    mesh=self._gang and self._gang.mesh,
                                     seed=llm_config.seed,
                                     device=_replica_device(llm_config))
 
     def prefill(self, prompt_ids, temperature=None, top_p: float = 1.0,
                 top_k: int = 0, want_logp: bool = False) -> dict:
         chaos.delay("serve.prefill.stall", max_s=0.25)
-        out = self.engine.prefill_export(
-            prompt_ids, temperature=temperature, top_p=top_p, top_k=top_k,
-            want_logp=want_logp)
+        args = (list(map(int, prompt_ids)), temperature, float(top_p),
+                int(top_k), bool(want_logp))
+        if self._gang is None:
+            out = self._export(*args)
+        else:
+            # refused here, before any rank starts: a follower that raises
+            # breaks the gang
+            _prompt_bucket(self.engine.e, len(args[0]))
+            with self._gang.lock:
+                self._gang.send("prefill", args)
+                try:
+                    out = self._export(*args)
+                except Exception as e:
+                    raise self._gang.fail(e) from e
         first, ks, vs = out[:3]
         kv = None
         if ks.shape[1]:
@@ -769,6 +1012,35 @@ class _PrefillWorkerImpl:
         return {"first": int(first), "kv": kv,
                 "kv_tokens": int(ks.shape[1]),
                 "first_logp": out[3] if want_logp else None}
+
+    def _export(self, prompt_ids, temperature, top_p, top_k, want_logp):
+        """Every rank: `prefill_export`, in a gang with the ranks' kv
+        heads gathered to the full width (each rank's first token must be
+        rank 0's)."""
+        out = self.engine.prefill_export(
+            prompt_ids, temperature=temperature, top_p=top_p, top_k=top_k,
+            want_logp=want_logp)
+        if self._gang is None:
+            return out
+        firsts = self._gang.all_gather_object(int(out[0]))
+        if len(set(firsts)) != 1:
+            raise _tp_gang.GangBroken(f"the ranks sampled {firsts}")
+        return (out[0], self._gang.gather_heads(out[1]),
+                self._gang.gather_heads(out[2]), *out[3:])
+
+    def _follow(self, kind: str, payload):
+        """A follower rank: rank 0's message."""
+        if kind == "prefill":
+            self._export(*payload)
+        else:
+            self._gang_method(*payload)
+
+    def gang_state(self) -> dict:
+        return dict(pid=os.getpid())
+
+    check_health = _LLMServerImpl.check_health
+    gang_call = _LLMServerImpl.gang_call
+    _gang_method = _LLMServerImpl._gang_method
 
 
 class _DecodeReplicaImpl(_LLMServerImpl):
@@ -832,11 +1104,12 @@ class _DecodeReplicaImpl(_LLMServerImpl):
         handoff = self._fetch_handoff(kv, prompt_ids)
         sub: "_queue.Queue" = _queue.Queue()
         with self._lock:
-            rid = self.engine.add_request(
+            # in a gang every rank fetches the handoff by `kv` and imports
+            # its own kv heads of it
+            rid = self._enqueue(
                 list(prompt_ids) + generated[:-1], rem + 1, temperature,
                 top_p=top_p, top_k=top_k, resume_token=generated[-1],
-                kv_handoff=handoff, logprobs=want_logp)
-            req_obj = self.engine.request(rid) if want_logp else None
+                handoff=handoff, kv=kv, logprobs=want_logp)
             # The pump forwards req.generated from this cursor, and
             # add_request put the resume token there, which the client
             # holds already: the stream starts after it. (A constant, not
@@ -845,6 +1118,7 @@ class _DecodeReplicaImpl(_LLMServerImpl):
             self._sub_sent[rid] = 1
             self._token_subs[rid] = sub
         del handoff
+        req_obj = self._live.get(rid) if want_logp else None
         ended = False
         # cursor into req_obj.token_logprobs (append-only; the engine
         # appends the k-th entry before the pump puts the k-th token): a
@@ -852,9 +1126,11 @@ class _DecodeReplicaImpl(_LLMServerImpl):
         lp_i = 0
 
         def _pair(tok):
-            nonlocal lp_i
-            if req_obj is None:
+            nonlocal lp_i, req_obj
+            if not want_logp:
                 return tok
+            if req_obj is None:
+                req_obj = self._live.get(rid)
             lp = (float(req_obj.token_logprobs[lp_i])
                   if lp_i < len(req_obj.token_logprobs) else None)
             lp_i += 1
@@ -862,7 +1138,7 @@ class _DecodeReplicaImpl(_LLMServerImpl):
 
         try:
             while True:
-                tok = sub.get(timeout=300)
+                tok = self._next_token(sub)
                 if tok is None:
                     ended = True
                     return
@@ -872,6 +1148,8 @@ class _DecodeReplicaImpl(_LLMServerImpl):
                         nxt = sub.get_nowait()
                     except _queue.Empty:
                         break
+                    if isinstance(nxt, BaseException):
+                        raise nxt
                     if nxt is None:
                         ended = True
                         break
@@ -885,17 +1163,7 @@ class _DecodeReplicaImpl(_LLMServerImpl):
                 if ended:
                     return
         finally:
-            with self._lock:
-                self._token_subs.pop(rid, None)
-                self._sub_sent.pop(rid, None)
-                if ended:
-                    pass  # pump already popped the finished record
-                elif rid in self.engine.finished:
-                    self.engine.finished.pop(rid, None)
-                else:
-                    # Abandoned mid-decode (consumer gone): free the slot.
-                    self.engine.cancel(rid)
-                    self._discard.add(rid)
+            self._end_stream(rid, ended)
 
     def kv_stats(self) -> dict:
         return self.engine.kv_stats()
@@ -1435,14 +1703,15 @@ def build_disagg_deployment(llm_config: LLMConfig,
     coordinator: a prefill pool + a decode pool + the coordinator wiring
     them (admission, prefix routing, handoff, recovery). Each pool replica
     reserves `num_gpus_per_replica` of the "GPU" resource (a fraction
-    lets one card hold several); the coordinator reserves none."""
-    _replica_mesh(llm_config)  # tp > 1: refused before any replica starts
+    lets one card hold several; at tp > 1 each of its ranks a tp-th of
+    it, `_replica_options`); the coordinator reserves none."""
+    _check_replica(llm_config)   # refused before any replica starts
     d = disagg or DisaggConfig()
     mid = llm_config.model_id
-    gpus = {"num_gpus": llm_config.num_gpus_per_replica}
+    place = _replica_options(llm_config)
     prefill = serve.deployment(
         _PrefillWorkerImpl, name=f"PrefillPool:{mid}").options(
-        num_replicas=d.prefill_replicas, ray_actor_options=gpus,
+        num_replicas=d.prefill_replicas, **place,
     ).bind(llm_config)
     decode = serve.deployment(
         _DecodeReplicaImpl, name=f"DecodePool:{mid}").options(
@@ -1451,8 +1720,7 @@ def build_disagg_deployment(llm_config: LLMConfig,
         # Shed-rate autoscaling (DisaggConfig.decode_autoscale): the
         # coordinator attributes decode-capacity sheds to this pool and
         # the controller grows it when the rate sustains.
-        autoscaling_config=d.decode_autoscale,
-        ray_actor_options=gpus,
+        autoscaling_config=d.decode_autoscale, **place,
     ).bind(llm_config)
     coord = serve.deployment(
         _DisaggServerImpl, name=f"DisaggLLMServer:{mid}")

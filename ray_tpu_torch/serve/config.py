@@ -62,6 +62,13 @@ class DeploymentConfig:
     health_check_timeout_s: float = 30.0
     graceful_shutdown_timeout_s: float = 5.0
     ray_actor_options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # A placement group per replica (parity: the reference's deployment
+    # option of this name), its bundles packed on one node (STRICT_PACK):
+    # the controller reserves them before it starts a replica, the
+    # replica actor runs in bundle 0 (its ray_actor_options must fit
+    # there) and the group goes with the replica; the replica places
+    # what it starts in the other bundles. None = no group.
+    placement_group_bundles: Optional[list] = None
 
     def target_initial_replicas(self) -> int:
         ac = self.autoscaling_config

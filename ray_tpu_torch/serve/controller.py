@@ -32,14 +32,16 @@ RUNNING, DEPLOYING, DELETING, UNHEALTHY = (
 
 
 class _ReplicaState:
-    def __init__(self, replica_id, actor_name, handle, version):
+    def __init__(self, replica_id, actor_name, handle, version, pg=None):
         self.replica_id = replica_id
         self.actor_name = actor_name
         self.handle = handle
         self.version = version
+        self.pg = pg                 # the replica's placement group, if any
         self.healthy = False
         self.last_health_check = 0.0
         self.health_check_failures = 0
+        self.checking = False        # a health check in flight
 
 
 class _DeploymentState:
@@ -316,9 +318,14 @@ class ServeController:
         # 1) health-check running replicas.
         now = time.monotonic()
         for r in list(ds.replicas):
-            if now - r.last_health_check < cfg.health_check_period_s:
+            # One check in flight a replica: a replica still in its
+            # __init__ answers none, and a check started every period
+            # would each hold an executor thread until it does.
+            if (r.checking or now - r.last_health_check
+                    < cfg.health_check_period_s):
                 continue
             r.last_health_check = now
+            r.checking = True
             asyncio.ensure_future(self._check_replica(ds, r))
         # 2) cull replicas that failed health checks or are from old versions
         #    once enough new-version replicas are healthy (rolling update).
@@ -344,10 +351,11 @@ class ServeController:
                 await self._stop_replica(ds, r, graceful=True)
 
     async def _check_replica(self, ds, r):
+        timeout = ds.config.health_check_timeout_s
         try:
             await asyncio.wait_for(
-                _await_ref(r.handle.check_health.remote()),
-                timeout=ds.config.health_check_timeout_s)
+                _await_ref(r.handle.check_health.remote(), timeout),
+                timeout=timeout)
             if not r.healthy:
                 ds.snapshot_version += 1
             r.healthy = True
@@ -357,6 +365,8 @@ class ServeController:
             if r.healthy:
                 r.healthy = False
                 ds.snapshot_version += 1
+        finally:
+            r.checking = False
 
     def _start_replica(self, ds: _DeploymentState):
         replica_id = uuid.uuid4().hex[:12]
@@ -365,6 +375,15 @@ class ServeController:
         opts.setdefault("num_cpus", 0)
         opts["name"] = actor_name
         opts["max_restarts"] = 0      # controller owns restarts
+        pg = None
+        if ds.config.placement_group_bundles:
+            from ray_tpu_torch.util.placement_group import placement_group
+            from ray_tpu_torch.util.scheduling_strategies import (
+                PlacementGroupSchedulingStrategy)
+            pg = placement_group(ds.config.placement_group_bundles,
+                                 strategy="STRICT_PACK", name=actor_name)
+            opts["scheduling_strategy"] = PlacementGroupSchedulingStrategy(
+                pg, 0)
         # blobs that serve.run pickled in this cluster (dumps_code)
         deployment_def = pickle.loads(ds.spec["def_blob"])
         init_args, init_kwargs = pickle.loads(ds.spec["init_args_blob"])
@@ -372,7 +391,7 @@ class ServeController:
             deployment_def, init_args, init_kwargs,
             ds.config.user_config, ds.name, replica_id)
         ds.replicas.append(_ReplicaState(
-            replica_id, actor_name, handle, ds.target_version))
+            replica_id, actor_name, handle, ds.target_version, pg))
         ds.snapshot_version += 1
 
     async def _stop_replica(self, ds, r, graceful=True):
@@ -391,6 +410,13 @@ class ServeController:
             ray_tpu_torch.kill(r.handle)
         except Exception:
             pass
+        if r.pg is not None:
+            from ray_tpu_torch.util.placement_group import (
+                remove_placement_group)
+            try:
+                remove_placement_group(r.pg)
+            except Exception:
+                pass
 
     async def _ensure_proxy(self):
         if self._proxy_started or self.http_port is None:
@@ -403,8 +429,11 @@ class ServeController:
         self._proxy_started = True
 
 
-async def _await_ref(ref):
+async def _await_ref(ref, timeout=None):
     """Await an ObjectRef from inside the controller's asyncio loop without
-    blocking other controller work (runs the blocking get in a thread)."""
+    blocking other controller work (runs the blocking get in a thread of
+    the loop's executor, which the loop's replies also use: a get with a
+    `timeout` gives its thread back when it expires)."""
     loop = asyncio.get_running_loop()
-    return await loop.run_in_executor(None, lambda: ray_tpu_torch.get(ref, timeout=None))
+    return await loop.run_in_executor(
+        None, lambda: ray_tpu_torch.get(ref, timeout=timeout))

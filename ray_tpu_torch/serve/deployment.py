@@ -66,6 +66,7 @@ class Deployment:
                 ray_actor_options: Optional[dict] = None,
                 health_check_period_s: Optional[float] = None,
                 graceful_shutdown_timeout_s: Optional[float] = None,
+                placement_group_bundles: Optional[list] = None,
                 ) -> "Deployment":
         cfg = dataclasses.replace(self.config)
         if num_replicas is not None:
@@ -88,6 +89,9 @@ class Deployment:
             cfg.health_check_period_s = health_check_period_s
         if graceful_shutdown_timeout_s is not None:
             cfg.graceful_shutdown_timeout_s = graceful_shutdown_timeout_s
+        if placement_group_bundles is not None:
+            cfg.placement_group_bundles = [dict(b) for b in
+                                           placement_group_bundles]
         return Deployment(self.func_or_class, name or self.name, cfg)
 
     def bind(self, *args, **kwargs) -> Application:
@@ -104,7 +108,8 @@ def deployment(_func_or_class=None, *, name: Optional[str] = None,
                user_config: Any = None, autoscaling_config=None,
                ray_actor_options: Optional[dict] = None,
                health_check_period_s: Optional[float] = None,
-               graceful_shutdown_timeout_s: Optional[float] = None):
+               graceful_shutdown_timeout_s: Optional[float] = None,
+               placement_group_bundles: Optional[list] = None):
     """@serve.deployment decorator (parity: serve/api.py:248)."""
 
     def wrap(func_or_class):
@@ -119,7 +124,8 @@ def deployment(_func_or_class=None, *, name: Optional[str] = None,
             autoscaling_config=autoscaling_config,
             ray_actor_options=ray_actor_options,
             health_check_period_s=health_check_period_s,
-            graceful_shutdown_timeout_s=graceful_shutdown_timeout_s)
+            graceful_shutdown_timeout_s=graceful_shutdown_timeout_s,
+            placement_group_bundles=placement_group_bundles)
 
     if _func_or_class is not None:
         return wrap(_func_or_class)

@@ -25,6 +25,40 @@ class Backend:
         """Called when the worker group is torn down (best effort)."""
 
 
+def rendezvous_address() -> str:
+    """A torch.distributed rendezvous address on this host, for the
+    process that binds it (a gang's rank 0): the loopback, as the port's
+    runtime spans one host (a multi-node gang needs the interface other
+    hosts reach, with the multi-node slice)."""
+    import os
+    import socket
+    ip = "127.0.0.1"
+    # Probe-bind BELOW the kernel's ephemeral floor: bind(0) mints a
+    # port from the ephemeral range (net.ipv4.ip_local_port_range,
+    # 32768+ by default), which any unrelated outgoing connection can
+    # grab in the close -> torch-rebind window — the EADDRINUSE flake
+    # on a busy host. A sub-ephemeral port can only lose a race to
+    # another deliberate binder, and the pid-spread start keeps
+    # concurrent gangs on disjoint probes.
+    base, span = 20000, 8000
+    start = (os.getpid() * 97) % span
+    for off in range(512):
+        port = base + (start + off) % span
+        s = socket.socket()
+        try:
+            s.bind((ip, port))
+        except OSError:
+            s.close()
+            continue
+        s.close()
+        return f"{ip}:{port}"
+    s = socket.socket()  # range exhausted (pathological): old path
+    s.bind((ip, 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"{ip}:{port}"
+
+
 # Set by the Trainer in each worker's environment: the GPUs one rank
 # holds (a fraction when ranks share a card).
 GPUS_PER_WORKER_ENV = "RAY_TPU_TORCH_TRAIN_GPUS_PER_WORKER"

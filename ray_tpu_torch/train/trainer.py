@@ -120,36 +120,9 @@ class TrainWorker:
 
     def get_address(self) -> str:
         """Rendezvous address minted on THIS worker's host (rank 0 binds
-        it): the loopback, as the port's runtime spans one host (a
-        multi-node gang needs the interface other hosts reach, with the
-        multi-node slice)."""
-        import socket
-        ip = "127.0.0.1"
-        # Probe-bind BELOW the kernel's ephemeral floor: bind(0) mints a
-        # port from the ephemeral range (net.ipv4.ip_local_port_range,
-        # 32768+ by default), which any unrelated outgoing connection can
-        # grab in the close -> torch-rebind window — the EADDRINUSE flake
-        # on a busy host. A sub-ephemeral port can only lose a race to
-        # another deliberate binder, and the pid-spread start keeps
-        # concurrent gangs on disjoint probes.
-        bind_ip = ip
-        base, span = 20000, 8000
-        start = (os.getpid() * 97) % span
-        for off in range(512):
-            port = base + (start + off) % span
-            s = socket.socket()
-            try:
-                s.bind((bind_ip, port))
-            except OSError:
-                s.close()
-                continue
-            s.close()
-            return f"{ip}:{port}"
-        s = socket.socket()  # range exhausted (pathological): old path
-        s.bind((bind_ip, 0))
-        port = s.getsockname()[1]
-        s.close()
-        return f"{ip}:{port}"
+        it; `backend.rendezvous_address`)."""
+        from ray_tpu_torch.train.backend import rendezvous_address
+        return rendezvous_address()
 
     def get_node_id(self) -> str:
         import ray_tpu_torch

@@ -474,12 +474,28 @@ def test_stream_with_logprobs_raises_on_the_plane(weights):
 
 
 def test_tp2_builders_raise_naming_item_7f():
-    """tp > 1 replicas are the second half of ROADMAP item 7 (f): both
-    disaggregated builders refuse them before any replica starts."""
+    """tp > 1 replicas (the second half of ROADMAP item 7 (f)): both
+    disaggregated deployment functions make each pool's replica a gang
+    of tp ranks, each in a bundle of the replica's placement group with
+    a tp-th of its GPUs, and the coordinator on none; a tp that does not
+    divide n_kv_heads, and a CUDA pool that reserves no GPU, are refused
+    with a ValueError before any replica starts."""
     for fn in (build_disagg_deployment, build_disagg_openai_app):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 7 \(f\), its second half"):
-            fn(_cfg(tensor_parallelism=2))
+        app = fn(_cfg(tensor_parallelism=2))
+        coord = app.root if fn is build_disagg_deployment else \
+            app.root.init_args[0].root
+        _llm, _d, prefill, decode = coord.init_args
+        for pool in (prefill.root, decode.root):
+            c = pool.deployment.config
+            assert c.ray_actor_options == {"num_cpus": 1, "num_gpus": 0.0}
+            assert c.placement_group_bundles == [{"CPU": 1.0}] * 2
+        assert coord.deployment.config.placement_group_bundles is None
+        with pytest.raises(ValueError, match="tp=4 needs tp to divide "
+                                             "n_kv_heads=2"):
+            fn(_cfg(tensor_parallelism=4))
+        with pytest.raises(ValueError, match="reserve"):
+            fn(dataclasses.replace(_cfg(tensor_parallelism=2),
+                                   device="cuda"))
 
 
 # ---- through the port's runtime ----

@@ -234,6 +234,160 @@ def two_rank_suite(rank, world, cfg_kw, params_np, prompts, n_new,
                                       train_params_np)}
 
 
+
+# ---- tensor-parallel LLM replicas as gangs (llm/_tp_gang.py) ----
+
+
+def llm_config(cfg_kw, engine_kw, **kw):
+    """The port's LLMConfig of the gang tests: on the CPU, the byte
+    tokenizer, random weights from seed 0, rank-2 adapters."""
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig, LoraConfig
+    from ray_tpu_torch.models import ModelConfig
+    return LLMConfig(model_id="tiny", model=ModelConfig(**cfg_kw),
+                     engine=EngineConfig(**engine_kw), tokenizer="byte",
+                     num_gpus_per_replica=0, device="cpu",
+                     lora=LoraConfig(rank=2), **kw)
+
+
+def _quiet(impl, timeout=30.0):
+    """Wait until the replica holds no request: none queued or decoding,
+    none finished and unread, no stream open and, on the port's server,
+    no mutation its pump has yet to apply and no discarded rid whose
+    record has yet to land (the JAX server strands one when a stream
+    stops as its request ends: F19 in ROADMAP)."""
+    import time
+    deadline = time.monotonic() + timeout
+    e = impl.engine
+    port = hasattr(impl, "_log")
+    while (e.finished or impl._token_subs or e.active.any() or e.queue
+           or (port and (impl._log or impl._discard))):
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"the replica did not go quiet: finished {list(e.finished)}"
+                f", discard {impl._discard}, streams {list(impl._token_subs)}"
+                f", active {e.active}, queued {[r.request_id for r in e.queue]}"
+                f", log {getattr(impl, '_log', None)}")
+        time.sleep(0.02)
+
+
+def serve_scenario(impl, guide_regex, lora_np):
+    """The requests the gang tests hold a tp = 2 `_LLMServerImpl` to tp =
+    1's and to the JAX package's with: one greedy completion; then, from
+    six threads at once while the pump steps, four completions of mixed
+    lengths, a stream cut by a stop string (its request cancelled) and a
+    stream abandoned after its first delta; a guided completion; one with
+    logprobs; one on the adapter `lora_np` (alpha 16) as "tiny-ft",
+    materialized on every rank; and, on the port's server, every rank's
+    engine state at the end (`gang_state`)."""
+    import asyncio
+    import threading
+
+    def text(prompt, n, **kw):
+        out = asyncio.run(impl.completions(prompt, max_tokens=n,
+                                           temperature=0.0, **kw))
+        return out["choices"][0]["text"]
+    out = {"hello": text("hello tp", 5)}
+    full = "".join(impl.completions_stream("stop here", 12, 0.0))
+    stop_at = full[2:4]
+    asks = [("a", 3), ("concurrent b", 9), ("cc", 14), ("dddd dddd", 6)]
+    got = [None] * 6
+
+    def ask(i):
+        if i < 4:
+            got[i] = text(*asks[i])
+        elif i == 4:
+            got[i] = "".join(impl.completions_stream(
+                "stop here", 12, 0.0, stop=[stop_at]))
+        else:
+            stream = impl.completions_stream("abandon me", 30, 0.0)
+            got[i] = next(stream)
+            stream.close()
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    _quiet(impl)
+    out.update(full=full, stop_at=stop_at, concurrent=got,
+               guided=text("json:", 10, guided_regex=guide_regex),
+               logprobs=asyncio.run(impl.completions(
+                   "lp", max_tokens=4, temperature=0.0,
+                   logprobs=True))["choices"][0]["logprobs"])
+    gang_call = getattr(impl, "gang_call", None)
+    if gang_call is None:           # the JAX package's server
+        impl._materialize("tiny-ft", lora_np, 16.0)
+    else:
+        gang_call("_materialize", "tiny-ft", lora_np, 16.0)
+    out["adapter"] = text("hello tp", 5, model="tiny-ft")
+    _quiet(impl)
+    if gang_call is not None:
+        out["states"] = gang_call("gang_state")
+    return out
+
+
+def tp_serve_suite(rank, world, cfg_kw, engine_kw, guide_regex, params_np,
+                   lora_np, prompts, disagg_kw, handoff_prompts, resume):
+    """The gang cases in one process group of `world` ranks; rank 0's
+    results. `_LLMServerImpl` at tp = `world` through `serve_scenario`;
+    a direct tp engine given an adapter's deltas cut by its
+    `local_blocks` (greedy tokens of `prompts`); the prefill gang's export of
+    each of `handoff_prompts` (prefill(): its first token and sealed
+    handoff); and the decode gang's streams from those handoffs, and of
+    `resume` = (prompt, generated, max_new) with the handoff and without
+    (re-prefill) at 1 and 3 tokens held, with logprobs."""
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.llm import _tp_gang
+    from ray_tpu_torch.llm import serve as S
+    from ray_tpu_torch.llm.lora import add_deltas, lora_deltas
+    from ray_tpu_torch.models import ModelConfig, params_from_numpy
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+    def gang(cls, cfg, work):
+        if rank:
+            _tp_gang.follow(cls, cfg)
+            return None
+        impl = cls(cfg)
+        try:
+            return work(impl)
+        finally:
+            impl._stop = True
+            impl._gang.stop()
+    out = {"serve": gang(
+        S._LLMServerImpl, llm_config(cfg_kw, engine_kw,
+                                     tensor_parallelism=world),
+        lambda impl: serve_scenario(impl, guide_regex, lora_np))}
+
+    mesh = make_mesh(MeshConfig(fsdp=1, tp=world), device="cpu")
+    eng = InferenceEngine(ModelConfig(**cfg_kw), EngineConfig(**engine_kw),
+                          params=params_from_numpy(params_np, device="cpu"),
+                          mesh=mesh, device="cpu")
+    eng.params = add_deltas(eng.params, eng.local_blocks(
+        lora_deltas(lora_np, 16.0)))
+    out["adapter"] = eng.generate(prompts, max_new_tokens=6,
+                                  temperature=0.0)
+
+    dcfg = llm_config(cfg_kw, disagg_kw, tensor_parallelism=world)
+    out["prefill"] = gang(S._PrefillWorkerImpl, dcfg, lambda w: [
+        w.prefill(p, 0.0, want_logp=True) for p in handoff_prompts])
+
+    def decode(rep):
+        got = {"handoff": [[t for c in rep.decode_stream(
+            p, [pre["first"]], pre["kv"], 8, 0.0) for t in c]
+            for p, pre in zip(handoff_prompts, out["prefill"])]}
+        prompt, held, max_new = resume     # prompt: the last handoff's
+        sealed = out["prefill"][-1]["kv"]
+        for n in (1, 3):
+            for kv in (sealed, None):
+                got[(n, kv is not None)] = [x for c in rep.decode_stream(
+                    prompt, held[:n], kv, max_new, 0.0, chunk_tokens=2,
+                    want_logp=True) for x in c]
+        _quiet(rep)
+        got["states"] = rep.gang_call("gang_state")
+        return got
+    out["decode"] = gang(S._DecodeReplicaImpl, dcfg, decode)
+    return out
+
+
 # ---- sharded checkpoints ----
 
 

@@ -118,6 +118,39 @@ def test_gpu_resources_and_visibility(port_rt):
         rt.kill(h)
 
 
+
+def test_placement_group_bundles_carry_device_ids(port_rt):
+    """An actor reserving GPUs out of a placement-group bundle sees the
+    devices the bundle holds: two half-GPU bundles packed on one device
+    give their actors that device's id, a whole-GPU bundle the other;
+    after the group is removed every share is back, and two whole-GPU
+    actors get distinct ids again."""
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    from ray_tpu_torch.util.scheduling_strategies import \
+        PlacementGroupSchedulingStrategy as InGroup
+    shares = (0.5, 0.5, 1.0)
+    pg = placement_group([{"GPU": g} for g in shares], strategy="PACK")
+    assert pg.wait(60)
+    Vis = rt.remote(W.VisibleDevices)
+    actors = [Vis.options(num_gpus=g, scheduling_strategy=InGroup(pg, i))
+              .remote() for i, g in enumerate(shares)]
+    ids = rt.get([a.get.remote() for a in actors], timeout=60)
+    assert ids[0] == ids[1] and {ids[0], ids[2]} == {"0", "1"}, ids
+    for a in actors:
+        rt.kill(a)
+    remove_placement_group(pg)
+    deadline = time.monotonic() + 30
+    while rt.available_resources().get("GPU", 0.0) < 2.0:
+        assert time.monotonic() < deadline, rt.available_resources()
+        time.sleep(0.1)
+    a, b = (Vis.options(num_gpus=1).remote() for _ in range(2))
+    assert sorted(rt.get([a.get.remote(), b.get.remote()],
+                         timeout=60)) == ["0", "1"]
+    for h in (a, b):
+        rt.kill(h)
+
+
 def _run_script(code: str, env_extra=None, timeout=180):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))

@@ -206,12 +206,16 @@ def test_hold_incomplete_utf8_matches_jax():
     impl._token_subs = {}
     impl._sub_sent = {}
     impl._discard = set()
+    impl._log, impl._live, impl._opened = [], {}, {}
 
     class _Eng:
         params = None
         finished = {}
 
-        def add_request(self, ids, *a, **k):
+        def check_request(self, ids, *a, **k):
+            pass
+
+        def reserve_request_id(self):
             return 1
 
         def cancel(self, rid):
@@ -256,6 +260,29 @@ def test_stream_early_stop_no_leak():
                    or impl.engine.active.any()):
                 time.sleep(0.05)
         assert impl.engine.kv_stats()["pages_in_use"] == 0
+    finally:
+        impl._stop = True
+
+
+def test_stream_stopped_as_its_request_ends_strands_nothing():
+    """F19: a stream whose consumer stops after the pump has ended its
+    request (the record popped, the end queued but not read) cancels
+    nothing and leaves no rid in the discard set, which no record would
+    ever clear."""
+    impl = t_serve._LLMServerImpl(_port_cfg())
+    try:
+        with time_limit(60):
+            stream = impl.completions_stream("hi", 8, 0.0)
+            next(stream)
+            rid = impl.engine._next_id - 1
+            req = impl.engine.request(rid)
+            while not req.done or rid in impl.engine.finished:
+                time.sleep(0.01)
+            stream.close()         # stops before it reads the end
+            time.sleep(0.2)        # a pump turn or more
+            assert not impl._discard, impl._discard
+            assert not impl.engine.finished
+            assert not impl.engine.active.any()
     finally:
         impl._stop = True
 
@@ -368,17 +395,72 @@ def test_proxy_requests_during_a_route_fetch_see_its_routes(monkeypatch):
     assert asyncio.run(concurrent()) == ("/app", ("app", "Ingress", ""))
 
 
+
+def test_controller_keeps_one_health_check_in_flight(monkeypatch):
+    """A replica that has not answered its health check (one still in
+    its __init__) gets no second one: each check holds a thread of the
+    controller loop's executor, which the controller's replies also
+    need, so a check started every period starved them (get_status timed
+    out while a tp gang booted). The check gives its thread back at the
+    health-check timeout."""
+    from ray_tpu_torch.serve import controller as ctl
+    from ray_tpu_torch.serve.config import DeploymentConfig
+    started, released = [], asyncio.Event()
+
+    async def pending(ref, timeout=None):
+        started.append(timeout)
+        await released.wait()
+
+    class _Handle:
+        class check_health:
+            @staticmethod
+            def remote():
+                return object()
+    monkeypatch.setattr(ctl, "_await_ref", pending)
+    cfg = DeploymentConfig(health_check_period_s=0.001,
+                           health_check_timeout_s=7.0)
+    ds = ctl._DeploymentState("app", "d", {"config": cfg})
+    ds.replicas.append(ctl._ReplicaState("r1", "n", _Handle(), 0))
+    c = ctl.ServeController(None)
+
+    async def drive():
+        for _ in range(20):
+            await c._reconcile_deployment(ds)
+            await asyncio.sleep(0.005)
+        assert started == [7.0]
+        released.set()
+        await asyncio.sleep(0.01)
+        await c._reconcile_deployment(ds)
+        await asyncio.sleep(0.01)
+    asyncio.run(drive())
+    assert len(started) == 2 and ds.replicas[0].healthy
+
 def test_not_in_slice_raises():
-    """tp > 1 replicas name ROADMAP item 7 (f), in a replica and in the
-    disaggregated builders; a CUDA replica that reserved no GPU raises
-    instead of running on the CPU."""
-    with pytest.raises(NotImplementedError, match=r"item 7 \(f\)"):
-        t_serve._replica_mesh(_port_cfg(tensor_parallelism=2))
-    for fn in (t_serve.build_disagg_deployment,
-               t_serve.build_disagg_openai_app):
-        with pytest.raises(NotImplementedError, match=r"item 7 \(f\)"):
-            fn(_port_cfg(tensor_parallelism=2))
+    """A tp > 1 replica builds, in the monolithic deployment and in both
+    disaggregated pools: a gang of tp ranks in one placement group of tp
+    bundles packed on one node, each rank a tp-th of the replica's GPUs.
+    A tp that does not divide n_kv_heads is refused with a ValueError
+    before any replica starts, and a CUDA replica that reserved no GPU
+    raises instead of running on the CPU."""
+    assert t_serve._tp_gang.join(_port_cfg(), None) is None   # tp = 1
     cuda = dataclasses.replace(_port_cfg(), device="cuda")
+    tp2 = dataclasses.replace(cuda, tensor_parallelism=2,
+                              num_gpus_per_replica=1.0)
+    server = t_serve.build_openai_app(tp2).root.init_args[0].root
+    coord = t_serve.build_disagg_openai_app(tp2).root.init_args[0].root
+    _llm, _d, prefill, decode = coord.init_args
+    for node in (server, prefill.root, decode.root):
+        c = node.deployment.config
+        assert c.ray_actor_options == {"num_cpus": 1, "num_gpus": 0.5}
+        assert c.placement_group_bundles == [{"CPU": 1.0, "GPU": 0.5}] * 2
+    assert coord.deployment.config.placement_group_bundles is None
+    for fn in (t_serve.build_openai_app, t_serve.build_llm_deployment,
+               t_serve.build_disagg_deployment,
+               t_serve.build_disagg_openai_app):
+        with pytest.raises(ValueError, match="tp=4.*n_kv_heads=2"):
+            fn(_port_cfg(tensor_parallelism=4))
+        with pytest.raises(ValueError, match="reserve"):
+            fn(dataclasses.replace(cuda, tensor_parallelism=2))
     with pytest.raises(ValueError, match="reserve"):
         t_serve._replica_device(cuda)
     if not torch.cuda.is_available():
