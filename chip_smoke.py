@@ -171,6 +171,27 @@ no result line):
               monolithic engine's, its sealed handoff full width and
               within 1e-4 of the tp = 1 export; no runtime process
               outlives the phase.
+21. data    — the data library (`ray_tpu_torch.data`, numpy column
+              blocks) on the port's runtime. `build_llm_processor`
+              (tokenize, engine, detokenize stages) over `from_items` of
+              256 byte-tokenizer prompts of 127 tokens in 4 blocks:
+              llama-125m bf16 at the serve phase's engine shape, 64 greedy
+              tokens each, its engine stage one actor reserving the card
+              (its class the probe `ProbeEngine`, which puts the actor's
+              launch counts into the runtime's KV): every row back in
+              input order with its prompt, K1 12 launches per decode step
+              of the actor and no plain run, tokens/s over the
+              processor's wall beside phases 4 and 18, the time to the
+              first output row; fp32 through two actors at 0.5 GPU over
+              uneven blocks: tokens == the in-process engine's == a
+              forward argmax; a config reserving no GPU and one at tp = 2
+              refused before any actor starts; the Trainer fed by
+              `datasets={"train": from_numpy(tokens)}` through
+              `iter_torch_batches(device="cuda")`: 6 bf16 steps of
+              16 x 1024 beside phase 17's, K2-K4 12 launches a step in the
+              worker and no plain run, every row seen once, fp32 losses
+              through the dataset bit-equal to the same batches in this
+              process; no runtime process outlives the phase.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -2676,13 +2697,14 @@ def trainer_phase(torch, smi, train) -> dict:
 
 
 def __getattr__(name):
-    """The probes `ProbeServer`, `ProbePrefill` and `ProbeDecode`, made on
-    first use: the runtime's workers unpickle a replica's class by this
-    module's name, and making them at import would import the port
+    """The probes `ProbeServer`, `ProbePrefill`, `ProbeDecode` and
+    `ProbeEngine`, made on first use: the runtime's workers unpickle a
+    replica's or an engine stage's class by this module's name, and making them at import would import the port
     before main() has checked that it is this checkout's."""
     makers = {"ProbeServer": _make_probe_server,
               "ProbePrefill": _make_probe_prefill,
-              "ProbeDecode": _make_probe_decode}
+              "ProbeDecode": _make_probe_decode,
+              "ProbeEngine": _make_probe_engine}
     if name not in makers:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     cls = makers[name]()
@@ -3801,6 +3823,360 @@ def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
     return out
 
 
+# -------- phase 21: the data library, batch inference and ingest --------
+
+
+def _make_probe_engine():
+    from ray_tpu_torch.llm.batch import _EngineUDF
+
+    class ProbeEngine(_EngineUDF):
+        """The batch processor's engine stage with reads of its own
+        process: after each block it puts `_replica_reads` (the paged
+        kernels' launch counts, the engine's decode steps, its peak
+        device memory), its `kv_stats()`, its blocks, the prompt and
+        generated token ids it answered and the host clock into the
+        runtime's KV under ("probe_engine", pid); at construction the
+        clock it was ready at."""
+
+        def __init__(self, *args):
+            t0 = time.time()
+            super().__init__(*args)
+            self.blocks, self.answered = 0, []
+            self._put("ready", dict(start=t0, ready=time.time()))
+
+        @staticmethod
+        def _put(what, value):
+            from ray_tpu_torch.core.runtime import get_runtime
+            get_runtime().request("kv_put", (
+                ("probe_engine", what, os.getpid()), value))
+
+        def __call__(self, batch):
+            out = super().__call__(batch)
+            self.blocks += 1
+            self.answered += [
+                ([int(t) for t in p], [int(t) for t in g]) for p, g in zip(
+                    batch["__token_ids"], out["__generated_ids"])]
+            self._put("reads", dict(
+                _replica_reads(self.engine), kv=self.engine.kv_stats(),
+                blocks=self.blocks, answered=list(self.answered),
+                wall=time.time()))
+            return out
+    return ProbeEngine
+
+
+def _probe_engine_reads(head, what: str) -> dict:
+    """pid -> the probes' last `what` record in the runtime's KV, removed
+    from it."""
+    keys = [k for k in list(head.kv) if isinstance(k, tuple) and
+            k[:2] == ("probe_engine", what)]
+    return {k[2]: head.kv_take(k) for k in keys}
+
+
+def ingest_loop(config):
+    """A Trainer loop fed by its dataset shard: each batch of
+    `get_dataset_shard("train").iter_torch_batches(device="cuda")`, rows of
+    `batch_size` token ids [S + 1], is one AdamW step of the port's train
+    step on llama-125m (`configs.bench_125m`, random weights from seed 0)
+    in `config["dtype"]`. Each report carries the loss, the step's host
+    ms (ended by the loss readback), the ms the batch took to arrive, the
+    worker's K2-K4 launch counts since the loop began, each row's sum
+    (which rows the worker saw, in order), the batch's device and the
+    worker's peak device memory."""
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import adamw, make_train_step
+    from ray_tpu_torch.train.torch import get_device
+    dev = get_device()   # raises where the rank's card is not visible
+    if dev.type != "cuda":
+        raise RuntimeError(f"the trainer's rank runs on {dev}, not a card")
+    cfg = dataclasses.replace(configs.bench_125m(), dtype=config["dtype"])
+    init_fn, step_fn, _, _ = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), adamw(3e-4), device=dev)
+    state = init_fn(init_params(cfg, torch.Generator().manual_seed(0), dev))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    batches = train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["batch_size"], device="cuda")
+    t_wait = time.perf_counter()
+    for step, batch in enumerate(batches):
+        tokens = batch["data"]
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, {"tokens": tokens})
+        loss = loss.item()   # the step's fence
+        t1 = time.perf_counter()
+        train.report(dict(step=step, loss=loss, ms=(t1 - t0) * 1e3,
+                          wait_ms=(t0 - t_wait) * 1e3, counts=bwd_counts(),
+                          rows=tokens.sum(dim=1).tolist(),
+                          device=str(tokens.device),
+                          peak=torch.cuda.max_memory_allocated(),
+                          name=torch.cuda.get_device_name(0)))
+        t_wait = time.perf_counter()
+
+
+def _driver_batch_losses(torch, dtype: str, tokens, batch_size: int) -> list:
+    """The ingest loop's steps run in this process on the same batches:
+    its losses."""
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.train import adamw, make_train_step
+    cfg = dataclasses.replace(configs.bench_125m(), dtype=dtype)
+    init_fn, step_fn, _, _ = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), adamw(3e-4), device="cuda")
+    state = init_fn(init_params(cfg, torch.Generator().manual_seed(0),
+                                "cuda"))
+    out = []
+    for i in range(0, len(tokens), batch_size):
+        batch = {"tokens": torch.tensor(tokens[i:i + batch_size],
+                                        device="cuda")}
+        state, loss = step_fn(state, batch)
+        out.append(loss.item())
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def data_phase(torch, results, smi, serve_inproc, http_phase, train,
+               trainer) -> dict:
+    """The data library on the card (phase 21). (a) batch inference:
+    `build_llm_processor` (llama-125m bf16 at the serve phase's engine
+    shape, its engine stage one actor reserving the card, its class the
+    probe `ProbeEngine`) over `from_items` of 256 byte-tokenizer prompts
+    of 127 tokens in 4 blocks, 64 greedy tokens each, batches of 64: every
+    row back in input order with its prompt; K1 12 launches per decode
+    step of the actor, plain 0; tokens/s over the processor's wall beside
+    phases 4 and 18, the time to the first output row, the actor's decode
+    steps and peak. (b) fp32, 8 prompts x 16 tokens, batches of 3, two
+    engine actors at 0.5 GPU: each row's tokens and text == the
+    in-process engine's == a forward argmax; a CUDA config reserving no
+    GPU and one at tensor_parallelism=2 refused before any actor starts.
+    (c) Trainer ingest: `TorchTrainer` on one worker holding the card,
+    `datasets={"train": from_numpy(tokens)}`, the loop stepping on
+    `iter_torch_batches(batch_size=16, device="cuda")`: 6 bf16 steps of
+    16 x 1024 (3 warm-up, 3 timed) beside phase 17's ms/step, K2-K4 12
+    launches a step in the worker, plain 0, every row seen once in order;
+    fp32 2 x 256, 3 steps through the dataset bit-equal to the same
+    batches in this process. No runtime process outlives the phase."""
+    import dataclasses as dc
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.core.runtime import current_runtime
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine, LLMConfig
+    from ray_tpu_torch.llm import batch as batch_mod
+    from ray_tpu_torch.llm import build_llm_processor
+    from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, Trainer
+    from ray_tpu_torch.util.state import list_actors
+    me = importlib.import_module("chip_smoke")
+    tok = ByteTokenizer()
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
+    storage = tempfile.mkdtemp(prefix="ingest-", dir=os.path.join(ROOT, "tmp"))
+    out = {}
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=8, object_store_memory=1 << 30)
+    head = current_runtime()
+    engine_cls = batch_mod._EngineUDF
+    batch_mod._EngineUDF = me.ProbeEngine   # the processor's engine stage
+    try:
+        rng = np.random.default_rng(0)
+
+        def text(n):
+            return "".join(chr(c) for c in rng.integers(32, 127, n))
+        model = configs.bench_125m()
+        cfg = LLMConfig(model_id="llama-125m", model=model,
+                        engine=EngineConfig(max_slots=32, max_len=1024,
+                                            prompt_buckets=(128,),
+                                            eos_token=-1),
+                        num_gpus_per_replica=1.0, seed=0)
+        prompts = [text(126) for _ in range(256)]   # 127 tokens with BOS
+        ds = rd.from_items([{"idx": i, "prompt": p}
+                            for i, p in enumerate(prompts)],
+                           override_num_blocks=4)
+        proc = build_llm_processor(cfg, max_new_tokens=64, temperature=0.0,
+                                   batch_size=64, concurrency=1)
+        t0 = time.time()
+        rows, first = [], None
+        for row in proc(ds).iter_rows():
+            if first is None:
+                first = time.time() - t0
+            rows.append(row)
+        wall = time.time() - t0
+        ready = _probe_engine_reads(head, "ready")
+        reads = _probe_engine_reads(head, "reads")
+        if len(reads) != 1 or len(ready) != 1:
+            raise AssertionError(f"engine actors: {sorted(reads)}, "
+                                 f"ready {sorted(ready)}")
+        (r,) = reads.values()
+        (rd_,) = ready.values()
+        steps, k1 = r["decode_steps"], r["k1"]
+        n_tok = sum(len(g) for _p, g in r["answered"])
+        log(f"  (a) batch inference: {len(rows)} rows, {n_tok} tokens in "
+            f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s over the "
+            f"processor's wall (phase 4 in process "
+            f"{serve_inproc['tokens_per_s']:.1f}, phase 18 through HTTP "
+            f"{http_phase['tokens_per_s']:.1f}); first output row after "
+            f"{first:.3f} s; the engine actor ready "
+            f"{rd_['ready'] - t0:.2f} s after the start (its construction "
+            f"{rd_['ready'] - rd_['start']:.2f} s), its last block done "
+            f"{r['wall'] - t0:.2f} s after it; {r['blocks']} blocks, "
+            f"{steps} decode steps, K1 launches {k1['cuda']}, plain "
+            f"{k1['plain']}; actor on {r['device']}, peak "
+            f"{r['peak'] / 2**30:.3f} GiB [{smi}]")
+        if [x["idx"] for x in rows] != list(range(256)) or [
+                x["prompt"] for x in rows] != prompts:
+            raise AssertionError("the processor's rows are not the input's "
+                                 "in order")
+        if [p for p, _g in r["answered"]] != [tok.encode(p)
+                                              for p in prompts]:
+            raise AssertionError("the engine actor answered other prompts")
+        if any(len(g) != 64 for _p, g in r["answered"]) or [
+                x["generated"] for x in rows] != [
+                tok.decode(g) for _p, g in r["answered"]]:
+            raise AssertionError("a row's text is not its 64 tokens")
+        if k1["cuda"] != model.n_layers * steps or steps == 0:
+            raise AssertionError(f"actor K1 launches {k1['cuda']} != "
+                                 f"{model.n_layers} x {steps} decode steps")
+        if k1["plain"] != 0 or r["verify"]["plain"] or \
+                r["verify_insert"]["plain"]:
+            raise AssertionError(f"a plain paged path ran in the actor: {r}")
+        results["paged_decode"]["batch_actor_launches"] = k1["cuda"]
+        out.update(tokens_per_s=n_tok / wall, first_row_s=first,
+                   steps=steps, peak=r["peak"], wall_s=wall)
+
+        # (b) fp32: two engine actors at 0.5 GPU, uneven blocks
+        m32 = dc.replace(configs.bench_125m(), dtype="float32")
+        cfg32 = LLMConfig(model_id="llama-125m-fp32", model=m32,
+                          engine=EngineConfig(max_slots=4, max_len=256,
+                                              prompt_buckets=(128,),
+                                              eos_token=-1),
+                          num_gpus_per_replica=0.5, seed=1)
+        texts = [text(n) for n in (19, 56, 99, 7, 33, 120, 64, 1)]
+        ids = [tok.encode(t) for t in texts]
+        got = build_llm_processor(
+            cfg32, max_new_tokens=16, temperature=0.0, batch_size=3,
+            concurrency=2)(rd.from_items(
+                [{"idx": i, "prompt": t} for i, t in enumerate(texts)],
+                override_num_blocks=3)).take_all()
+        reads = _probe_engine_reads(head, "reads")
+        _probe_engine_reads(head, "ready")
+        answered = dict((tuple(p), g) for rr in reads.values()
+                        for p, g in rr["answered"])
+        toks = [answered.get(tuple(i)) for i in ids]
+        eng = InferenceEngine(m32, cfg32.engine_config(tok),
+                              seed=cfg32.seed, device="cuda")
+        want = eng.generate(ids, max_new_tokens=16, temperature=0.0)
+        argmax = forward_argmax(torch, eng.params, m32, ids, 16)
+        del eng
+        torch.cuda.empty_cache()
+        log(f"  (b) fp32, 8 prompts x 16 greedy tokens through two engine "
+            f"actors at 0.5 GPU ({len(reads)} actors, blocks "
+            f"{[rr['blocks'] for rr in reads.values()]}): tokens == the "
+            f"in-process engine: {toks == want}, == forward argmax: "
+            f"{toks == argmax}; rows in order with the decoded text: "
+            f"{[x['idx'] for x in got] == list(range(8))}")
+        if len(reads) != 2 or not toks == want == argmax:
+            raise AssertionError(f"actors {len(reads)}: tokens {toks} / "
+                                 f"engine {want} / forward {argmax}")
+        if [x["idx"] for x in got] != list(range(8)) or [
+                x["prompt"] for x in got] != texts or [
+                x["generated"] for x in got] != [tok.decode(w)
+                                                 for w in want]:
+            raise AssertionError(f"fp32 rows: {got}")
+        before = len(list_actors())   # every actor made, dead or alive
+        for bad, match in ((dc.replace(cfg32, num_gpus_per_replica=0),
+                            "reserve one"),
+                           (dc.replace(cfg32, tensor_parallelism=2),
+                            "one process a replica")):
+            try:
+                build_llm_processor(bad)
+            except ValueError as e:
+                if match not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{bad} was not refused")
+        if len(list_actors()) != before:
+            raise AssertionError("a refused processor started an actor")
+        log("  a CUDA config reserving no GPU and one at "
+            "tensor_parallelism=2: refused when built, no actor started")
+
+        # (c) the Trainer fed by a Dataset on the card
+        one_gpu = ScalingConfig(num_workers=1, use_gpu=True)
+        tokens = np.random.default_rng(0).integers(
+            0, model.vocab, (TRAIN_BATCH * 6, TRAIN_SEQ + 1)).astype(
+            np.int32)
+        res = Trainer(me.ingest_loop, train_loop_config=dict(
+            dtype="bfloat16", batch_size=TRAIN_BATCH),
+            scaling_config=one_gpu,
+            run_config=RunConfig(name="ingest", storage_path=storage),
+            datasets={"train": rd.from_numpy(tokens)}).fit()
+        if res.error is not None:
+            raise AssertionError(f"bf16 ingest fit: {res.error}")
+        hist = res.metrics_history
+        ms = [m["ms"] for m in hist]
+        timed = sorted(ms[3:])
+        counts = hist[-1]["counts"]
+        log(f"  (c) Trainer ingest: {len(hist)} bf16 steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} from iter_torch_batches on "
+            f"{hist[-1]['device']} ({hist[-1]['name']}): ms/step " +
+            ", ".join(f"{x:.2f}" for x in ms) + f"; steps 4-6 median "
+            f"{timed[len(timed) // 2]:.2f} (phase 17's trainer "
+            f"{trainer['step_ms']:.2f}, phase 8 in process "
+            f"{train['step_ms']:.2f}); batch waits " + ", ".join(
+                f"{m['wait_ms']:.2f}" for m in hist) + f" ms; worker "
+            f"peak {hist[-1]['peak'] / 2**30:.3f} GiB; launches K2 "
+            f"{counts['fwd']}, K3 {counts['dq']}, K4 {counts['dkv']} "
+            f"[{smi}]")
+        want_rows = tokens.astype(np.int64).sum(axis=1).tolist()
+        if [r for m in hist for r in m["rows"]] != want_rows:
+            raise AssertionError("the worker did not see every row once, "
+                                 "in order")
+        if [m["step"] for m in hist] != list(range(6)) or not all(
+                math.isfinite(m["loss"]) for m in hist) or not all(
+                m["device"].startswith("cuda") for m in hist):
+            raise AssertionError(f"bf16 ingest reports: {hist}")
+        want = model.n_layers * len(hist)
+        for key in ("fwd", "dq", "dkv"):
+            if counts[key] != {"cuda": want, "plain": 0}:
+                raise AssertionError(f"ingest worker ran {key} "
+                                     f"{counts[key]}, want {want} kernel "
+                                     f"launches, 0 plain")
+        for kernel, key in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
+                            ("flash_bwd_dkv", "dkv")):
+            results[kernel]["ingest_launches"] = counts[key]["cuda"]
+        out.update(step_ms=timed[len(timed) // 2], ingest_peak=hist[-1][
+            "peak"])
+
+        small = np.random.default_rng(1).integers(
+            0, model.vocab, (6, 257)).astype(np.int32)
+        res = Trainer(me.ingest_loop, train_loop_config=dict(
+            dtype="float32", batch_size=2), scaling_config=one_gpu,
+            run_config=RunConfig(name="ingest32", storage_path=storage),
+            datasets={"train": rd.from_numpy(small)}).fit()
+        got = [m["loss"] for m in res.metrics_history]
+        want = _driver_batch_losses(torch, "float32", small, 2)
+        log(f"  fp32 ingest, 3 steps of 2 x 256 through the dataset: {got};"
+            f" the same batches in this process: {want}")
+        if res.error is not None or got != want:
+            raise AssertionError(f"fp32 ingest {got} (error {res.error}) "
+                                 f"!= this process's {want}")
+    finally:
+        batch_mod._EngineUDF = engine_cls
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+        torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    while _runtime_processes() and time.monotonic() < deadline:
+        time.sleep(0.5)
+    left = _runtime_processes()
+    if left:
+        raise AssertionError(f"runtime processes outlived shutdown: {left}")
+    return out
+
+
 def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
     """What a padded-width call costs, by torch.profiler's device trace:
     each kernel's device time a call (the pads, the kernel, the cut), and
@@ -4078,13 +4454,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/20] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/21] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/20] build: {len(build_logs)} kernels in "
+    log(f"[2/21] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -4121,7 +4497,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/20] kernels against their plain versions")
+    log("[3/21] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -4130,7 +4506,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/20] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/21] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -4143,7 +4519,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/20] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/21] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -4153,18 +4529,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/20] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/21] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/20] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/21] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/20] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/21] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -4173,19 +4549,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/20] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/21] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/20] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/21] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/20] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/21] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -4195,7 +4571,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/20] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/21] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -4205,7 +4581,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/20] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/21] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -4216,7 +4592,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/20] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/21] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -4226,7 +4602,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/20] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/21] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -4236,7 +4612,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/20] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/21] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -4244,7 +4620,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/20] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/21] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -4256,7 +4632,7 @@ def main() -> int:
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     t0 = time.perf_counter()
-    log("[18/20] serve-runtime: serve.run(build_openai_app(...)) on the "
+    log("[18/21] serve-runtime: serve.run(build_openai_app(...)) on the "
         "port's runtime, a replica holding the card, HTTP on a free port; "
         "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
     sr = serve_runtime_phase(torch, results, smi, serve)
@@ -4267,7 +4643,7 @@ def main() -> int:
         f"peak {sr['peak'] / 2**30:.3f} GiB")
 
     t0 = time.perf_counter()
-    log("[19/20] disagg: serve.run(build_disagg_openai_app(...)) on the "
+    log("[19/21] disagg: serve.run(build_disagg_openai_app(...)) on the "
         "port's runtime, a prefill worker and two decode replicas sharing "
         "the card, HTTP on a free port; llama-125m bf16 timed, fp32 exact "
         "with a handoff check, a decode replica killed mid-stream and a "
@@ -4282,7 +4658,7 @@ def main() -> int:
         f"{dg['handoff_bytes']} B a request")
 
     t0 = time.perf_counter()
-    log("[20/20] tp-gang: tensor_parallelism=2 replicas as gangs of two "
+    log("[20/21] tp-gang: tensor_parallelism=2 replicas as gangs of two "
         "processes through the port's runtime: build_openai_app (bf16 "
         "timed, fp32 and a LoRA adapter exact, a follower killed and the "
         "gang replaced) and both disaggregated pools (a bf16 burst, fp32 "
@@ -4294,6 +4670,18 @@ def main() -> int:
         f"{sr['tokens_per_s']:.1f} through HTTP at tp=1; boot "
         f"{tg['boot_s']:.2f} s, a gang replaced in {tg['replace_s']:.2f} s;"
         f" the pools at tp=2 {tg['disagg_tokens_per_s']:.1f} tokens/s")
+
+    t0 = time.perf_counter()
+    log("[21/21] data: the data library on the port's runtime: "
+        "build_llm_processor over 256 prompts (llama-125m bf16, an engine "
+        "actor holding the card; fp32 exact through two actors at 0.5 "
+        "GPU) and the Trainer fed by iter_torch_batches(device='cuda')")
+    da = data_phase(torch, results, smi, serve, sr, train, tr)
+    log(f"  data phase {time.perf_counter() - t0:.1f} s; batch inference "
+        f"{da['tokens_per_s']:.1f} tokens/s vs {serve['tokens_per_s']:.1f} "
+        f"in process and {sr['tokens_per_s']:.1f} through HTTP, first row "
+        f"{da['first_row_s']:.2f} s; ingest {da['step_ms']:.2f} ms/step vs "
+        f"{tr['step_ms']:.2f} through phase 17's trainer")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

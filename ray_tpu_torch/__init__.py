@@ -64,6 +64,7 @@ from ray_tpu_torch.core.status import (  # noqa: E402
 )
 
 from ray_tpu_torch import util  # noqa: E402,F401  (parity: ray.util)
+from ray_tpu_torch import data  # noqa: E402,F401  (parity: ray.data)
 
 __all__ = [
     "resolve_device", "__version__", "init", "shutdown", "is_initialized",
@@ -72,4 +73,5 @@ __all__ = [
     "available_resources", "nodes", "get_node_id", "timeline", "ObjectRef",
     "RayTpuError", "TaskError", "TaskCancelledError", "ActorDiedError",
     "WorkerCrashedError", "ObjectLostError", "GetTimeoutError", "util",
+    "data",
 ]

@@ -1,5 +1,6 @@
 """LLM deployment/processor configuration (counterpart of
-`ray_tpu/llm/config.py`), read by the serve deployment (`llm/serve.py`).
+`ray_tpu/llm/config.py`), read by the serve deployment (`llm/serve.py`)
+and the batch processor (`llm/batch.py`).
 
 Parity: reference `python/ray/llm/_internal/serve/configs/` (LLMConfig:
 engine sizing consumed for placement). `num_gpus_per_replica` takes the
@@ -12,6 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from ray_tpu_torch import resolve_device
 from ray_tpu_torch.llm.engine import EngineConfig
 from ray_tpu_torch.models import ModelConfig, configs as model_zoo
 
@@ -45,3 +49,48 @@ class LLMConfig:
                 f"unknown model_id {self.model_id!r}; pass model= explicitly"
                 f" or add it to ray_tpu_torch.models.configs")
         return getter()
+
+    def engine_config(self, tokenizer) -> EngineConfig:
+        """The engine config, stopping on the tokenizer's eos unless the
+        user overrode the default."""
+        eos = getattr(tokenizer, "eos_id", None)
+        if eos is not None and self.engine.eos_token == EngineConfig().eos_token:
+            return dataclasses.replace(self.engine, eos_token=eos)
+        return self.engine
+
+    def check(self) -> None:
+        """What a replica would refuse at start, refused when its
+        deployment or processor is built, before any replica starts: a tp
+        that does not divide the model's kv heads (the engine splits its KV
+        pool by kv head) or the widths the rules table splits over tp, and
+        a CUDA replica that reserves no GPU."""
+        tp = self.tensor_parallelism
+        c = self.resolve_model()
+        if tp < 1:
+            raise ValueError(f"tensor_parallelism={tp}: at least 1")
+        for what, n in (("n_kv_heads", c.n_kv_heads), ("d_ff", c.d_ff),
+                        ("vocab", c.vocab)):
+            if n % tp:
+                raise ValueError(
+                    f"a replica over tp={tp} needs tp to divide {what}={n}: "
+                    f"the engine splits its KV pool by kv head, and the "
+                    f"params along {what}, over tp")
+        if self.device != "cpu":
+            self._reserved_gpu()
+
+    def _reserved_gpu(self) -> None:
+        if self.num_gpus_per_replica <= 0:
+            raise ValueError(
+                f"LLMConfig(device={self.device!r}) with "
+                f"num_gpus_per_replica={self.num_gpus_per_replica}: a "
+                f"replica runs on the card it reserves; reserve one, or ask "
+                f"for device='cpu'")
+
+    def replica_device(self) -> torch.device:
+        """The replica's engine device: the CPU when the config asks for
+        it, else the card the replica reserved. A replica that asks for
+        CUDA and reserved no GPU raises; it never falls back to the CPU."""
+        if self.device == "cpu":
+            return torch.device("cpu")
+        self._reserved_gpu()
+        return resolve_device(self.device)  # raises if CUDA sees none

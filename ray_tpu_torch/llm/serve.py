@@ -48,65 +48,18 @@ import numpy as np
 import torch
 
 import ray_tpu_torch
-from ray_tpu_torch import resolve_device, serve
+from ray_tpu_torch import serve
 from ray_tpu_torch.core import chaos
 from ray_tpu_torch.core.retry import Backoff
 from ray_tpu_torch.core.status import (ActorDiedError, GetTimeoutError,
                                        OverloadedError, RayTpuError)
 from ray_tpu_torch.llm import _tp_gang
 from ray_tpu_torch.llm.config import LLMConfig
-from ray_tpu_torch.llm.engine import (EngineConfig, InferenceEngine,
-                                      PrefillEngine, _prompt_bucket)
+from ray_tpu_torch.llm.engine import (InferenceEngine, PrefillEngine,
+                                      _prompt_bucket)
 from ray_tpu_torch.llm.lora import (adapter_seed, add_deltas, init_lora,
                                     lora_deltas)
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
-
-
-def _wire_eos(engine_cfg: EngineConfig, tokenizer) -> EngineConfig:
-    """Stop on the TOKENIZER's eos unless the user overrode the default."""
-    eos = getattr(tokenizer, "eos_id", None)
-    if eos is not None and engine_cfg.eos_token == EngineConfig().eos_token:
-        return dataclasses.replace(engine_cfg, eos_token=eos)
-    return engine_cfg
-
-
-def _check_replica(llm_config: LLMConfig) -> None:
-    """What a replica would refuse at start, refused when its deployment
-    is built, before any replica starts: a tp that does not divide the model's kv
-    heads (the engine splits its KV pool by kv head) or the widths the
-    rules table splits over tp, and a CUDA replica that reserves no GPU."""
-    tp = llm_config.tensor_parallelism
-    c = llm_config.resolve_model()
-    if tp < 1:
-        raise ValueError(f"tensor_parallelism={tp}: at least 1")
-    for what, n in (("n_kv_heads", c.n_kv_heads), ("d_ff", c.d_ff),
-                    ("vocab", c.vocab)):
-        if n % tp:
-            raise ValueError(
-                f"a replica over tp={tp} needs tp to divide {what}={n}: "
-                f"the engine splits its KV pool by kv head, and the "
-                f"params along {what}, over tp")
-    if llm_config.device != "cpu":
-        _reserved_gpu(llm_config)
-
-
-def _reserved_gpu(llm_config: LLMConfig) -> None:
-    if llm_config.num_gpus_per_replica <= 0:
-        raise ValueError(
-            f"LLMConfig(device={llm_config.device!r}) with "
-            f"num_gpus_per_replica={llm_config.num_gpus_per_replica}: a "
-            f"replica runs on the card it reserves; reserve one, or ask "
-            f"for device='cpu'")
-
-
-def _replica_device(llm_config: LLMConfig) -> torch.device:
-    """The replica's engine device: the CPU when the config asks for it,
-    else the card the replica reserved. A replica that asks for CUDA and
-    reserved no GPU raises; it never falls back to the CPU."""
-    if llm_config.device == "cpu":
-        return torch.device("cpu")
-    _reserved_gpu(llm_config)
-    return resolve_device(llm_config.device)  # raises if CUDA sees none
 
 
 def _replica_options(llm_config: LLMConfig) -> dict:
@@ -146,10 +99,10 @@ class _LLMServerImpl:
         # at tp > 1 the gang's mesh is the reference's _replica_mesh
         self._gang = _tp_gang.join(llm_config, type(self))
         self.tokenizer = get_tokenizer(llm_config.tokenizer)
-        engine_cfg = _wire_eos(llm_config.engine, self.tokenizer)
+        engine_cfg = llm_config.engine_config(self.tokenizer)
         self.engine = InferenceEngine(
             model_cfg, engine_cfg, mesh=self._gang and self._gang.mesh,
-            seed=llm_config.seed, device=_replica_device(llm_config))
+            seed=llm_config.seed, device=llm_config.replica_device())
         self.model_cfg = model_cfg
         self._base_params = self.engine.params
         self._adapters: dict[str, object] = {}
@@ -857,7 +810,7 @@ def build_llm_deployment(llm_config: LLMConfig):
     """The engine deployment: `num_replicas` replicas, each reserving
     `num_gpus_per_replica` of the "GPU" resource (at tp > 1 a gang of tp
     ranks, each reserving a tp-th of it: `_replica_options`)."""
-    _check_replica(llm_config)
+    llm_config.check()
     d = serve.deployment(
         _LLMServerImpl, name=f"LLMServer:{llm_config.model_id}")
     return d.options(num_replicas=llm_config.num_replicas,
@@ -980,11 +933,11 @@ class _PrefillWorkerImpl:
         model_cfg = llm_config.resolve_model()
         self._gang = _tp_gang.join(llm_config, type(self))
         self.tokenizer = get_tokenizer(llm_config.tokenizer)
-        engine_cfg = _wire_eos(llm_config.engine, self.tokenizer)
+        engine_cfg = llm_config.engine_config(self.tokenizer)
         self.engine = PrefillEngine(model_cfg, engine_cfg,
                                     mesh=self._gang and self._gang.mesh,
                                     seed=llm_config.seed,
-                                    device=_replica_device(llm_config))
+                                    device=llm_config.replica_device())
 
     def prefill(self, prompt_ids, temperature=None, top_p: float = 1.0,
                 top_k: int = 0, want_logp: bool = False) -> dict:
@@ -1183,7 +1136,7 @@ class _DisaggServerImpl:
         self.cfg = llm_config
         self.d = disagg or DisaggConfig()
         self.tokenizer = get_tokenizer(llm_config.tokenizer)
-        engine_cfg = _wire_eos(llm_config.engine, self.tokenizer)
+        engine_cfg = llm_config.engine_config(self.tokenizer)
         self._page = engine_cfg.page_size
         self._eos = engine_cfg.eos_token
         self._max_new_default = engine_cfg.default_max_new_tokens
@@ -1705,7 +1658,7 @@ def build_disagg_deployment(llm_config: LLMConfig,
     reserves `num_gpus_per_replica` of the "GPU" resource (a fraction
     lets one card hold several; at tp > 1 each of its ranks a tp-th of
     it, `_replica_options`); the coordinator reserves none."""
-    _check_replica(llm_config)   # refused before any replica starts
+    llm_config.check()   # refused before any replica starts
     d = disagg or DisaggConfig()
     mid = llm_config.model_id
     place = _replica_options(llm_config)

@@ -576,3 +576,108 @@ class BatchedDoubler:
     @_serve_batch(max_batch_size=4, batch_wait_timeout_s=0.5)
     async def __call__(self, xs):
         return [(2 * x, len(xs)) for x in xs]
+
+
+# ---- data UDFs (run by both packages' workers, on numpy rows/batches) ----
+
+
+def double_id(row):
+    return {"id": row["id"] * 2, "name": f"row-{row['id']}"}
+
+
+def id_div3(row):
+    return row["id"] % 3 != 0
+
+
+def twice(row):
+    return [row, {"id": -row["id"], "name": row["name"] + "!"}]
+
+
+def square_batch(batch):
+    return {"id": batch["id"], "sq": batch["id"] ** 2,
+            "half": batch["id"] / 2.0}
+
+
+def float_batch(batch):
+    import numpy as np
+    return {"x": np.asarray(batch["id"], np.float64) * 2}
+
+
+def id_times_ten(batch):
+    return batch["id"] * 10
+
+
+def double_data(batch):
+    return {"data": batch["data"] * 2}
+
+
+def with_b(row):
+    return {"b": row["id"] * 10 + 1}
+
+
+def group_extremes(batch):
+    return {"k": batch["k"][:1], "mx": [batch["v"].max()],
+            "n": [len(batch["v"])]}
+
+
+class Scaler:
+    """A class UDF: constructed once per actor."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def __call__(self, batch):
+        return {"id": batch["id"] * self.k}
+
+
+def ingest_loop(config):
+    """A Trainer loop that reads its dataset shard as torch batches and
+    writes the ids it saw to `seen_dir/rank<r>.txt`."""
+    from ray_tpu_torch import train
+    shard = train.get_dataset_shard("train")
+    seen = []
+    for batch in shard.iter_torch_batches(batch_size=config["batch_size"],
+                                          device="cpu"):
+        seen += batch["idx"].tolist()
+    rank = train.get_context().get_world_rank()
+    with open(f"{config['seen_dir']}/rank{rank}.txt", "w") as f:
+        f.write(",".join(map(str, seen)))
+    train.report({"n": len(seen), "rank": rank})
+
+
+def key_of_four(batch):
+    return {"id": batch["id"], "k": batch["id"] % 4,
+            "s": [f"s{i % 3}" for i in batch["id"]]}
+
+
+def tiny_llm_config(**kw):
+    """configs.tiny() at the byte tokenizer's vocab, fp32, on the CPU."""
+    import dataclasses
+
+    from ray_tpu_torch.llm import EngineConfig, LLMConfig
+    from ray_tpu_torch.models import configs
+    return LLMConfig(model_id="tiny", model=dataclasses.replace(
+        configs.tiny(), vocab=300), engine=EngineConfig(
+            max_slots=2, max_len=64, prompt_buckets=(32,), eos_token=-1),
+        tokenizer="byte", num_gpus_per_replica=0, device="cpu", **kw)
+
+
+def data_scenario():
+    """A pipeline through every exchange and the tiny processor, on the
+    port's runtime (the caller's): its rows, and the modules the runtime's
+    workers cannot import."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import get, remote
+    from ray_tpu_torch.llm import build_llm_processor
+    ds = rd.range(40, override_num_blocks=4).map_batches(
+        key_of_four, batch_size=7).random_shuffle(seed=3)
+    prompts = rd.from_items([{"idx": i, "prompt": p} for i, p in enumerate(
+        ["hello", "a batch of prompts", "x"])], override_num_blocks=2)
+    proc = build_llm_processor(tiny_llm_config(), max_new_tokens=4,
+                               temperature=0.0, batch_size=2)
+    return dict(
+        sorted=ds.sort("k").take_all(), sorted_s=ds.sort("s").take_all(),
+        counts=ds.groupby("k").count().take_all(),
+        generated=proc(prompts).take_all(),
+        missing=get(remote(imports_fail).remote(
+            ["cloudpickle", "pyarrow", "pandas"]), timeout=60))

@@ -462,11 +462,10 @@ def test_not_in_slice_raises():
         with pytest.raises(ValueError, match="reserve"):
             fn(dataclasses.replace(cuda, tensor_parallelism=2))
     with pytest.raises(ValueError, match="reserve"):
-        t_serve._replica_device(cuda)
+        cuda.replica_device()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no.*available|none is"):
-            t_serve._replica_device(dataclasses.replace(
-                cuda, num_gpus_per_replica=1))
+            dataclasses.replace(cuda, num_gpus_per_replica=1).replica_device()
 
 
 # ---- through the port's runtime ----
