@@ -192,6 +192,33 @@ no result line):
               worker and no plain run, every row seen once, fp32 losses
               through the dataset bit-equal to the same batches in this
               process; no runtime process outlives the phase.
+22. parallel — sequence, expert and pipeline parallelism
+              (`parallel.ring_attention`, `ulysses`, `pipeline.gpipe`, the
+              model under sp and ep). (a) the kernel ring on one process
+              at bench_sp_ring's shape (1 x 32768 x 8 x 128 bf16 causal,
+              forward and backward of sum(out**2), a ring of one): one
+              launch each of K2, K3 and K4 a call and no plain run, ms a
+              call, TFLOP/s by bench_tpu.py's count, peak; held to the
+              plain ring at 4096 tokens (bf16 and fp32). Then two
+              processes over gloo on the one card: (b) the kernel ring
+              (causal and full, fp32 and bf16, 2 x 4096 x 8 x 128) and
+              Ulysses against the dense reference, outputs and
+              gradients, K2-K4 launches per rank (causal: rank r r + 1;
+              full: 2), and (a)'s shape split over the two; (c) the
+              llama-125m bf16 train step with attn_impl="ring" at sp = 2
+              on 1 x 32768 tokens (2 warm-up, 5 timed steps): ms/step,
+              tokens/s, MFU, each rank's peak, K2-K4 12 and 24 a step on
+              ranks 0 and 1 and no plain run, beside the same tokens on
+              one process (a ring of one); fp32 2 x 512, 3 AdamW steps,
+              ring and Ulysses at sp = 2 == the one-process step (1e-5
+              losses, 2e-4 params); (d) ep = 2: mixtral_8x7b at depth 2
+              bf16 (4 experts a rank), 2 x 1024 tokens, 3 steps, finite
+              falling losses, each rank's peak; tiny_moe fp32 == the
+              one-process step (1e-5); (e) GPipe at pp = 2: fp32 tanh
+              stages at F = 768 == the sequential stages (1e-5 out, 1e-4
+              grads); bf16 llama-125m's 12 layers as 2 stages of 6 over 8
+              microbatches of 2 x 1024, forward and backward timed
+              beside the 12 layers on one process.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -4177,6 +4204,627 @@ def data_phase(torch, results, smi, serve_inproc, http_phase, train,
     return out
 
 
+# ------- phase 22: sequence, expert and pipeline parallelism -------
+
+# bench_tpu.py's bench_sp_ring: b, seq, heads, head_dim (bf16, causal)
+SP_RING = (1, 32768, 8, 128)
+SP_CHECK = (2, 4096, 8, 128)    # the attention checks at sp = 2
+SP_EXACT_SEQ = 4096             # (a)'s check against the plain ring
+SP_TRAIN_SEQ = 32768            # (c): 1 x 32768 tokens a step
+SP_EXACT = (2, 512)             # (c) fp32: 2 x 512, 3 AdamW steps
+EP_TOKENS = (2, 1024)           # (d) mixtral_8x7b at depth 2, 3 steps
+PP_MICRO = (8, 2, 1024)         # (e) bf16: 8 microbatches of 2 x 1024
+PP_EXACT = (8, 16, 768)         # (e) fp32: 8 microbatches of 16 x 768
+SP_WORLD = 2
+
+
+def ring_attn_flops(b: int, s: int, h: int, d: int) -> float:
+    """bench_tpu.py's count for causal attention forward and backward:
+    forward 2 products, backward 7 (the recompute twice, dP, dS K, dP^T,
+    dV, dK), causal halving the work: 9 x 2 b h s^2 d / 2."""
+    return 9 * 2 * b * h * s * s * d / 2
+
+
+def _grad_call(torch, fn, leaves):
+    """fn(*leaves) and the gradients of the sum of its squared output (in
+    fp32, as bench_sp_ring's loss), a fence after."""
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out.float().pow(2).sum(), leaves)
+    torch.cuda.synchronize()
+    return out, grads
+
+
+def _expect_counts(counts: dict, want: int, what: str) -> None:
+    for key in ("fwd", "dq", "dkv"):
+        if counts[key] != {"cuda": want, "plain": 0}:
+            raise AssertionError(f"{what}: {key} launches {counts[key]}, "
+                                 f"want {want} kernel launches, 0 plain")
+
+
+def _steps(torch, step, state, batch, n: int):
+    """n steps: (state, losses, host ms of each step, fenced)."""
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, ms
+
+
+EXACT_LR = 3e-4   # the fp32 steps' AdamW rate (the sharded-train phase's)
+
+
+def _fp32_runs(torch, cfg, runs, batch, lr=EXACT_LR):
+    """3 AdamW steps from the same seeded fp32 params for each (mesh,
+    attn_impl) of `runs` (mesh None: the one-process unsharded step):
+    [(losses, param leaves)], a sharded run's leaves its DTensors."""
+    from ray_tpu_torch.models import init_params, loss_fn, param_logical_axes
+    from ray_tpu_torch.train import adamw, make_train_step
+    from ray_tpu_torch.train.optim import tree_leaves
+    out = []
+    for mesh, impl in runs:
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        init_fn, step, _, _ = make_train_step(
+            lambda p, b, c=c, mesh=mesh: loss_fn(p, b, c, mesh), adamw(lr),
+            mesh, None if mesh is None else param_logical_axes(c),
+            device="cuda")
+        state = init_fn(init_params(c, torch.Generator().manual_seed(1),
+                                    "cuda"))
+        state, losses, _ = _steps(torch, step, state, batch, 3)
+        out.append((losses, [x.detach() for x in tree_leaves(state.params)]))
+        del state
+    return out
+
+
+def _block_of(full, dt):
+    """This rank's block of a full tensor under DTensor `dt`'s placements,
+    cut locally (gloo's all-gather into one tensor of CUDA tensors
+    crashes, so `full_tensor()` is not used on the card)."""
+    from torch.distributed.tensor import Shard
+    mesh = dt.device_mesh
+    for i, p in enumerate(dt.placements):
+        if isinstance(p, Shard):
+            full = full.chunk(mesh.size(i), p.dim)[mesh.get_local_rank(i)]
+    return full
+
+
+def _exact_vs(runs) -> list:
+    """For each run after the first: (largest relative loss difference,
+    largest difference of this rank's param blocks) against the first,
+    the one-process run."""
+    (l0, p0), rest = runs[0], runs[1:]
+    out = []
+    for ls, ps in rest:
+        diffs = [(a.to_local() - _block_of(b, a)).abs() if hasattr(
+            a, "to_local") else (a - b).abs() for a, b in zip(ps, p0)]
+        worst = max(range(len(diffs)), key=lambda i: diffs[i].max().item())
+        out.append((max(abs(a - b) / abs(b) for a, b in zip(ls, l0)),
+                    diffs[worst].max().item(), worst,
+                    sum(int((d > 2e-4).sum()) for d in diffs),
+                    sum(d.numel() for d in diffs)))
+    return out
+
+
+def _pp_stage_fn(cfg, sin, cos):
+    """The port's decoder layer over a stage's stacked layers."""
+    from ray_tpu_torch.models.transformer import decoder_layer
+
+    def stage_fn(p, x):
+        n = next(iter(p.values())).shape[0]
+        for li in range(n):
+            x = decoder_layer(x, {k: v[li] for k, v in p.items()}, cfg, sin,
+                              cos)
+        return x
+    return stage_fn
+
+
+def _sp_attention(torch, res: dict, world: int) -> None:
+    """(b): the kernel ring and Ulysses at sp = world against the dense
+    reference on the full inputs in this process (outputs and gradients,
+    K2-K4 launches), then bench_sp_ring's shape split over the ranks."""
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import (MeshConfig, make_mesh,
+                                        ring_attention, ulysses_attention)
+    from ray_tpu_torch.parallel.mesh import axis_rank
+    from ray_tpu_torch.parallel.ring_attention import reference_attention
+    mesh = make_mesh(MeshConfig(fsdp=1, sp=world))
+    r = axis_rank(mesh, "sp")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    B, S, H, D = SP_CHECK
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for causal in (True, False):
+            full = [torch.randn(B, S, H, D, generator=g, device="cuda")
+                    .to(dtype).requires_grad_(True) for _ in range(3)]
+            ref, ref_g = _grad_call(torch, lambda q, k, v: (
+                reference_attention(q, k, v, causal=causal)), full)
+            want = [x.chunk(world, dim=1)[r] for x in (ref, *ref_g)]
+            del ref, ref_g
+            local = [x.detach().chunk(world, dim=1)[r].contiguous()
+                     .requires_grad_(True) for x in full]
+            for kind, fn in (("ring", ring_attention),
+                             ("ulysses", ulysses_attention)):
+                reset_counts()
+                o, grads = _grad_call(torch, lambda q, k, v: fn(
+                    q, k, v, mesh, causal=causal), local)
+                errs = []
+                e = [scaled_err(a, b, errs)
+                     for a, b in zip((o, *grads), want)]
+                checks.append(dict(kind=kind, dtype=dn, causal=causal,
+                                   err=max(e), abs_err=max(errs),
+                                   counts=bwd_counts()))
+            del full, local, want
+    res["checks"] = checks
+    torch.cuda.empty_cache()
+    b, s, h, d = SP_RING
+    local = [torch.randn(b, s // world, h, d, generator=g, device="cuda")
+             .to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+    ring = lambda q, k, v: ring_attention(q, k, v, mesh)  # noqa: E731
+    _grad_call(torch, ring, local)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _grad_call(torch, ring, local)
+    dist.barrier()
+    res["ring_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    res["ring_peak"] = torch.cuda.max_memory_allocated()
+
+
+def _sp_train(torch, res: dict, world: int) -> None:
+    """(c): the llama-125m ring train step at sp = world on 1 x
+    SP_TRAIN_SEQ tokens (2 warm-up, 5 timed steps, K2-K4 launches,
+    peak)."""
+    import numpy as np
+    import torch.distributed as dist
+    from ray_tpu_torch.models import (configs, init_params, loss_fn,
+                                      param_logical_axes)
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.train import adamw, make_train_step
+    mesh = make_mesh(MeshConfig(fsdp=1, sp=world))
+    cfg = dataclasses.replace(configs.bench_125m(), attn_impl="ring")
+    init_fn, step, _, _ = make_train_step(
+        lambda p, bt: loss_fn(p, bt, cfg, mesh), adamw(3e-4), mesh,
+        param_logical_axes(cfg), device="cuda")
+    state = init_fn(init_params(cfg, torch.Generator().manual_seed(0),
+                                "cuda"))
+    batch = {"tokens": torch.tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab,
+                                          (1, SP_TRAIN_SEQ + 1)),
+        dtype=torch.int32, device="cuda")}
+    state, first, _ = _steps(torch, step, state, batch, 2)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, losses, ms = _steps(torch, step, state, batch, 5)
+    res.update(train_losses=first + losses, train_ms=ms,
+               train_counts=bwd_counts(),
+               train_peak=torch.cuda.max_memory_allocated())
+
+
+def _sp_exact(torch, res: dict, world: int) -> None:
+    """(c) fp32: the ring and Ulysses llama-125m steps at sp = world
+    against the one-process step, 3 AdamW steps on SP_EXACT tokens."""
+    import numpy as np
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    mesh = make_mesh(MeshConfig(fsdp=1, sp=world))
+    cfg32 = dataclasses.replace(configs.bench_125m(), dtype="float32")
+    bx, sx = SP_EXACT
+    batch = {"tokens": torch.tensor(
+        np.random.default_rng(1).integers(0, cfg32.vocab, (bx, sx + 1)),
+        dtype=torch.int32, device="cuda")}
+    runs = _fp32_runs(torch, cfg32, [(None, "auto"), (mesh, "ring"),
+                                     (mesh, "ulysses")], batch)
+    res["sp_exact"] = _exact_vs(runs)
+
+
+def _ep_train(torch, res: dict, world: int) -> None:
+    """(d): ep = world. mixtral_8x7b at depth 2 in bf16 (its experts
+    split over the ranks), 3 steps of EP_TOKENS; then tiny_moe in fp32
+    against the one-process step."""
+    import numpy as np
+    import torch.distributed as dist
+    from ray_tpu_torch.models import (configs, init_params, loss_fn,
+                                      param_logical_axes)
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.train import adamw, make_train_step
+    mesh = make_mesh(MeshConfig(fsdp=1, ep=world))
+    moe = dataclasses.replace(configs.mixtral_8x7b(), n_layers=2)
+    init_fn, step, _, _ = make_train_step(
+        lambda p, bt: loss_fn(p, bt, moe, mesh), adamw(3e-4), mesh,
+        param_logical_axes(moe), device="cuda")
+    state = init_fn(init_params(
+        moe, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    torch.cuda.empty_cache()
+    bx, sx = EP_TOKENS
+    batch = {"tokens": torch.tensor(
+        np.random.default_rng(2).integers(0, moe.vocab, (bx, sx + 1)),
+        dtype=torch.int32, device="cuda")}
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, ms = _steps(torch, step, state, batch, 3)
+    res.update(ep_losses=losses, ep_ms=ms,
+               ep_peak=torch.cuda.max_memory_allocated(),
+               ep_experts=state.params["layers"]["wg"].to_local().shape[1])
+    del state
+    torch.cuda.empty_cache()
+    tiny = configs.tiny_moe()
+    batch = {"tokens": torch.tensor(
+        np.random.default_rng(3).integers(0, tiny.vocab, (4, 33)),
+        dtype=torch.int32, device="cuda")}
+    res["ep_exact"] = _exact_vs(_fp32_runs(
+        torch, tiny, [(None, "auto"), (mesh, "auto")], batch))
+
+
+def _pp_run(torch, res: dict, world: int) -> None:
+    """(e): GPipe at pp = world. fp32 tanh stages against the sequential
+    stages; then llama-125m's layers as world stages over PP_MICRO
+    microbatches, forward and backward timed."""
+    import torch.distributed as dist
+    from ray_tpu_torch.models import configs, init_params
+    from ray_tpu_torch.ops.layers import rope
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.parallel.mesh import axis_rank
+    from ray_tpu_torch.parallel.pipeline import gpipe
+    mesh = make_mesh(MeshConfig(fsdp=1, pp=world))
+    stage = axis_rank(mesh, "pp")
+    m, rows, f = PP_EXACT
+    gp = torch.Generator(device="cuda").manual_seed(5)
+    ws = torch.randn(world, f, f, generator=gp, device="cuda") / f ** 0.5
+    mbs = torch.randn(m, rows, f, generator=gp, device="cuda")
+    tanh_stage = lambda w, x: torch.tanh(x @ w)  # noqa: E731
+    w = ws[stage:stage + 1].clone().requires_grad_(True)
+    piped = gpipe(tanh_stage, w, mbs, mesh)
+    dw, = torch.autograd.grad(piped.pow(2).sum(), (w,))
+    wf = ws.clone().requires_grad_(True)
+    x = mbs
+    for i in range(world):
+        x = tanh_stage(wf[i], x)
+    dwf, = torch.autograd.grad(x.pow(2).sum(), (wf,))
+    res["pp_exact"] = ((piped - x).abs().max().item(),
+                       (dw[0] - dwf[stage]).abs().max().item())
+    cfg = configs.bench_125m()
+    lay = init_params(cfg, torch.Generator().manual_seed(0), "cuda")["layers"]
+    per = cfg.n_layers // world
+    block = {k: v.reshape(world, per, *v.shape[1:])[stage:stage + 1]
+             .clone().requires_grad_(True) for k, v in lay.items()}
+    del lay
+    m, bx, sx = PP_MICRO
+    sin, cos = rope(torch.arange(sx, device="cuda"), cfg.head_dim,
+                    cfg.rope_theta)
+    mbs = torch.randn(m, bx, sx, cfg.d_model, generator=gp,
+                      device="cuda").to(cfg.torch_dtype)
+    stage_fn = _pp_stage_fn(cfg, sin, cos)
+    leaves = list(block.values())
+
+    def pipe():
+        out = gpipe(stage_fn, block, mbs, mesh)
+        torch.autograd.grad(out.float().pow(2).mean(), leaves)
+        torch.cuda.synchronize()
+    pipe()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pipe()
+    dist.barrier()
+    res.update(pp_ms=(time.perf_counter() - t0) / 3 * 1e3,
+               pp_peak=torch.cuda.max_memory_allocated(),
+               pp_counts=bwd_counts())
+
+
+SP_PARTS = (_sp_attention, _sp_train, _sp_exact, _ep_train, _pp_run)
+
+
+def sp_worker(rank, world, port, out, parts=SP_PARTS):
+    """One rank of phase 22 (b)-(e) (`parts`), two processes on the one
+    card over gloo (every rank draws the same seeded inputs and calls
+    alike). Rank 0 logs each part as it starts and its device memory."""
+    import datetime
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()    # a crash in native code prints its stack
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=600))
+        res = {"times": {}}
+        for part in parts:
+            t0 = time.perf_counter()
+            if rank == 0:
+                free, total = torch.cuda.mem_get_info()
+                log(f"  rank 0: {part.__name__}, card memory free "
+                    f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB")
+            part(torch, res, world)
+            torch.cuda.empty_cache()
+            res["times"][part.__name__] = round(time.perf_counter() - t0, 1)
+        out.put((rank, "ok", res))
+    except BaseException:  # noqa: BLE001 — the parent reports it and fails
+        import traceback
+        text = traceback.format_exc()
+        print(f"rank {rank}: {text}", file=sys.stderr, flush=True)
+        out.put((rank, "error", text))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_ranks(target, world: int, timeout: float, *args) -> dict:
+    """target(rank, world, port, queue, *args) in `world` spawned
+    processes: their results by rank; raises with their tracebacks, or
+    their exit codes, on a failure."""
+    import multiprocessing as mp
+    import queue
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, world, port, out, *args))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        while len(got) + len(errors) < world:
+            try:
+                rank, status, value = out.get(timeout=10)
+            except queue.Empty:
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"{target.__name__}: no result in "
+                                         f"{timeout} s")
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(
+                        f"{target.__name__}: a rank died (exit codes "
+                        f"{[p.exitcode for p in procs]})")
+                continue
+            (got.__setitem__(rank, value) if status == "ok"
+             else errors.append(f"rank {rank}: {value}"))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if errors:
+        raise AssertionError(f"{target.__name__} failed:\n"
+                             + "\n".join(errors))
+    return got
+
+
+def parallel_phase(torch, results, smi) -> dict:
+    """Sequence, expert and pipeline parallelism: (a) the kernel ring on
+    one process at bench_sp_ring's shape (a ring of one: one K2, K3 and
+    K4 launch a call), held to the plain ring at 4096 tokens; the
+    one-process baselines of (c) and (e); then (b)-(e) on two processes
+    over gloo on the one card (`sp_worker`)."""
+    import numpy as np
+    import torch.distributed as dist
+    from ray_tpu_torch.models import configs, init_params, loss_fn
+    from ray_tpu_torch.ops.layers import rope
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh, ring_attention
+    from ray_tpu_torch.train import adamw, make_train_step
+    out = {}
+    mesh = make_mesh(MeshConfig(fsdp=1))   # a process group of one
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    # (a) correctness at 4096 tokens: the kernel ring against the plain
+    b, s, h, d = SP_RING
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        leaves = [torch.randn(b, SP_EXACT_SEQ, h, d, generator=g,
+                              device="cuda").to(dtype).requires_grad_(True)
+                  for _ in range(3)]
+        got = _grad_call(torch, lambda q, k, v: ring_attention(
+            q, k, v, mesh), leaves)
+        want = _grad_call(torch, lambda q, k, v: ring_attention(
+            q, k, v, mesh, impl="jnp"), leaves)
+        errs = []
+        e = max(scaled_err(x, y, errs) for x, y in zip(
+            (got[0], *got[1]), (want[0], *want[1])))
+        log(f"  (a) kernel ring vs plain ring, [{b},{SP_EXACT_SEQ},{h},{d}] "
+            f"causal {dn}, out and dq/dk/dv: {e:.3e} of the reference's "
+            f"scale (tol {TOL[dn]}), abs {max(errs):.3e}")
+        if not e <= TOL[dn]:
+            raise AssertionError(f"(a) the kernel ring disagrees: {e}")
+        del leaves, got, want
+    # (a) bench_sp_ring's shape: launches, time, peak
+    leaves = [torch.randn(b, s, h, d, generator=g, device="cuda")
+              .to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+    ring = lambda q, k, v: ring_attention(q, k, v, mesh)  # noqa: E731
+    reset_counts()
+    _grad_call(torch, ring, leaves)
+    _expect_counts(bwd_counts(), 1, "(a) the ring of one")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        _grad_call(torch, ring, leaves)
+    ring_ms = (time.perf_counter() - t0) / 5 * 1e3
+    flops = ring_attn_flops(b, s, h, d)
+    out.update(ring_ms=ring_ms, ring_peak=torch.cuda.max_memory_allocated())
+    log(f"  (a) ring of one at [{b},{s},{h},{d}] bf16 causal, forward and "
+        f"backward of sum(out**2): {ring_ms:.3f} ms/call, "
+        f"{flops / ring_ms / 1e9:.1f} TFLOP/s by bench_sp_ring's count "
+        f"({flops / 1e12:.2f} TFLOP), peak {out['ring_peak'] / 2**30:.3f} "
+        f"GiB; launches K2/K3/K4 1 each, plain 0 [{smi}]")
+    del leaves
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (c)'s one-process baseline: the same 32768 tokens, a ring of one
+    cfg = dataclasses.replace(configs.bench_125m(), attn_impl="ring")
+    init_fn, step, _, _ = make_train_step(
+        lambda p, bt: loss_fn(p, bt, cfg), adamw(3e-4), device="cuda")
+    state = init_fn(init_params(cfg, torch.Generator().manual_seed(0),
+                                "cuda"))
+    batch = {"tokens": torch.tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (1, SP_TRAIN_SEQ + 1)),
+        dtype=torch.int32, device="cuda")}
+    state, first, _ = _steps(torch, step, state, batch, 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, losses, ms = _steps(torch, step, state, batch, 5)
+    _expect_counts(bwd_counts(), cfg.n_layers * 5, "(c) one process")
+    out.update(one_ms=sorted(ms)[2], one_peak=torch.cuda.max_memory_allocated(),
+               one_losses=first + losses)
+    del state
+    torch.cuda.empty_cache()
+
+    # (e)'s one-process baseline: the 12 layers over the 8 microbatches
+    from ray_tpu_torch.models.transformer import decoder_layer
+    lay = {k: v.requires_grad_(True) for k, v in init_params(
+        configs.bench_125m(), torch.Generator().manual_seed(0),
+        "cuda")["layers"].items()}
+    m, bx, sx = PP_MICRO
+    sin, cos = rope(torch.arange(sx, device="cuda"), cfg.head_dim,
+                    cfg.rope_theta)
+    plain = configs.bench_125m()
+    mbs = torch.randn(m, bx, sx, cfg.d_model, generator=g,
+                      device="cuda").to(plain.torch_dtype)
+
+    def seq_call():
+        for i in range(m):
+            x = mbs[i]
+            for li in range(plain.n_layers):
+                x = decoder_layer(x, {k: v[li] for k, v in lay.items()},
+                                  plain, sin, cos)
+            torch.autograd.grad(x.float().pow(2).mean(), list(lay.values()))
+        torch.cuda.synchronize()
+    seq_call()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        seq_call()
+    out["pp_one_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    del lay, mbs
+    torch.cuda.empty_cache()
+
+    # (b)-(e) on two processes over gloo on the one card
+    t0 = time.perf_counter()
+    got = _run_ranks(sp_worker, SP_WORLD, 900)
+    log(f"  two ranks over gloo on the one card: {time.perf_counter() - t0:.1f}"
+        f" s; rank 0's parts (s): {got[0]['times']} [{smi}]")
+    for r in range(SP_WORLD):
+        for c in got[r]["checks"]:
+            want = ((r + 1 if c["causal"] else SP_WORLD)
+                    if c["kind"] == "ring" else 0)
+            ok = (c["err"] <= TOL[c["dtype"]]
+                  and c["counts"]["fwd"] == {"cuda": want, "plain": 0}
+                  and c["counts"]["dq"] == c["counts"]["dkv"]
+                  == {"cuda": want, "plain": 0})
+            log(f"  (b) rank {r} {c['kind']} [{','.join(map(str, SP_CHECK))}]"
+                f" {'causal' if c['causal'] else 'full'} {c['dtype']}: out "
+                f"and grads {c['err']:.3e} of the reference's scale (tol "
+                f"{TOL[c['dtype']]}), abs {c['abs_err']:.3e}; launches K2 "
+                f"{c['counts']['fwd']}, K3 {c['counts']['dq']}, K4 "
+                f"{c['counts']['dkv']} (want {want} each) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"(b) rank {r}: {c}")
+    split_ms = max(got[r]["ring_ms"] for r in range(SP_WORLD))
+    log(f"  (b) [{b},{s},{h},{d}] bf16 causal over sp = 2: {split_ms:.3f} "
+        f"ms/call against {ring_ms:.3f} on one process ((a)); both ranks "
+        f"share the one card and every rotation goes through the host over "
+        f"gloo, so this bounds no NVLink deployment [{smi}]")
+
+    seq = SP_TRAIN_SEQ
+    fpt = flops_per_token(cfg, seq)
+    for r in range(SP_WORLD):
+        g_r = got[r]
+        _expect_counts(g_r["train_counts"], 5 * cfg.n_layers * (r + 1),
+                       f"(c) rank {r} over 5 steps")
+        if not all(math.isfinite(x) for x in g_r["train_losses"]):
+            raise AssertionError(f"(c) rank {r} losses {g_r['train_losses']}")
+    step_ms = sorted(got[0]["train_ms"])[2]
+    tps, one_tps = seq / step_ms * 1e3, seq / out["one_ms"] * 1e3
+    log(f"  (c) llama-125m bf16 attn_impl='ring', 1 x {seq} tokens a step, "
+        f"sp = 2: {step_ms:.1f} ms/step (median of 5; "
+        f"{', '.join(f'{x:.1f}' for x in got[0]['train_ms'])}), "
+        f"{tps:.1f} tokens/s, MFU {100 * fpt * tps / PEAK_FLOPS['bfloat16']:.2f}"
+        f" % ({fpt / 1e9:.3f} GFLOP/token at {seq}); peaks "
+        f"{got[0]['train_peak'] / 2**30:.3f} and "
+        f"{got[1]['train_peak'] / 2**30:.3f} GiB; one process, a ring of "
+        f"one: {out['one_ms']:.1f} ms/step, {one_tps:.1f} tokens/s, MFU "
+        f"{100 * fpt * one_tps / PEAK_FLOPS['bfloat16']:.2f} %, peak "
+        f"{out['one_peak'] / 2**30:.3f} GiB [{smi}]")
+    log(f"  (c) launches a step: rank 0 {cfg.n_layers}, rank 1 "
+        f"{2 * cfg.n_layers} of each of K2, K3, K4, plain 0; losses rank 0 "
+        f"{[round(x, 4) for x in got[0]['train_losses']]}, one process "
+        f"{[round(x, 4) for x in out['one_losses']]}")
+    # AdamW moves an entry by about lr a step whatever its gradient's size,
+    # so an entry whose gradient sits at fp32 rounding noise (the sp sum
+    # adds the two halves of each row in another order) may move the
+    # other way: allow one entry in 10^7 past 2e-4, none past the most
+    # two trajectories can part in 3 steps (2 x 3 x lr).
+    bad = []
+    for r in range(SP_WORLD):
+        for name, (dl, dp, leaf, n_far, n) in zip(("ring", "ulysses"),
+                                                  got[r]["sp_exact"]):
+            log(f"  (c) rank {r} fp32 {SP_EXACT[0]} x {SP_EXACT[1]}, 3 AdamW "
+                f"steps, {name} at sp = 2 vs the one-process step: losses "
+                f"{dl:.3e} (relative, tol 1e-5), params {dp:.3e} (tol 2e-4, "
+                f"or at most one entry in 10^7 past it and none past "
+                f"{6 * EXACT_LR:.1e}; {n_far} of {n} entries past 2e-4, the "
+                f"largest in leaf {leaf})")
+            params_ok = dp <= 2e-4 or (n_far <= n * 1e-7
+                                       and dp <= 6 * EXACT_LR)
+            if not (dl <= 1e-5 and params_ok):
+                bad.append((r, name))
+    if bad:
+        raise AssertionError(f"(c) fp32 steps disagree: {bad}")
+
+    for r in range(SP_WORLD):
+        g_r = got[r]
+        ls = g_r["ep_losses"]
+        log(f"  (d) rank {r} mixtral_8x7b(n_layers=2) bf16 ep = 2 "
+            f"({g_r['ep_experts']} of 8 experts a rank), {EP_TOKENS[0]} x "
+            f"{EP_TOKENS[1]} tokens: ms/step {[round(x, 1) for x in g_r['ep_ms']]}"
+            f", losses {[round(x, 4) for x in ls]}, peak "
+            f"{g_r['ep_peak'] / 2**30:.3f} GiB [{smi}]")
+        if (not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]
+                or g_r["ep_experts"] != 4):
+            raise AssertionError(f"(d) rank {r}: losses {ls}")
+        (dl, dp, _, _, _), = g_r["ep_exact"]
+        log(f"  (d) rank {r} tiny_moe fp32 ep = 2 vs the one-process step: "
+            f"losses {dl:.3e} (relative, tol 1e-5), its param blocks "
+            f"{dp:.3e} (tol 2e-4)")
+        if not (dl <= 1e-5 and dp <= 2e-4):
+            raise AssertionError(f"(d) rank {r}: tiny_moe fp32 disagrees")
+
+    m = PP_MICRO[0]
+    for r in range(SP_WORLD):
+        g_r = got[r]
+        e_out, e_grad = g_r["pp_exact"]
+        log(f"  (e) rank {r} gpipe fp32 tanh stages F = {PP_EXACT[2]}, "
+            f"{PP_EXACT[0]} microbatches: out {e_out:.3e} (tol 1e-5), its "
+            f"stage's grad {e_grad:.3e} (tol 1e-4)")
+        if not (e_out <= 1e-5 and e_grad <= 1e-4):
+            raise AssertionError(f"(e) rank {r}: gpipe disagrees")
+        ticks = m + SP_WORLD - 1
+        _expect_counts(g_r["pp_counts"], 3 * ticks * cfg.n_layers // SP_WORLD,
+                       f"(e) rank {r} over 3 calls")
+    log(f"  (e) gpipe bf16, llama-125m's 12 layers as 2 stages of 6, {m} "
+        f"microbatches of {PP_MICRO[1]} x {PP_MICRO[2]}, forward and "
+        f"backward: {got[0]['pp_ms']:.1f} ms/call (bubble (S-1)/(M+S-1) = "
+        f"1/{m + 1}; every stage also runs its idle ticks on zeros, as the "
+        f"JAX schedule does), peaks {got[0]['pp_peak'] / 2**30:.3f} and "
+        f"{got[1]['pp_peak'] / 2**30:.3f} GiB; the 12 layers over the same "
+        f"microbatches on one process {out['pp_one_ms']:.1f} ms [{smi}]")
+    for kernel, key in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
+                        ("flash_bwd_dkv", "dkv")):
+        results[kernel]["sp_launches"] = [
+            got[r]["train_counts"][key]["cuda"] for r in range(SP_WORLD)]
+    out.update(step_ms=step_ms, tokens_per_s=tps, split_ms=split_ms)
+    return out
+
+
 def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
     """What a padded-width call costs, by torch.profiler's device trace:
     each kernel's device time a call (the pads, the kernel, the cut), and
@@ -4454,13 +5102,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/21] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/22] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/21] build: {len(build_logs)} kernels in "
+    log(f"[2/22] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -4497,7 +5145,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/21] kernels against their plain versions")
+    log("[3/22] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -4506,7 +5154,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/21] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/22] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -4519,7 +5167,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/21] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/22] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -4529,18 +5177,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/21] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/22] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/21] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/22] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/21] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/22] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -4549,19 +5197,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/21] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/22] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/21] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/22] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/21] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/22] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -4571,7 +5219,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/21] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/22] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -4581,7 +5229,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/21] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/22] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -4592,7 +5240,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/21] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/22] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -4602,7 +5250,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/21] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/22] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -4612,7 +5260,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/21] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/22] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -4620,7 +5268,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/21] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/22] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -4632,7 +5280,7 @@ def main() -> int:
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     t0 = time.perf_counter()
-    log("[18/21] serve-runtime: serve.run(build_openai_app(...)) on the "
+    log("[18/22] serve-runtime: serve.run(build_openai_app(...)) on the "
         "port's runtime, a replica holding the card, HTTP on a free port; "
         "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
     sr = serve_runtime_phase(torch, results, smi, serve)
@@ -4643,7 +5291,7 @@ def main() -> int:
         f"peak {sr['peak'] / 2**30:.3f} GiB")
 
     t0 = time.perf_counter()
-    log("[19/21] disagg: serve.run(build_disagg_openai_app(...)) on the "
+    log("[19/22] disagg: serve.run(build_disagg_openai_app(...)) on the "
         "port's runtime, a prefill worker and two decode replicas sharing "
         "the card, HTTP on a free port; llama-125m bf16 timed, fp32 exact "
         "with a handoff check, a decode replica killed mid-stream and a "
@@ -4658,7 +5306,7 @@ def main() -> int:
         f"{dg['handoff_bytes']} B a request")
 
     t0 = time.perf_counter()
-    log("[20/21] tp-gang: tensor_parallelism=2 replicas as gangs of two "
+    log("[20/22] tp-gang: tensor_parallelism=2 replicas as gangs of two "
         "processes through the port's runtime: build_openai_app (bf16 "
         "timed, fp32 and a LoRA adapter exact, a follower killed and the "
         "gang replaced) and both disaggregated pools (a bf16 burst, fp32 "
@@ -4672,7 +5320,7 @@ def main() -> int:
         f" the pools at tp=2 {tg['disagg_tokens_per_s']:.1f} tokens/s")
 
     t0 = time.perf_counter()
-    log("[21/21] data: the data library on the port's runtime: "
+    log("[21/22] data: the data library on the port's runtime: "
         "build_llm_processor over 256 prompts (llama-125m bf16, an engine "
         "actor holding the card; fp32 exact through two actors at 0.5 "
         "GPU) and the Trainer fed by iter_torch_batches(device='cuda')")
@@ -4682,6 +5330,19 @@ def main() -> int:
         f"in process and {sr['tokens_per_s']:.1f} through HTTP, first row "
         f"{da['first_row_s']:.2f} s; ingest {da['step_ms']:.2f} ms/step vs "
         f"{tr['step_ms']:.2f} through phase 17's trainer")
+
+    t0 = time.perf_counter()
+    log("[22/22] parallel: sequence, expert and pipeline parallelism: the "
+        "kernel ring at bench_sp_ring's 32768 tokens on one process; sp = 2, "
+        "ep = 2 and pp = 2 as two processes over gloo on the one card "
+        "(ring and Ulysses attention, the llama-125m ring train step at "
+        "32768 tokens, mixtral_8x7b at depth 2, GPipe)")
+    pa = parallel_phase(torch, results, smi)
+    log(f"  parallel phase {time.perf_counter() - t0:.1f} s; sp = 2 train "
+        f"step {pa['step_ms']:.1f} ms ({pa['tokens_per_s']:.1f} tokens/s) vs "
+        f"{pa['one_ms']:.1f} on one process; the ring at 32768 tokens "
+        f"{pa['ring_ms']:.3f} ms on one process, {pa['split_ms']:.3f} split "
+        f"over two")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

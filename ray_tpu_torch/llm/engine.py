@@ -46,8 +46,10 @@ before sampling. Every rank draws from the same seeded generator on the
 same logits, so every rank picks the same tokens and the host state
 (slots, pages, prefix cache, guides) stays identical with no broadcast.
 The KV handoff exports and imports the rank's heads. dp, fsdp, sp, pp and
-ep above 1 raise NotImplementedError (an engine replica's data axes are
-separate engines; the rest are later slices).
+ep above 1 raise NotImplementedError: an engine replica's data axes are
+separate engines, and the JAX package's serving builds its engine meshes
+over tp alone (`MeshConfig(tp=tp, fsdp=1)`), so sequence, pipeline and
+expert parallelism run in training only.
 """
 
 from __future__ import annotations
@@ -65,11 +67,12 @@ import torch.nn.functional as F
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.models.transformer import (ModelConfig, _mlp, _moe,
-                                              check_mesh, embed_tokens,
-                                              init_params, layer_params,
-                                              lm_head, local_config,
+                                              embed_tokens, init_params,
+                                              layer_params, lm_head,
+                                              local_config,
                                               param_logical_axes, tp_group)
 from ray_tpu_torch.parallel.collectives import gather_from_tp, reduce_from_tp
+from ray_tpu_torch.parallel.mesh import mesh_degrees
 from ray_tpu_torch.parallel.sharding import (ShardingRules, local_shard,
                                              logical_to_physical,
                                              shard_params, tree_map)
@@ -705,7 +708,15 @@ def _resolve_params(c: ModelConfig, params, seed: int, device, mesh=None,
                          f"engine on {device}")
     if mesh is None:
         return params, c
-    deg = check_mesh(mesh, "an engine")
+    deg = mesh_degrees(mesh)
+    for a in ("sp", "pp", "ep"):
+        if deg.get(a, 1) > 1:
+            raise NotImplementedError(
+                f"an engine over a mesh with {a}={deg[a]}: the JAX package's "
+                f"serving builds its engine meshes over tp alone "
+                f"(MeshConfig(tp=tp, fsdp=1)), so an engine shards over tp "
+                f"only; sequence, pipeline and expert parallelism run in "
+                f"training")
     for a in ("dp", "fsdp"):
         if deg.get(a, 1) > 1:
             raise NotImplementedError(

@@ -32,7 +32,26 @@ the model on its share:
   the flat head widths, d_ff and vocab). The embedding is vocab-parallel
   (masked lookup + all-reduce) and the loss the vocab-parallel cross
   entropy.
-- sp, pp and ep above 1 raise NotImplementedError (later slices).
+- sp: each rank runs a contiguous block of every row (the rules table's
+  "seq" -> "sp"; the train step cuts it), its RoPE positions offset by
+  the block's start; attention crosses the blocks by ring attention or
+  Ulysses (`attn_impl` "ring" / "ulysses", `parallel.ring_attention`,
+  `parallel.ulysses`; any other attn_impl is refused under sp, since
+  attention within a block alone would be wrong). The params are
+  replicated over sp and each rank's gradient is a partial sum, so the
+  gathers all-reduce it over sp in the backward, and the loss is the mean
+  over every rank's positions.
+- ep: each rank holds moe_experts / ep experts (the rules table's
+  "expert" -> "ep") and runs them on the same rows; their gated outputs
+  are summed over ep (Megatron's pair, as for tp), so the gradient of the
+  experts' input is summed over ep in the backward and the attention and
+  norm gradients come out whole on every rank. The router is replicated
+  and its gradient, partial over ep (each rank gates its own experts), is
+  summed over ep.
+- pp: the layer stack has no stage axis (the rules table maps "stage",
+  which no param of the model carries), so the pp ranks replicate the
+  step, as the JAX package's step does over a pp mesh; GPipe over stages
+  is `parallel.pipeline.gpipe`.
 """
 
 from __future__ import annotations
@@ -50,6 +69,11 @@ from ray_tpu_torch.parallel.collectives import (copy_to_tp, gather_from_tp,
                                                 gather_weight_tp, max_over,
                                                 reduce_from_tp, sum_over)
 from ray_tpu_torch.parallel.mesh import axis_group, axis_rank, mesh_degrees
+from ray_tpu_torch.parallel.ring_attention import ring_attention
+from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+# attn_impl values that attend across the sequence blocks of the sp axis
+SEQUENCE_PARALLEL = ("ring", "ulysses")
 
 # The model's fp32 products (the logits head, fp32 configs) run in full
 # fp32: TF32 would keep ~3 decimal digits and break greedy exactness.
@@ -185,42 +209,43 @@ SPLIT_REPLICATED = "replicated"    # every head on every rank
 
 @dataclasses.dataclass(frozen=True)
 class ShardedConfig(ModelConfig):
-    """A rank's view of a ModelConfig under tensor parallelism: its local
-    d_ff (the global one / tp), the heads it runs (`attn_split`: its
-    n_heads / tp and n_kv_heads / tp; its n_heads / tp and 1 kv head; or
-    all of them), the global head_dim (`hd`), and the tp group (None at
-    tp = 1) its collectives run on."""
+    """A rank's view of a ModelConfig under a mesh: its local d_ff (the
+    global one / tp), the heads it runs (`attn_split`: its n_heads / tp
+    and n_kv_heads / tp; its n_heads / tp and 1 kv head; or all of them),
+    the global head_dim (`hd`), the tp group (None at tp = 1) its
+    collectives run on, and under ep its moe_experts / ep experts, the
+    first of them global expert `ep_rank * moe_experts`, and the ep group
+    (None at ep = 1)."""
     tp: int = 1
     tp_rank: int = 0
     tp_group: object = dataclasses.field(default=None, compare=False,
                                          repr=False)
     attn_split: str = SPLIT_HEADS
     hd: int = 0
+    ep_rank: int = 0
+    ep_group: object = dataclasses.field(default=None, compare=False,
+                                         repr=False)
 
     @property
     def head_dim(self) -> int:
         return self.hd
 
 
-def check_mesh(mesh, what: str) -> dict[str, int]:
-    """The mesh's degrees; sp, pp or ep above 1 raise NotImplementedError
-    (sequence, pipeline and expert parallelism are later slices)."""
-    deg = mesh_degrees(mesh)
-    for a in ("sp", "pp", "ep"):
-        if deg.get(a, 1) > 1:
-            raise NotImplementedError(
-                f"{what} over a mesh with {a}={deg[a]} is a later slice of "
-                f"the PyTorch port (ROADMAP.md); dp, fsdp and tp run")
-    return deg
-
-
 def local_config(config: ModelConfig, mesh) -> ModelConfig:
     """This rank's ShardedConfig under `mesh`. tp must divide what the
     rules table splits over it (the flat n_heads * head_dim and
-    n_kv_heads * head_dim widths, d_ff and vocab), as placing the params
-    needs; else ValueError, as the JAX package's placement refuses."""
+    n_kv_heads * head_dim widths, d_ff and vocab) and ep the experts of
+    an MoE model, as placing the params needs; else ValueError, as the
+    JAX package's placement refuses. Under sp > 1 attn_impl must be
+    "ring" or "ulysses" (ValueError)."""
     c = config
-    tp = check_mesh(mesh, "the model").get("tp", 1)
+    deg = mesh_degrees(mesh)
+    tp, ep = deg.get("tp", 1), deg.get("ep", 1)
+    if deg.get("sp", 1) > 1 and c.attn_impl not in SEQUENCE_PARALLEL:
+        raise ValueError(
+            f"a mesh with sp={deg['sp']} cuts every row into blocks: "
+            f"attention must cross them (attn_impl 'ring' or 'ulysses'), "
+            f"not run within a block (attn_impl={c.attn_impl!r})")
     hd = c.head_dim
     for what, n in (("n_heads * head_dim", c.n_heads * hd),
                     ("n_kv_heads * head_dim", c.n_kv_heads * hd),
@@ -228,6 +253,9 @@ def local_config(config: ModelConfig, mesh) -> ModelConfig:
         if n % tp:
             raise ValueError(f"tp={tp} must divide {what}={n}: the params "
                              f"are split over tp along it")
+    if c.moe_experts % ep:
+        raise ValueError(f"ep={ep} must divide moe_experts="
+                         f"{c.moe_experts}: the experts are split over ep")
     if c.n_heads % tp == 0 and c.n_kv_heads % tp == 0:
         split, h, hkv = SPLIT_HEADS, c.n_heads // tp, c.n_kv_heads // tp
     elif c.n_heads % tp == 0 and tp % c.n_kv_heads == 0:
@@ -236,10 +264,12 @@ def local_config(config: ModelConfig, mesh) -> ModelConfig:
         split, h, hkv = SPLIT_REPLICATED, c.n_heads, c.n_kv_heads
     fields = {f.name: getattr(c, f.name)
               for f in dataclasses.fields(ModelConfig)}
-    fields.update(n_heads=h, n_kv_heads=hkv, d_ff=c.d_ff // tp)
+    fields.update(n_heads=h, n_kv_heads=hkv, d_ff=c.d_ff // tp,
+                  moe_experts=c.moe_experts // ep)
     return ShardedConfig(**fields, tp=tp, tp_rank=axis_rank(mesh, "tp"),
                          tp_group=axis_group(mesh, "tp"), attn_split=split,
-                         hd=hd)
+                         hd=hd, ep_rank=axis_rank(mesh, "ep"),
+                         ep_group=axis_group(mesh, "ep"))
 
 
 def tp_group(config: ModelConfig):
@@ -247,11 +277,16 @@ def tp_group(config: ModelConfig):
     return getattr(config, "tp_group", None)
 
 
-def _data_gather(dt, mesh) -> torch.Tensor:
+def _data_gather(dt, mesh, name: str) -> torch.Tensor:
     """A placed param (DTensor) gathered over the data axes: the rank's tp
-    block, whole along every other dim. Its gradient is declared a partial
-    sum over dp and fsdp, so the backward sums it over the data ranks
-    (reduce-scatter onto the fsdp shards, all-reduce over dp)."""
+    (and ep) block, whole along every other dim. Its gradient is declared
+    a partial sum over dp and fsdp, so the backward sums it over the data
+    ranks (reduce-scatter onto the fsdp shards, all-reduce over dp). Where
+    the param (`name`) is replicated over an axis and each rank's gradient
+    is its own share of it, the gradient is all-reduced over that axis as
+    well (Megatron's copy, a plain all-reduce in the backward): over sp
+    for every param (each rank a block of the sequence), over ep for the
+    router (each rank gating its own experts)."""
     from torch.distributed.tensor import Partial, Replicate
     names = list(mesh_degrees(mesh))
     data = [i for i, n in enumerate(names) if n in ("dp", "fsdp")]
@@ -259,7 +294,11 @@ def _data_gather(dt, mesh) -> torch.Tensor:
               for i, p in enumerate(dt.placements)]
     grads = [Partial() if i in data else p
              for i, p in enumerate(dt.placements)]
-    return dt.redistribute(mesh, target).to_local(grad_placements=grads)
+    x = dt.redistribute(mesh, target).to_local(grad_placements=grads)
+    x = copy_to_tp(x, axis_group(mesh, "sp"))
+    if name == "router":
+        x = copy_to_tp(x, axis_group(mesh, "ep"))
+    return x
 
 
 def _mesh_layers(params, mesh, n_layers: int):
@@ -280,7 +319,8 @@ def _mesh_layers(params, mesh, n_layers: int):
                         for p in v.placements]
     for li in range(n_layers):
         yield {k: _data_gather(DTensor.from_local(
-                   split[k][li], mesh, per_layer[k], run_check=False), mesh)
+                   split[k][li], mesh, per_layer[k], run_check=False), mesh,
+                   k)
                for k in split}
 
 
@@ -294,7 +334,7 @@ def _mesh_top(params, mesh) -> dict:
             continue
         if not isinstance(v, DTensor):
             raise TypeError(f"params[{k!r}] is not placed on the mesh")
-        out[k] = _data_gather(v, mesh)
+        out[k] = _data_gather(v, mesh, k)
     return out
 
 
@@ -328,7 +368,7 @@ def _attention_weights(lp, c: ModelConfig):
     return wq, wk, wv, gather_weight_tp(wo, g, 0, sum_grad=False), None
 
 
-def _attention(x, lp, c: ModelConfig, sin, cos):
+def _attention(x, lp, c: ModelConfig, sin, cos, mesh=None):
     b, s, d = x.shape
     h, hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim
     wq, wk, wv, wo, g = _attention_weights(lp, c)
@@ -338,7 +378,15 @@ def _attention(x, lp, c: ModelConfig, sin, cos):
     v = torch.einsum("bsd,dk->bsk", x, wv).reshape(b, s, hkv, hd)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    o = flash_attention(q, k, v, causal=True, impl=c.attn_impl)
+    if c.attn_impl in SEQUENCE_PARALLEL:
+        if hkv != h:    # GQA broadcast before the sp collective
+            k = k.repeat_interleave(h // hkv, dim=2)
+            v = v.repeat_interleave(h // hkv, dim=2)
+        sp_attention = (ring_attention if c.attn_impl == "ring"
+                        else ulysses_attention)
+        o = sp_attention(q, k, v, mesh, causal=True)
+    else:
+        o = flash_attention(q, k, v, causal=True, impl=c.attn_impl)
     return reduce_from_tp(
         torch.einsum("bsk,kd->bsd", o.reshape(b, s, h * hd), wo), g)
 
@@ -348,19 +396,26 @@ def _moe(x, lp, c: ModelConfig):
     weights zero the rest (plain einsums, no kernel). Under tp each rank
     holds d_ff / tp columns of every expert; the experts' outputs are
     summed over tp before the gate weights them, so the router's gradient
-    sees whole outputs."""
-    g = tp_group(c)
+    sees whole outputs. Under ep each rank holds moe_experts of them (its
+    ShardedConfig's) and gates their outputs with its slice of the whole
+    router's gate; the gated outputs are summed over ep."""
+    g, e = tp_group(c), getattr(c, "ep_group", None)
+    x = copy_to_tp(x, e)
     logits = torch.einsum("bsd,dx->bsx", x.float(), lp["router"].float())
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, c.moe_top_k, dim=-1)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     gate = torch.zeros_like(probs).scatter(-1, top_i, top_w)
+    if e is not None:
+        first = c.ep_rank * c.moe_experts
+        gate = gate[..., first:first + c.moe_experts]
     xt = copy_to_tp(x, g)
     h = torch.einsum("bsd,xdf->bsxf", xt, lp["wg"])
     u = torch.einsum("bsd,xdf->bsxf", xt, lp["wu"])
     y = reduce_from_tp(
         torch.einsum("bsxf,xfd->bsxd", F.silu(h) * u, lp["wd"]), g)
-    return torch.einsum("bsxd,bsx->bsd", y, gate.to(x.dtype))
+    return reduce_from_tp(torch.einsum("bsxd,bsx->bsd", y, gate.to(x.dtype)),
+                          e)
 
 
 def _mlp(x, lp, group=None):
@@ -368,6 +423,19 @@ def _mlp(x, lp, group=None):
     row-parallel down product, all-reduced."""
     return reduce_from_tp(
         swiglu(copy_to_tp(x, group), lp["wg"], lp["wu"], lp["wd"]), group)
+
+
+def decoder_layer(x, lp, c: ModelConfig, sin, cos, mesh=None):
+    """One decoder layer on x [b, s, d]: attention and the MLP (or MoE),
+    each behind its RMSNorm and residual; `lp` the layer's params, `c`
+    the config the rank runs (its ShardedConfig under a mesh), (sin, cos)
+    the RoPE tables of x's positions."""
+    h = x + _attention(rmsnorm(x, lp["attn_norm"], c.norm_eps), lp, c, sin,
+                       cos, mesh)
+    normed = rmsnorm(h, lp["mlp_norm"], c.norm_eps)
+    mlp = (_moe(normed, lp, c) if c.moe_experts
+           else _mlp(normed, lp, tp_group(c)))
+    return h + mlp
 
 
 def embed_tokens(table, tokens, config: ModelConfig):
@@ -387,10 +455,7 @@ def _hidden(params, tokens, config: ModelConfig, mesh):
     """(final-norm hidden states, this rank's config view, the non-layer
     params as used: gathered over the data axes under a mesh)."""
     c = config
-    if c.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={c.attn_impl!r} (sequence parallelism over a mesh) "
-            f"belongs to a later slice of the PyTorch port")
+    start = 0           # the global position of this rank's first token
     if mesh is None:
         top = params
         layers = (layer_params(params, li) for li in range(c.n_layers))
@@ -398,29 +463,25 @@ def _hidden(params, tokens, config: ModelConfig, mesh):
         c = local_config(c, mesh)
         top = _mesh_top(params, mesh)
         layers = _mesh_layers(params, mesh, c.n_layers)
+        start = axis_rank(mesh, "sp") * tokens.shape[1]
     x = embed_tokens(top["embed"], tokens, c)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = torch.arange(start, start + tokens.shape[1],
+                             device=tokens.device)
     sin, cos = rope(positions, c.head_dim, c.rope_theta)
-
-    def layer_body(x, lp):
-        h = x + _attention(rmsnorm(x, lp["attn_norm"], c.norm_eps), lp, c,
-                           sin, cos)
-        normed = rmsnorm(h, lp["mlp_norm"], c.norm_eps)
-        mlp = (_moe(normed, lp, c) if c.moe_experts
-               else _mlp(normed, lp, tp_group(c)))
-        return h + mlp
-
     for lp in layers:
         if c.remat and torch.is_grad_enabled():
-            x = checkpoint(layer_body, x, lp, use_reentrant=False)
+            x = checkpoint(decoder_layer, x, lp, c, sin, cos, mesh,
+                           use_reentrant=False)
         else:
-            x = layer_body(x, lp)
+            x = decoder_layer(x, lp, c, sin, cos, mesh)
     return rmsnorm(x, top["final_norm"], c.norm_eps), c, top
 
 
 def hidden_states(params, tokens, config: ModelConfig, mesh=None):
     """tokens [batch, seq] -> final-norm hidden states [batch, seq, d].
-    Under a mesh, `tokens` are this rank's rows of the batch."""
+    Under a mesh, `tokens` are this rank's rows of the batch and, under
+    sp, its contiguous block of each row (block r of sp: positions r *
+    seq onward)."""
     return _hidden(params, tokens, config, mesh)[0]
 
 
@@ -497,11 +558,14 @@ def loss_fn(params, batch, config: ModelConfig, mesh=None,
     backward recomputes: peak logits memory is b * loss_chunk * vocab.
 
     Under a mesh `batch` holds this rank's rows (the train step cuts
-    them) and the loss is the global batch's, as the JAX step's: each
-    rank's share is its sum over the global count (the data-parallel
-    sum of counts), its value the data-parallel sum of the shares; the
-    gradient is the rank's own share, which the params' gathers sum over
-    the data axes."""
+    them) and, under sp, its block of every row ("inputs", "targets" and
+    "mask" cut alike; a "tokens" batch then holds the block and the token
+    after it), and the loss is the global batch's, as the JAX step's:
+    each rank's share is its sum over the global count (the sum of
+    counts over the data axes and sp), its value the sum of the shares;
+    the gradient is the rank's own share, which the params' gathers sum
+    over the data axes and sp. Under ep and pp every rank computes the
+    same loss on the same rows."""
     if "tokens" in batch:
         inputs = batch["tokens"][:, :-1]
         targets = batch["tokens"][:, 1:]
@@ -516,9 +580,9 @@ def loss_fn(params, batch, config: ModelConfig, mesh=None,
             return -ll.mean()
         mask = mask.to(ll.dtype)
         return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    # (At data degree 1 both forms reduce to the one-device loss's exact
-    # arithmetic: the mean times 1.0, the share plus 0.0.)
-    data = [axis_group(mesh, a) for a in ("dp", "fsdp")]
+    # (At data and sp degree 1 both forms reduce to the one-device loss's
+    # exact arithmetic: the mean times 1.0, the share plus 0.0.)
+    data = [axis_group(mesh, a) for a in ("dp", "fsdp", "sp")]
     if mask is None:
         total = sum_over(torch.tensor(float(ll.numel()), device=ll.device),
                          data)

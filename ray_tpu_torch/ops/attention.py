@@ -12,8 +12,9 @@ multiple. They run head_dims that are multiples of 8 (the JAX package's
 Pallas condition), widths past 256 in 128-column chunks; the wrappers
 zero-pad any other head_dim up to the next multiple of 8 and cut the
 results back (`_build.padded_head_dim`), with the scale of the true
-head_dim. The ring/ulysses sequence-parallel paths belong to a later
-slice.
+head_dim. The sequence-parallel attentions over a mesh (ring, Ulysses)
+are `parallel.ring_attention` and `parallel.ulysses`; the ring runs these
+kernels at each of its steps.
 """
 
 from __future__ import annotations
@@ -109,9 +110,10 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
     forward, differentiated by autograd: the numerics oracle). The lse is
     computed only when a gradient is needed."""
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is sequence-parallel attention, which the "
-            f"PyTorch port takes up in a later slice")
+        raise ValueError(
+            f"impl={impl!r} is sequence-parallel attention over a mesh: "
+            f"parallel.ring_attention / parallel.ulysses_attention (the "
+            f"model routes attn_impl={impl!r} there)")
     if impl not in ("auto", "pallas", "reference", "interpret"):
         raise ValueError(f"unknown flash_attention impl {impl!r}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5

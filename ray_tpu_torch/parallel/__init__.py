@@ -1,9 +1,9 @@
 """Parallelism layer (counterpart of `ray_tpu.parallel`): device meshes
-over the named axes, logical-axis sharding rules placed as DTensors, and
-the tensor-parallel collectives. One process per device under
-`torch.distributed`; entry points under a mesh expect every rank to call
-them alike. Sequence parallelism (ring attention, Ulysses) and pipeline
-stages come with a later slice of the port."""
+over the named axes, logical-axis sharding rules placed as DTensors, the
+collectives, sequence parallelism (ring attention, Ulysses) and pipeline
+stages (GPipe). One process per device under `torch.distributed`; entry
+points under a mesh expect every rank to call them alike, each with its
+own blocks."""
 
 from ray_tpu_torch.parallel.mesh import (AXES, MeshConfig, elastic_config,
                                          get_abstract_mesh, make_hybrid_mesh,
@@ -17,10 +17,12 @@ from ray_tpu_torch.parallel.sharding import (
     shard_params,
     with_sharding,
 )
+from ray_tpu_torch.parallel.ring_attention import ring_attention
+from ray_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = [
     "AXES", "MeshConfig", "make_mesh", "make_hybrid_mesh", "elastic_config",
     "get_abstract_mesh", "set_global_mesh", "ShardingRules",
     "NamedSharding", "placements", "logical_to_physical", "shard_params",
-    "reshard", "with_sharding",
+    "reshard", "with_sharding", "ring_attention", "ulysses_attention",
 ]

@@ -13,9 +13,13 @@ Axis conventions (scaling-book style):
 - "fsdp" data parallelism + parameter/optimizer sharding (ZeRO-3)
 - "tp"   tensor parallelism (heads, mlp and vocab split; Megatron's
          all-reduces)
-- "sp", "ep", "pp": sequence, expert and pipeline parallelism, which the
-  port takes up in later slices (a degree above 1 raises
-  NotImplementedError where the model runs).
+- "sp"   sequence parallelism (each rank a contiguous block of every
+         row; ring attention or Ulysses across the blocks)
+- "ep"   expert parallelism (each rank moe_experts / ep experts; their
+         outputs summed over ep)
+- "pp"   pipeline stages (`parallel.pipeline.gpipe`); the model's layer
+         stack has no stage axis, so under the model the pp ranks
+         replicate the step, as the JAX package's step does
 """
 
 from __future__ import annotations
@@ -163,8 +167,9 @@ def mesh_degrees(mesh) -> dict[str, int]:
 
 
 def axis_group(mesh, axis: str):
-    """The process group of `axis`, or None where the mesh lacks the axis
-    or its degree is 1 (nothing to communicate)."""
+    """The process group of `axis` (any of AXES: the data, tp, sp, ep and
+    pp collectives run on it), or None where the mesh lacks the axis or
+    its degree is 1 (nothing to communicate)."""
     if mesh is None or mesh_degrees(mesh).get(axis, 1) == 1:
         return None
     return mesh.get_group(axis)

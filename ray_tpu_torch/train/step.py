@@ -9,8 +9,9 @@ On one device (`mesh=None`) there are no shardings. Under a mesh
 `init_fn` places the params by the declared specs of `param_axes` and the
 rules as DTensors, the AdamW moments mirror them, and `step_fn` hands the
 loss function this rank's rows of the batch (the batch is placed on
-("dp", "fsdp")); the model gathers each layer over the data axes before
-use and the gradients come back summed over them (models/transformer.py).
+("dp", "fsdp")) and, under sp, its block of the sequence; the model
+gathers each layer over the data axes before use and the gradients come
+back summed over them and over sp (models/transformer.py).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Any, Callable
 import torch
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.models.transformer import check_mesh
+from ray_tpu_torch.parallel.mesh import axis_rank, mesh_degrees
 from ray_tpu_torch.parallel.sharding import (NamedSharding, ShardingRules,
                                              declared_param_specs,
                                              local_shard, place, tree_map)
@@ -35,6 +36,27 @@ class TrainState:
     step: torch.Tensor              # 0-d int32 on the params' device
 
 
+def sequence_block(batch: dict, mesh) -> dict:
+    """This rank's contiguous block of every row under the mesh's sp
+    degree (the rules table's "seq" -> "sp"): "inputs", "targets" and
+    "mask" [b, s] cut along the sequence, a "tokens" [b, s + 1] batch
+    shifted into inputs and targets before the cut. s must divide by sp
+    (ValueError)."""
+    sp = mesh_degrees(mesh).get("sp", 1)
+    batch = dict(batch)
+    if "tokens" in batch:
+        tokens = batch.pop("tokens")
+        batch["inputs"], batch["targets"] = tokens[:, :-1], tokens[:, 1:]
+    s = batch["inputs"].shape[1]
+    if s % sp:
+        raise ValueError(f"a sequence of {s} positions does not cut into "
+                         f"sp={sp} equal blocks")
+    r = axis_rank(mesh, "sp")
+    return {k: v[:, r * (s // sp):(r + 1) * (s // sp)]
+            if k in ("inputs", "targets", "mask") else v
+            for k, v in batch.items()}
+
+
 def make_train_step(loss_fn: Callable, optimizer: AdamW, mesh=None,
                     param_axes=None, rules: ShardingRules | None = None,
                     batch_spec: tuple | None = None, device="cuda"):
@@ -42,7 +64,10 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, mesh=None,
 
     loss_fn(params, batch) -> fp32 scalar tensor; under a mesh it gets this
     rank's rows of the batch and returns the global batch's loss (the
-    model's `loss_fn(..., mesh=mesh)` does). `param_axes` is the
+    model's `loss_fn(..., mesh=mesh)` does). Under sp > 1 it gets this
+    rank's contiguous block of every row (`sequence_block`): a
+    {"tokens": [b, s + 1]} batch is shifted into "inputs" and "targets"
+    first, and s must divide by sp (ValueError). `param_axes` is the
     logical-axis tree of the params, read under a mesh, where
     `param_shardings` is the tree of their NamedShardings (None without a
     mesh) and `compile_for.state_shardings(state)` the TrainState of
@@ -57,7 +82,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, mesh=None,
     dev = resolve_device(device)
     param_shardings = None
     if mesh is not None:
-        check_mesh(mesh, "make_train_step")
+        sp = mesh_degrees(mesh).get("sp", 1)
         if param_axes is None:
             raise ValueError("make_train_step over a mesh needs param_axes")
         specs = declared_param_specs(param_axes, rules)
@@ -89,6 +114,8 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, mesh=None,
         if mesh is not None:
             batch = {k: local_shard(v, mesh, batch_spec)
                      for k, v in batch.items()}
+            if sp > 1:
+                batch = sequence_block(batch, mesh)
         opt = state.opt_state
         loss = loss_fn(state.params, batch)
         loss.backward()

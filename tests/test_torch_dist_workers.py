@@ -235,6 +235,105 @@ def two_rank_suite(rank, world, cfg_kw, params_np, prompts, n_new,
 
 
 
+# ---- sequence, expert and pipeline parallelism ----
+
+
+def _meshes(mesh_kws) -> dict:
+    """One CPU mesh per distinct degrees of `mesh_kws` (each mesh makes its
+    process groups once), keyed by their sorted items."""
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    out = {}
+    for kw in mesh_kws:
+        key = tuple(sorted(kw.items()))
+        if key not in out:
+            out[key] = make_mesh(MeshConfig(**kw), device="cpu")
+    return out
+
+
+def _cut(a, mesh, axis: str, dim: int):
+    """This rank's block of numpy array `a` along `dim` over `axis`, a
+    leaf tensor that requires grad."""
+    import torch
+    from ray_tpu_torch.parallel.mesh import axis_rank, mesh_degrees
+    n = mesh_degrees(mesh)[axis]
+    t = torch.tensor(a).chunk(n, dim=dim)[axis_rank(mesh, axis)]
+    return t.clone().requires_grad_(True)
+
+
+def sp_attention_cases(rank, world, cases):
+    """For each (mesh_kw, kind, impl, causal, (q, k, v)) of `cases`: this
+    rank's sp block of the global [B, S, H, D] inputs through
+    `ring_attention` (kind "ring", its `impl`) or `ulysses_attention`
+    (kind "ulysses"), then the backward of the sum of its squared output:
+    (sp rank, out, dq, dk, dv) of the rank's block, as numpy."""
+    from ray_tpu_torch.parallel import ring_attention, ulysses_attention
+    from ray_tpu_torch.parallel.mesh import axis_rank
+    meshes = _meshes([c[0] for c in cases])
+    out = []
+    for mesh_kw, kind, impl, causal, arrays in cases:
+        mesh = meshes[tuple(sorted(mesh_kw.items()))]
+        q, k, v = (_cut(a, mesh, "sp", 1) for a in arrays)
+        if kind == "ring":
+            o = ring_attention(q, k, v, mesh, causal=causal, impl=impl)
+        else:
+            o = ulysses_attention(q, k, v, mesh, causal=causal)
+        (o ** 2).sum().backward()
+        out.append((axis_rank(mesh, "sp"), o.detach().numpy(),
+                    q.grad.numpy(), k.grad.numpy(), v.grad.numpy()))
+    return out
+
+
+def sp_attention_and_steps(rank, world, cases, runs):
+    """`sp_attention_cases` of `cases`, then `sharded_steps` of each run
+    of `runs`, in one process group."""
+    return (sp_attention_cases(rank, world, cases),
+            [sharded_steps(rank, world, *run) for run in runs])
+
+
+def pipeline_cases(rank, world, gpipe_cases, scatter_cases):
+    """For each (mesh_kw, ws [S, F, F], mbs [M, b, F]) of `gpipe_cases`:
+    `gpipe` of tanh(x @ w) stages on this rank's block of ws and the
+    gradient of the sum of its squared output: (pp rank, out, this
+    stage's dws). For each (mesh_kw, axis, xs [n, ...], dim) of
+    `scatter_cases`: `reduce_scatter` over `axis` of this rank's xs[i]
+    (i its place on the axis): (i, the result)."""
+    import torch
+    from ray_tpu_torch.parallel.collectives import reduce_scatter
+    from ray_tpu_torch.parallel.mesh import axis_group, axis_rank
+    from ray_tpu_torch.parallel.pipeline import gpipe
+    meshes = _meshes([c[0] for c in gpipe_cases + scatter_cases])
+    key = lambda kw: tuple(sorted(kw.items()))  # noqa: E731
+    piped = []
+    for mesh_kw, ws, mbs in gpipe_cases:
+        mesh = meshes[key(mesh_kw)]
+        stage = axis_rank(mesh, "pp")
+        w = torch.tensor(ws[stage:stage + 1]).requires_grad_(True)
+        out = gpipe(lambda w, x: torch.tanh(x @ w), w, torch.tensor(mbs),
+                    mesh)
+        (out ** 2).sum().backward()
+        piped.append((stage, out.detach().numpy(), w.grad[0].numpy()))
+    scattered = []
+    for mesh_kw, axis, xs, dim in scatter_cases:
+        mesh = meshes[key(mesh_kw)]
+        i = axis_rank(mesh, axis)
+        got = reduce_scatter(torch.tensor(xs[i]), axis_group(mesh, axis),
+                             dim)
+        scattered.append((i, got.numpy()))
+    return piped, scattered
+
+
+class BarrierMember:
+    """An actor that enters the named `parallel.collectives.Barrier` of
+    `world` members `rounds` times."""
+
+    def go(self, name, world, rounds):
+        from ray_tpu_torch.parallel.collectives import Barrier
+        b = Barrier(name, world)
+        for _ in range(rounds):
+            b.wait(timeout=60)
+        return b._round
+
+
 # ---- tensor-parallel LLM replicas as gangs (llm/_tp_gang.py) ----
 
 

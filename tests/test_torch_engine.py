@@ -311,9 +311,10 @@ def test_decode_step_writes_kv_and_matches_prefill(params):
 
 
 def test_not_in_slice_raises(params):
-    """A mesh with sequence, pipeline or expert parallelism is not in this
-    slice (NotImplementedError, for the decode and the prefill engine; tp
-    runs, tests/test_torch_parallel.py); guided decoding, logprobs,
+    """A mesh with sequence, pipeline or expert parallelism is refused
+    (NotImplementedError, for the decode and the prefill engine: the JAX
+    package's serving builds engine meshes over tp alone, and tp runs,
+    tests/test_torch_parallel.py); guided decoding, logprobs,
     resume tokens and KV handoff need the paged layout (ValueError, as in
     the JAX engine); an over-long prompt fails its own request."""
     import types
@@ -324,7 +325,7 @@ def test_not_in_slice_raises(params):
             mesh_dim_names=AXES, shape=tuple(2 if a == axis else 1
                                              for a in AXES))
         for cls in (InferenceEngine, PrefillEngine):
-            with pytest.raises(NotImplementedError, match="later slice"):
+            with pytest.raises(NotImplementedError, match="over tp alone"):
                 cls(TINY, EngineConfig(), params=pt, mesh=mesh,
                     device="cpu")
     dense = _engine(pt, max_slots=1, max_len=32, prompt_buckets=(16,),

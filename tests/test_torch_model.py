@@ -127,10 +127,24 @@ def test_forward_matches_jax(name, dtype):
 
 
 def test_forward_rejects_sequence_parallel_impls():
-    cfg = configs.tiny(attn_impl="ring")
+    """attn_impl "ring" and "ulysses" without a mesh are a ring (and an
+    all-to-all) of one: the same logits as the plain attention within
+    fp32 rounding. What is refused is attention within a block under sp:
+    any other attn_impl over a mesh with sp > 1 (ValueError)."""
+    import types
+    from ray_tpu_torch.parallel import AXES
+    cfg = configs.tiny()
     p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        forward(p, torch.zeros(1, 4, dtype=torch.long), cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    want = forward(p, tokens, cfg)
+    for impl in ("ring", "ulysses"):
+        got = forward(p, tokens, configs.tiny(attn_impl=impl))
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    mesh = types.SimpleNamespace(mesh_dim_names=AXES,
+                                 shape=(1, 1, 1, 2, 1, 1))
+    with pytest.raises(ValueError, match="attn_impl='auto'"):
+        forward(p, tokens, cfg, mesh=mesh)
 
 
 def test_entry_points_default_to_cuda():

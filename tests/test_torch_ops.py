@@ -364,8 +364,8 @@ def test_flash_attention_plain_matches_jax_interpret(causal, s, h, hkv):
 
 def test_flash_attention_impl_contract():
     x = torch.zeros(1, 8, 2, 64)
-    for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for impl in ("ring", "ulysses"):   # over a mesh: parallel's entry points
+        with pytest.raises(ValueError, match="parallel.ring_attention"):
             flash_attention(x, x, x, impl=impl)
     with pytest.raises(ValueError, match="unknown"):
         flash_attention(x, x, x, impl="mosaic")

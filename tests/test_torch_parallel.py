@@ -148,20 +148,25 @@ def test_placements_follow_the_spec():
 
 
 def test_meshes_refuse_what_is_not_ported():
-    """sp, pp or ep above 1 raise NotImplementedError before any
-    collective; a tp that does not divide the flat head widths is refused
-    (ValueError), as the JAX package's placement refuses it; so is a node
-    count that does not factor into the dcn axes."""
+    """sp, pp and ep above 1 build the step (tests/test_torch_sp.py runs
+    them); what a mesh cannot run is refused before any collective:
+    attention within a block under sp (an attn_impl that is neither ring
+    nor ulysses), an ep that does not divide the experts and a tp that
+    does not divide the flat head widths (ValueError, as the JAX
+    package's placement refuses them), and a node count that does not
+    factor into the dcn axes."""
     cfg = configs.tiny()
     for axis in ("sp", "pp", "ep"):
         mesh = _standin_mesh(**{axis: 2})
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make_train_step(lambda p, b: loss_fn(p, b, cfg, mesh),
-                            adamw(1e-3), mesh, param_logical_axes(cfg),
-                            device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            loss_fn({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)},
-                    cfg, mesh=mesh)
+        _, _, _, shardings = make_train_step(
+            lambda p, b: loss_fn(p, b, cfg, mesh), adamw(1e-3), mesh,
+            param_logical_axes(cfg), device="cpu")
+        assert shardings["layers"]["wq"].spec == (None, "fsdp", "tp")
+    with pytest.raises(ValueError, match="attn_impl='auto'"):
+        loss_fn({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)}, cfg,
+                mesh=_standin_mesh(sp=2))
+    with pytest.raises(ValueError, match="moe_experts=4"):
+        local_config(configs.tiny_moe(), _standin_mesh(ep=3))
     with pytest.raises(ValueError, match="must divide"):
         local_config(configs.tiny(), _standin_mesh(tp=3))
     with pytest.raises(ValueError, match="do not factor"):

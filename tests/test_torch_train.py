@@ -320,9 +320,9 @@ def test_checkpoint_resume_equals_uninterrupted(tmp_path):
 def test_train_entry_points_default_to_cuda_and_refuse_meshes():
     """Without a `device` the train entry points run on CUDA and, on a
     host without a card, raise rather than carry on on the CPU. A mesh
-    with sequence parallelism is a later slice and raises (dp, fsdp and tp
-    run: tests/test_torch_parallel.py); a JAX Mesh is not a torch
-    DeviceMesh and is refused."""
+    with sequence parallelism builds the step (tests/test_torch_sp.py
+    runs it), and the loss refuses attention within a block under it; a
+    JAX Mesh is not a torch DeviceMesh and is refused."""
     import types
     from ray_tpu_torch.parallel import AXES
     cfg = configs.tiny()
@@ -333,10 +333,10 @@ def test_train_entry_points_default_to_cuda_and_refuse_meshes():
             mesh_dim_names=AXES, shape=tuple(deg.get(a, 1) for a in AXES))
 
     axes = param_logical_axes(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_train_step(step, adamw(1e-3), standin(sp=2), axes,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    _, _, _, shardings = make_train_step(step, adamw(1e-3), standin(sp=2),
+                                         axes, device="cpu")
+    assert shardings["embed"].spec == ("tp", "fsdp")
+    with pytest.raises(ValueError, match="cross them"):
         loss_fn({}, {"tokens": torch.zeros(1, 3, dtype=torch.long)}, cfg,
                 mesh=standin(sp=2))
     one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1),
