@@ -219,6 +219,24 @@ no result line):
               grads); bf16 llama-125m's 12 layers as 2 stages of 6 over 8
               microbatches of 2 x 1024, forward and backward timed
               beside the 12 layers on one process.
+23. dag     — compiled graphs, channels and collectives
+              (`ray_tpu_torch.dag`, `experimental.channel`,
+              `util.collective`) through the port's runtime, two stage
+              actors at 0.5 GPU each: (a) one CUDA tensor hop through a
+              `TensorChannel` (bf16 16 x 1024 x 768 and an int64 tensor),
+              bytes equal, ms and GB/s; (b) the compiled two-stage
+              llama-125m forward (embed and layers 0-5, then layers 6-11,
+              the final norm and the fp32 head), the bf16 hidden states
+              over a 48 MB tensor channel: last-position logits and every
+              argmax bit-equal to this process's `forward` on 11
+              executes, K2 6 launches per stage per execute and no plain
+              run, ms per execute beside plain `.remote()` chains and the
+              in-process forward; (c) an in-place allreduce of a 64 MB
+              fp32 CUDA tensor (== this process's sum), the bf16 params
+              broadcast into zeroed tensors (bit-equal, then equal
+              forwards), a barrier; (d) phase 21's fp32 ingest fed by
+              `from_torch` (losses == this process's) and the rows
+              through `write_tfrecord` / `read_tfrecord`, equal.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -3902,7 +3920,8 @@ def _probe_engine_reads(head, what: str) -> dict:
 def ingest_loop(config):
     """A Trainer loop fed by its dataset shard: each batch of
     `get_dataset_shard("train").iter_torch_batches(device="cuda")`, rows of
-    `batch_size` token ids [S + 1], is one AdamW step of the port's train
+    `batch_size` token ids [S + 1] (column `config["column"]`, default
+    "data"), is one AdamW step of the port's train
     step on llama-125m (`configs.bench_125m`, random weights from seed 0)
     in `config["dtype"]`. Each report carries the loss, the step's host
     ms (ended by the loss readback), the ms the batch took to arrive, the
@@ -3927,7 +3946,7 @@ def ingest_loop(config):
         batch_size=config["batch_size"], device="cuda")
     t_wait = time.perf_counter()
     for step, batch in enumerate(batches):
-        tokens = batch["data"]
+        tokens = batch[config.get("column", "data")]
         t0 = time.perf_counter()
         state, loss = step_fn(state, {"tokens": tokens})
         loss = loss.item()   # the step's fence
@@ -4825,6 +4844,435 @@ def parallel_phase(torch, results, smi) -> dict:
     return out
 
 
+# ---- phase 23: compiled graphs, channels, collectives, torch ingest ----
+
+DAG_STAGES = (range(0, 6), range(6, 12))   # llama-125m's layers per stage
+DAG_BUFFER = 48 << 20      # each channel: the 25.2 MB hidden states fit
+DAG_EXECUTES = 10          # pipelined executes timed (after one warm-up)
+ALLREDUCE_NUMEL = 16 << 20  # 64 MB of fp32
+
+
+def _sha(torch, tensors) -> str:
+    """sha256 of tensors' bytes, in order (on the host)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _param_leaves(params: dict) -> list:
+    """A params tree's tensors in a fixed order (sorted names)."""
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        out += _param_leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def _hop_value(torch, dev):
+    """(a)'s pytree: llama-125m's bf16 hidden states at the train shape and
+    an int64 tensor, from seed 3 on `dev`."""
+    g = torch.Generator().manual_seed(3)
+    h = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 768, generator=g).to(
+        torch.bfloat16)
+    return {"h": h.to(dev), "ids": torch.arange(TRAIN_BATCH * TRAIN_SEQ,
+                                                dtype=torch.int64).to(dev),
+            "step": 7}
+
+
+class StageWorker:
+    """A stage actor of phase 23 holding llama-125m (`configs.bench_125m`,
+    random weights from seed 0) on its card: `part` "a" runs
+    embed_tokens and layers 0-5 and returns the bf16 hidden states, "b"
+    layers 6-11, the final norm and the fp32 head and returns the last
+    position's logits and each position's argmax (the ops of the port's
+    `forward`, in its order). It also writes and reads (a)'s tensor hop
+    and takes part in (c)'s collective group. A stage that sees no card
+    raises."""
+
+    def __init__(self, part: str):
+        import torch
+        from ray_tpu_torch.models import configs, init_params
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"stage {part} sees no card (pid "
+                               f"{os.getpid()})")
+        self.part = part
+        self.cfg = configs.bench_125m()
+        self.params = init_params(self.cfg, torch.Generator().manual_seed(0),
+                                  "cuda")
+        self.rank = None
+
+    def forward_part(self, x):
+        import torch
+        from ray_tpu_torch.models.transformer import (decoder_layer,
+                                                      embed_tokens,
+                                                      layer_params, lm_head)
+        from ray_tpu_torch.ops.layers import rmsnorm, rope
+        c, p = self.cfg, self.params
+        with torch.no_grad():
+            if self.part == "a":
+                x = embed_tokens(p["embed"], x, c)
+            sin, cos = rope(torch.arange(x.shape[1], device=x.device),
+                            c.head_dim, c.rope_theta)
+            for li in DAG_STAGES[self.part == "b"]:
+                x = decoder_layer(x, layer_params(p, li), c, sin, cos)
+            if self.part == "a":
+                return x
+            x = rmsnorm(x, p["final_norm"], c.norm_eps)
+            logits = torch.matmul(x.float(), lm_head(p, c).float())
+            return {"last": logits[:, -1].contiguous(),
+                    "argmax": logits.argmax(-1)}
+
+    def full_forward(self, tokens):
+        """This actor's params through the port's `forward`: the last
+        position's logits and each position's argmax, on the host."""
+        import torch
+        from ray_tpu_torch.models import forward
+        with torch.no_grad():
+            logits = forward(self.params, tokens.to("cuda"), self.cfg)
+        return {"last": logits[:, -1].cpu(), "argmax": logits.argmax(-1).cpu()}
+
+    def counts(self, reset: bool = False) -> dict:
+        from ray_tpu_torch.ops import attention
+        out = dict(attention.launches)
+        if reset:
+            reset_counts()
+        return out
+
+    def hop_write(self, path: str, n: int) -> list:
+        """Write (a)'s value n times into the tensor channel at `path`,
+        each 0.2 s after the last so that the reader is idle (no
+        backpressure wait is timed): the host clock at each write's
+        start and its ms (the device-to-host staging)."""
+        import torch
+        from ray_tpu_torch.experimental.channel import TensorChannel
+        value = _hop_value(torch, "cuda")
+        torch.cuda.synchronize()
+        w = TensorChannel(path)
+        out = []
+        try:
+            for _ in range(n):
+                time.sleep(0.2)
+                t0 = time.time()
+                w.write(value, timeout=120)
+                out.append((t0, (time.time() - t0) * 1e3))
+        finally:
+            w.close()
+        return out
+
+    def hop_read(self, path: str, n: int) -> dict:
+        """Read n values from the tensor channel at `path` onto this card:
+        the host clock at each read's end and the sha256 of what arrived
+        (the bf16 leaf, then the int64 one) with its devices."""
+        import torch
+        from ray_tpu_torch.experimental.channel import TensorChannel
+        r = TensorChannel(path)
+        ends, shas = [], set()
+        try:
+            for _ in range(n):
+                v = r.read(timeout=120)
+                ends.append(time.time())
+                shas.add((_sha(torch, [v["h"], v["ids"]]), str(v["h"].device),
+                          str(v["ids"].device), str(v["h"].dtype), v["step"]))
+        finally:
+            r.close()
+        return {"ends": ends, "got": sorted(shas)}
+
+    def coll_init(self, rank: int):
+        from ray_tpu_torch.util import collective as col
+        col.init_collective_group(2, rank, group_name="stages")
+        self.rank = rank
+
+    def coll_allreduce(self) -> dict:
+        """An in-place allreduce of a 64 MB fp32 CUDA tensor (seed
+        100 + rank)."""
+        import torch
+        from ray_tpu_torch.util import collective as col
+        t = torch.randn(ALLREDUCE_NUMEL, generator=torch.Generator()
+                        .manual_seed(100 + self.rank)).to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = col.allreduce(t, group_name="stages")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return {"ms": ms, "sha": _sha(torch, [t]), "inplace": out is t,
+                "device": str(t.device)}
+
+    def coll_broadcast(self) -> dict:
+        """Every bf16 parameter from rank 0 into rank 1's zeroed CUDA
+        tensors, in place."""
+        import torch
+        from ray_tpu_torch.util import collective as col
+        leaves = _param_leaves(self.params)
+        if self.rank == 1:
+            for t in leaves:
+                t.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in leaves:
+            if col.broadcast(t, src_rank=0, group_name="stages") is not t:
+                raise AssertionError("broadcast did not write in place")
+        torch.cuda.synchronize()
+        return {"ms": (time.perf_counter() - t0) * 1e3,
+                "sha": _sha(torch, leaves),
+                "bytes": sum(t.numel() * t.element_size() for t in leaves)}
+
+    def coll_barrier(self) -> float:
+        from ray_tpu_torch.util import collective as col
+        t0 = time.perf_counter()
+        col.barrier(group_name="stages")
+        return (time.perf_counter() - t0) * 1e3
+
+
+class TokenRows:
+    """A torch map-style dataset over numpy token rows: item i is row i as
+    a tensor (phase 23 (d)'s `from_torch` source)."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        import torch
+        return torch.from_numpy(self.rows[i].copy())
+
+
+def dag_phase(torch, results, smi) -> dict:
+    """Compiled graphs, channels, collectives and torch ingest on the card
+    (phase 23), through the port's runtime with two `StageWorker` actors
+    at 0.5 GPU each. (a) one CUDA tensor hop between them through a
+    `TensorChannel`: a pytree of llama-125m's bf16 hidden states at the
+    train shape (16 x 1024 x 768, 25.2 MB) and an int64 tensor, the bytes
+    read back equal to the bytes written, ms and GB/s a hop. (b) the
+    compiled two-stage llama-125m forward (stage a: embed_tokens and
+    layers 0-5; stage b: layers 6-11, the final norm and the fp32 head),
+    the bf16 hidden states over a tensor channel of 48 MB: the last
+    position's logits [16, 32000] and each position's argmax [16, 1024]
+    equal this process's `forward` bit for bit on every execute, K2 6
+    launches per stage per execute and no plain run; ms per execute over
+    10 pipelined executes, logged beside the same stages through plain
+    `.remote()` chains and the in-process forward. (c) the collective
+    library between the stages: an in-place allreduce of a 64 MB fp32
+    CUDA tensor equal to the sum this process computes, llama-125m's bf16
+    parameters broadcast from rank 0 into rank 1's zeroed CUDA tensors
+    bit-equal (rank 1's forward then equal to rank 0's), a barrier; GB/s
+    each. (d) phase 21's fp32 ingest (3 steps of 2 x 256) fed from
+    `from_torch` of a torch map-style dataset over the same rows, its
+    losses equal to this process's; the same rows through
+    `write_tfrecord` and `read_tfrecord`, equal row for row. No runtime
+    process outlives the phase."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.experimental.channel import TensorChannel
+    from ray_tpu_torch.models import configs, forward, init_params
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, Trainer
+    me = importlib.import_module("chip_smoke")
+    out: dict = {}
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
+    storage = tempfile.mkdtemp(prefix="dag-", dir=os.path.join(ROOT, "tmp"))
+    torch.cuda.empty_cache()
+    cfg = configs.bench_125m()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    reset_counts()
+    with torch.no_grad():
+        logits = forward(params, tokens, cfg)
+        want = {"last": logits[:, -1].contiguous(),
+                "argmax": logits.argmax(-1)}
+        del logits
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DAG_EXECUTES):
+            logits = forward(params, tokens, cfg)
+            del logits
+        torch.cuda.synchronize()
+    inproc_ms = (time.perf_counter() - t0) * 1e3 / DAG_EXECUTES
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=8, object_store_memory=1 << 30)
+    try:
+        t0 = time.perf_counter()
+        stage = rt.remote(me.StageWorker).options(num_gpus=0.5)
+        a, b = stage.remote("a"), stage.remote("b")
+        rt.get([a.counts.remote(True), b.counts.remote(True)], timeout=180)
+        boot_s = time.perf_counter() - t0
+
+        # (a) one CUDA tensor hop between the two processes
+        n_hops = 5
+        chan = TensorChannel(create=True, capacity=DAG_BUFFER)
+        try:
+            rref = b.hop_read.remote(chan.path, n_hops)
+            writes = rt.get(a.hop_write.remote(chan.path, n_hops),
+                            timeout=180)
+            reads = rt.get(rref, timeout=180)
+        finally:
+            chan.close()
+            chan.unlink()
+        value = _hop_value(torch, "cuda")
+        nbytes = sum(v.numel() * v.element_size() for v in (
+            value["h"], value["ids"]))
+        want_got = [(_sha(torch, [value["h"], value["ids"]]), "cuda:0",
+                     "cuda:0", "torch.bfloat16", 7)]
+        if reads["got"] != want_got:
+            raise AssertionError(f"(a) the hop read {reads['got']}, wrote "
+                                 f"{want_got}")
+        hop_ms = [(e - w0) * 1e3 for (w0, _), e in zip(writes,
+                                                         reads["ends"])]
+        best = min(hop_ms[1:])
+        log(f"  (a) tensor hop, {nbytes} B (bf16 16 x 1024 x 768 + int64) "
+            f"CUDA -> channel -> CUDA between two processes, the reader "
+            f"idle: write start to read end " +
+            ", ".join(f"{x:.2f}" for x in hop_ms) + " ms, of which the "
+            "write (device-to-host staging) " +
+            ", ".join(f"{m:.2f}" for _, m in writes) + f" ms; best after "
+            f"the first {best:.2f} ms, {nbytes / best / 1e6:.2f} GB/s; "
+            f"bytes equal [{smi}]")
+        out.update(hop_ms=best, hop_gbps=nbytes / best / 1e6)
+
+        # (b) the compiled two-stage forward
+        with InputNode() as inp:
+            dag = b.forward_part.bind(a.forward_part.bind(inp))
+        compiled = dag.experimental_compile(buffer_size_bytes=DAG_BUFFER,
+                                            channel_type="tensor")
+        try:
+            first = compiled.execute(tokens).get(timeout=180)
+            t0 = time.perf_counter()
+            refs = [compiled.execute(tokens) for _ in range(DAG_EXECUTES)]
+            got = [r.get(timeout=180) for r in refs]
+            dag_ms = (time.perf_counter() - t0) * 1e3 / DAG_EXECUTES
+        finally:
+            compiled.teardown()
+        for i, g in enumerate([first] + got):
+            for k in ("last", "argmax"):
+                if (g[k].device.type != "cuda" or g[k].dtype != want[k].dtype
+                        or not torch.equal(g[k], want[k])):
+                    raise AssertionError(
+                        f"(b) execute {i}: {k} {g[k].dtype} on "
+                        f"{g[k].device} != this process's forward")
+        del first, got, refs
+        counts = rt.get([a.counts.remote(True), b.counts.remote(True)],
+                        timeout=60)
+        n_exec = DAG_EXECUTES + 1
+        for name, c in zip("ab", counts):
+            if c != {"cuda": len(DAG_STAGES[0]) * n_exec, "plain": 0}:
+                raise AssertionError(
+                    f"(b) stage {name} ran flash_fwd {c}, want "
+                    f"{len(DAG_STAGES[0])} x {n_exec} kernel launches, 0 "
+                    f"plain")
+        results["flash_fwd"]["dag_launches"] = [c["cuda"] for c in counts]
+        t0 = time.perf_counter()
+        plain = [b.forward_part.remote(a.forward_part.remote(tokens))
+                 for _ in range(DAG_EXECUTES)]
+        plain = rt.get(plain, timeout=300)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / DAG_EXECUTES
+        same = all(torch.equal(p["last"].to("cuda"), want["last"])
+                   for p in plain)
+        del plain
+        rt.get([a.counts.remote(True), b.counts.remote(True)], timeout=60)
+        log(f"  (b) compiled two-stage llama-125m forward, 16 x 1024 tokens: "
+            f"{dag_ms:.2f} ms per execute over {DAG_EXECUTES} pipelined "
+            f"executes (the same stages through plain .remote() chains "
+            f"{plain_ms:.2f} ms, their logits "
+            f"{'equal' if same else 'NOT equal'} too; this process's "
+            f"forward {inproc_ms:.2f} ms); logits and "
+            f"argmax bit-equal on all {n_exec} executes; flash_fwd launches "
+            f"per stage {[c['cuda'] for c in counts]} (6 x {n_exec}), plain "
+            f"0; actors up in {boot_s:.2f} s [{smi}]")
+        out.update(dag_ms=dag_ms, plain_ms=plain_ms, inproc_ms=inproc_ms)
+
+        # (c) the collective library between the two stage actors
+        rt.get([a.coll_init.remote(0), b.coll_init.remote(1)], timeout=60)
+        ar = rt.get([a.coll_allreduce.remote(), b.coll_allreduce.remote()],
+                    timeout=300)
+        summed = (torch.randn(ALLREDUCE_NUMEL, generator=torch.Generator()
+                              .manual_seed(100))
+                  + torch.randn(ALLREDUCE_NUMEL, generator=torch.Generator()
+                                .manual_seed(101)))
+        want_sha = _sha(torch, [summed])
+        if [(x["sha"], x["inplace"], x["device"]) for x in ar] != [
+                (want_sha, True, "cuda:0")] * 2:
+            raise AssertionError(f"(c) allreduce {ar} != this process's sum")
+        bc = rt.get([a.coll_broadcast.remote(), b.coll_broadcast.remote()],
+                    timeout=600)
+        want_sha = _sha(torch, _param_leaves(params))
+        if [x["sha"] for x in bc] != [want_sha] * 2:
+            raise AssertionError("(c) broadcast: rank 1's params are not "
+                                 "rank 0's")
+        small = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256)))
+        fa, fb = rt.get([a.full_forward.remote(small),
+                         b.full_forward.remote(small)], timeout=120)
+        if not (torch.equal(fa["last"], fb["last"])
+                and torch.equal(fa["argmax"], fb["argmax"])):
+            raise AssertionError("(c) rank 1's forward after the broadcast "
+                                 "!= rank 0's")
+        bar = rt.get([a.coll_barrier.remote(), b.coll_barrier.remote()],
+                     timeout=60)
+        ar_b = ALLREDUCE_NUMEL * 4
+        log(f"  (c) collectives over the runtime's KV between the stages: "
+            f"allreduce of {ar_b} B fp32 in place "
+            f"{max(x['ms'] for x in ar):.1f} ms "
+            f"({ar_b / max(x['ms'] for x in ar) / 1e6:.3f} GB/s a rank), == "
+            f"this process's sum; broadcast of {bc[0]['bytes']} B bf16 "
+            f"params {max(x['ms'] for x in bc):.1f} ms "
+            f"({bc[0]['bytes'] / max(x['ms'] for x in bc) / 1e6:.3f} GB/s), "
+            f"bit-equal, rank 1's forward == rank 0's; barrier "
+            f"{max(bar):.2f} ms [{smi}]")
+        out.update(allreduce_ms=max(x["ms"] for x in ar),
+                   broadcast_ms=max(x["ms"] for x in bc))
+        for h in (a, b):
+            rt.kill(h)
+        del a, b
+
+        # (d) from_torch ingest and TFRecord on the card's machine
+        small = np.random.default_rng(1).integers(
+            0, cfg.vocab, (6, 257)).astype(np.int32)
+        one_gpu = ScalingConfig(num_workers=1, use_gpu=True)
+        res = Trainer(me.ingest_loop, train_loop_config=dict(
+            dtype="float32", batch_size=2, column="item"),
+            scaling_config=one_gpu,
+            run_config=RunConfig(name="from_torch", storage_path=storage),
+            datasets={"train": rd.from_torch(me.TokenRows(small))}).fit()
+        got = [m["loss"] for m in res.metrics_history]
+        want_l = _driver_batch_losses(torch, "float32", small, 2)
+        if res.error is not None or got != want_l:
+            raise AssertionError(f"(d) from_torch ingest {got} (error "
+                                 f"{res.error}) != this process's {want_l}")
+        tfr = os.path.join(storage, "tfr")
+        rd.from_torch(me.TokenRows(small)).write_tfrecord(tfr)
+        back = rd.read_tfrecord(tfr).take_all()
+        if len(back) != len(small) or not all(
+                np.array_equal(r["item"], row) for r, row in zip(back, small)):
+            raise AssertionError("(d) the rows through write_tfrecord and "
+                                 "read_tfrecord differ")
+        log(f"  (d) fp32 ingest from from_torch, 3 steps of 2 x 256: {got} =="
+            f" this process's; the rows through write_tfrecord ("
+            f"{len(os.listdir(tfr))} shards) and read_tfrecord equal row "
+            f"for row")
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+        del params
+        torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    while _runtime_processes() and time.monotonic() < deadline:
+        time.sleep(0.5)
+    left = _runtime_processes()
+    if left:
+        raise AssertionError(f"runtime processes outlived shutdown: {left}")
+    return out
+
+
 def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
     """What a padded-width call costs, by torch.profiler's device trace:
     each kernel's device time a call (the pads, the kernel, the cut), and
@@ -5102,13 +5550,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/22] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/23] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/22] build: {len(build_logs)} kernels in "
+    log(f"[2/23] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -5145,7 +5593,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/22] kernels against their plain versions")
+    log("[3/23] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -5154,7 +5602,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/22] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/23] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -5167,7 +5615,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/22] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/23] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -5177,18 +5625,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/22] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/23] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/22] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/23] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/22] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/23] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -5197,19 +5645,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/22] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/23] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/22] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/23] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/22] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/23] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -5219,7 +5667,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/22] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/23] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -5229,7 +5677,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/22] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/23] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -5240,7 +5688,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/22] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/23] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -5250,7 +5698,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/22] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/23] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -5260,7 +5708,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/22] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/23] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -5268,7 +5716,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/22] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/23] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -5280,7 +5728,7 @@ def main() -> int:
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     t0 = time.perf_counter()
-    log("[18/22] serve-runtime: serve.run(build_openai_app(...)) on the "
+    log("[18/23] serve-runtime: serve.run(build_openai_app(...)) on the "
         "port's runtime, a replica holding the card, HTTP on a free port; "
         "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
     sr = serve_runtime_phase(torch, results, smi, serve)
@@ -5291,7 +5739,7 @@ def main() -> int:
         f"peak {sr['peak'] / 2**30:.3f} GiB")
 
     t0 = time.perf_counter()
-    log("[19/22] disagg: serve.run(build_disagg_openai_app(...)) on the "
+    log("[19/23] disagg: serve.run(build_disagg_openai_app(...)) on the "
         "port's runtime, a prefill worker and two decode replicas sharing "
         "the card, HTTP on a free port; llama-125m bf16 timed, fp32 exact "
         "with a handoff check, a decode replica killed mid-stream and a "
@@ -5306,7 +5754,7 @@ def main() -> int:
         f"{dg['handoff_bytes']} B a request")
 
     t0 = time.perf_counter()
-    log("[20/22] tp-gang: tensor_parallelism=2 replicas as gangs of two "
+    log("[20/23] tp-gang: tensor_parallelism=2 replicas as gangs of two "
         "processes through the port's runtime: build_openai_app (bf16 "
         "timed, fp32 and a LoRA adapter exact, a follower killed and the "
         "gang replaced) and both disaggregated pools (a bf16 burst, fp32 "
@@ -5320,7 +5768,7 @@ def main() -> int:
         f" the pools at tp=2 {tg['disagg_tokens_per_s']:.1f} tokens/s")
 
     t0 = time.perf_counter()
-    log("[21/22] data: the data library on the port's runtime: "
+    log("[21/23] data: the data library on the port's runtime: "
         "build_llm_processor over 256 prompts (llama-125m bf16, an engine "
         "actor holding the card; fp32 exact through two actors at 0.5 "
         "GPU) and the Trainer fed by iter_torch_batches(device='cuda')")
@@ -5332,7 +5780,7 @@ def main() -> int:
         f"{tr['step_ms']:.2f} through phase 17's trainer")
 
     t0 = time.perf_counter()
-    log("[22/22] parallel: sequence, expert and pipeline parallelism: the "
+    log("[22/23] parallel: sequence, expert and pipeline parallelism: the "
         "kernel ring at bench_sp_ring's 32768 tokens on one process; sp = 2, "
         "ep = 2 and pp = 2 as two processes over gloo on the one card "
         "(ring and Ulysses attention, the llama-125m ring train step at "
@@ -5343,6 +5791,18 @@ def main() -> int:
         f"{pa['one_ms']:.1f} on one process; the ring at 32768 tokens "
         f"{pa['ring_ms']:.3f} ms on one process, {pa['split_ms']:.3f} split "
         f"over two")
+
+    t0 = time.perf_counter()
+    log("[23/23] dag: compiled graphs, channels and collectives through the "
+        "port's runtime, two stage actors at 0.5 GPU: a CUDA tensor hop, "
+        "the compiled two-stage llama-125m forward over a tensor channel, "
+        "allreduce, broadcast and barrier of CUDA tensors; the Trainer fed "
+        "by from_torch, TFRecord written and read")
+    dg23 = dag_phase(torch, results, smi)
+    log(f"  dag phase {time.perf_counter() - t0:.1f} s; compiled "
+        f"{dg23['dag_ms']:.2f} ms per execute vs plain .remote() chains "
+        f"{dg23['plain_ms']:.2f} and one process {dg23['inproc_ms']:.2f}; "
+        f"hop {dg23['hop_ms']:.2f} ms ({dg23['hop_gbps']:.2f} GB/s)")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

@@ -287,10 +287,8 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """DAG-building edge (parity: dag/class_node.py bind)."""
-        raise NotImplementedError(
-            "actor method .bind() builds a DAG (ray_tpu.dag), which the "
-            "PyTorch port takes up with ROADMAP queue 1 item 9 (channels and "
-            "compiled graphs); not ported yet")
+        from ray_tpu_torch.dag import ClassMethodNode
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def __call__(self, *a, **kw):
         raise TypeError(f"Actor method {self._name} must be called with .remote()")

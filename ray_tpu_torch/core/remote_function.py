@@ -71,9 +71,9 @@ class RemoteFunction:
         ray_tpu_torch.workflow)."""
         raise NotImplementedError(
             "task .bind() builds a workflow DAG (ray_tpu.workflow), a "
-            "library on the runtime that the PyTorch port copies when a "
-            "slice needs it (ROADMAP queue 1 item 6, 'copy on need'); not "
-            "ported yet")
+            "library on the runtime that the PyTorch port takes up with "
+            "ROADMAP queue 1 item 14 (the remaining libraries); not ported "
+            "yet")
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

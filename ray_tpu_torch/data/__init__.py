@@ -11,8 +11,13 @@ or pandas unless a caller asks for them (`from_arrow`, `from_pandas`,
 `to_pandas`, the "pandas" and "pyarrow" batch formats), and every function
 that travels to a worker pickles by reference.
 
-The readers that need pyarrow or pandas (parquet, csv, json, images, ...),
-avro, tfrecord, the write sinks and the preprocessors are not ported yet.
+The numpy half of the sources and sinks is here: text, binary, numpy,
+TFRecord, Avro, WebDataset and image readers, `from_torch`,
+`write_tfrecord` and `write_avro`, and the preprocessors
+(`ray_tpu_torch.data.preprocessors`). The readers and writers that need
+pyarrow (parquet, csv, json, the table formats, SQL, the warehouses,
+`from_huggingface`) are ROADMAP queue 1 item 7 (e)2; the writers raise
+NotImplementedError.
 """
 
 from ray_tpu_torch.data import aggregate  # noqa: F401
@@ -28,13 +33,21 @@ from ray_tpu_torch.data.dataset import (  # noqa: F401
     range,
 )
 from ray_tpu_torch.data.datasource import (  # noqa: F401
+    decode_image,
+    from_torch,
+    read_avro,
     read_binary_files,
+    read_images,
     read_numpy,
     read_text,
+    read_tfrecord,
+    read_webdataset,
 )
 
 __all__ = [
     "Dataset", "DataIterator", "DataContext", "Schema", "aggregate",
     "range", "from_items", "from_pandas", "from_numpy", "from_arrow",
-    "read_text", "read_binary_files", "read_numpy",
+    "read_text", "read_binary_files", "read_numpy", "read_images",
+    "read_tfrecord", "read_webdataset", "read_avro",
+    "from_torch", "decode_image",
 ]

@@ -82,7 +82,10 @@ def _column_from_values(values: list) -> np.ndarray:
            and not isinstance(x, (bool, np.bool_)) for x in values):
         return np.asarray(values)
     if all(isinstance(x, (list, tuple, np.ndarray)) for x in values):
-        arrs = [np.asarray(x) for x in values]
+        try:
+            arrs = [np.asarray(x) for x in values]
+        except ValueError:   # a row of mixed items: (tensor, label)
+            return _object_column(values)
         if (len({a.shape for a in arrs}) == 1 and arrs[0].ndim
                 and all(a.dtype.kind in "biuf" for a in arrs)):
             return np.stack(arrs)

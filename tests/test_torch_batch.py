@@ -134,9 +134,12 @@ def test_without_cloudpickle_pyarrow_or_pandas(port_rt, tmp_path):
     entries of None, in the driver and, through a sitecustomize first on
     the path, in every worker), `ray_tpu_torch.data` imports, its edges
     raise an ImportError that names the missing package, and a range ->
-    map_batches -> random_shuffle -> sort -> groupby().count() pipeline
-    and the fp32 tiny processor give the same rows as with the packages
-    present (this process)."""
+    map_batches -> random_shuffle -> sort -> groupby().count() pipeline,
+    the fp32 tiny processor, and the numpy half (TFRecord, Avro,
+    WebDataset and image files written and read, a preprocessor chain,
+    `from_torch`, a compiled DAG over tensor channels with torch leaves)
+    give the same results as with the packages present (this
+    process)."""
     block = tmp_path / "block"
     block.mkdir()
     blocked = ("cloudpickle", "pyarrow", "pandas")
@@ -163,7 +166,9 @@ def test_without_cloudpickle_pyarrow_or_pandas(port_rt, tmp_path):
                     assert name in str(e), e
                 else:
                     raise AssertionError(name + " was imported")
-            print(json.dumps(W.data_scenario()))
+            print(json.dumps(dict(W.data_scenario(),
+                                  numpy_half=W.numpy_half_scenario(
+                                      {str(tmp_path / "blocked")!r}))))
         finally:
             rt.shutdown()
         """)
@@ -174,7 +179,9 @@ def test_without_cloudpickle_pyarrow_or_pandas(port_rt, tmp_path):
     assert out.returncode == 0, out.stdout + out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got.pop("missing") == list(blocked)
-    want = W.data_scenario()
+    want = json.loads(json.dumps(dict(
+        W.data_scenario(),
+        numpy_half=W.numpy_half_scenario(str(tmp_path / "present")))))
     assert want.pop("missing") == []
     assert got == want
     assert len(got["sorted"]) == 40 and len(got["generated"]) == 3

@@ -780,3 +780,259 @@ def data_scenario():
         generated=proc(prompts).take_all(),
         missing=get(remote(imports_fail).remote(
             ["cloudpickle", "pyarrow", "pandas"]), timeout=60))
+
+
+# ---- compiled graphs, channels and collectives (both packages' workers) ----
+
+
+class DagStage:
+    """A compiled-graph stage actor: scalar steps, a numpy or torch pytree
+    scaled, and torch leaves (fp32, bf16, int64) through exact ops."""
+
+    def __init__(self, add):
+        self.add = add
+        self.calls = 0
+
+    def step(self, x):
+        self.calls += 1
+        return x + self.add
+
+    def twice(self, x):
+        return x * 2
+
+    def num_calls(self):
+        return self.calls
+
+    def scale(self, batch):
+        return {"x": batch["x"] * self.add, "hops": batch["hops"] + 1}
+
+    def torch_step(self, v):
+        import torch
+        return {"f": v["f"] * 2.0 + self.add,
+                "b": (v["b"].float() * 2.0).to(torch.bfloat16),
+                "n": v["n"] + 1, "tag": v["tag"]}
+
+
+def channel_reader(path, n):
+    """Read `n` values from the tensor channel at `path` (reader 0) in a
+    worker: each value's leaf types and the bytes of its torch leaves."""
+    from ray_tpu_torch.experimental.channel import TensorChannel
+    r = TensorChannel(path)
+    out = []
+    try:
+        for _ in range(n):
+            v = r.read(timeout=60)
+            out.append({k: (type(x).__name__, str(getattr(x, "dtype", "")),
+                            _bits(x)) for k, x in v.items()})
+            r.release()
+    finally:
+        r.close()
+    return out
+
+
+def _bits(x):
+    """The bytes of an array leaf (a bf16 tensor's as its int16 view)."""
+    import numpy as np
+    if hasattr(x, "detach"):
+        import torch
+        t = x.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy().tobytes()
+    if isinstance(x, np.ndarray):
+        return x.tobytes()
+    return x
+
+
+def cuda_leaf_reader(path):
+    """Read one value from the tensor channel at `path` in a worker that
+    sees no card: the error it raises (a CUDA leaf must be refused)."""
+    from ray_tpu_torch.experimental.channel import TensorChannel
+    r = TensorChannel(path)
+    try:
+        r.read(timeout=60)
+    except RuntimeError as e:
+        return str(e)
+    finally:
+        r.close()
+    return "no error"
+
+
+def _col_tensor(values, dtype: str, as_torch: bool):
+    """One rank's tensor: numpy (ml_dtypes for bfloat16, as the JAX
+    package's arrays are) or, with as_torch, a torch tensor of the same
+    values."""
+    import numpy as np
+    arr = np.asarray(values, np.float64)
+    if as_torch:
+        import torch
+        return torch.tensor(arr).to(getattr(torch, dtype))
+    if dtype == "bfloat16":
+        import ml_dtypes
+        return arr.astype(np.float32).astype(ml_dtypes.bfloat16)
+    return arr.astype(dtype)
+
+
+def _col_read(x):
+    """A tensor as plain numpy (bfloat16 as its uint16 bits)."""
+    import numpy as np
+    if hasattr(x, "detach"):
+        import torch
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return x.view(np.uint16)
+    return x
+
+
+class CollectiveMember:
+    """A member of a host collective group of `pkg` ("ray_tpu" or
+    "ray_tpu_torch"): each op runs on this rank's tensor (numpy, or a
+    torch tensor of the same values with as_torch) and reports the tensor
+    after the op, what the op returned, and whether that was the tensor
+    itself (in place)."""
+
+    def __init__(self, pkg, rank, world, group="g"):
+        import importlib
+        self.col = importlib.import_module(pkg + ".util.collective")
+        self.col.init_collective_group(world, rank, group_name=group)
+        self.rank, self.world, self.group = rank, world, group
+
+    def run(self, what, values, dtype="float32", as_torch=False, **kw):
+        col, g = self.col, self.group
+        t = _col_tensor(values[self.rank], dtype, as_torch)
+        if what == "allgather":
+            out = []
+            col.allgather(out, t, group_name=g)
+            return [_col_read(x) for x in out]
+        if what == "reducescatter":
+            chunks = [_col_tensor(values[self.rank][i], dtype, as_torch)
+                      for i in range(self.world)]
+            t = _col_tensor(values[self.rank][0], dtype, as_torch) * 0
+            out = col.reducescatter(t, chunks, group_name=g, **kw)
+        elif what == "broadcast":
+            out = col.broadcast(t, group_name=g, **kw)
+        elif what == "allreduce":
+            out = col.allreduce(t, group_name=g, **kw)
+        elif what == "reduce":
+            out = col.reduce(t, group_name=g, **kw)
+        elif what == "sendrecv":
+            if self.rank == 0:
+                col.send(t, 1, group_name=g)
+                return None
+            if self.rank != 1:
+                return None
+            out = col.recv(t * 0, 0, group_name=g)
+            return dict(out=_col_read(out), inplace=None, same=None)
+        elif what == "barrier":
+            col.barrier(group_name=g)
+            return self.rank
+        else:
+            raise ValueError(what)
+        return dict(out=_col_read(out), inplace=_col_read(t),
+                    same=out is t)
+
+    def p2p_route(self, nbytes):
+        """Whether a large contribution takes the peer-to-peer transport:
+        the rendezvous' verdict (None: the KV path)."""
+        import numpy as np
+        g = self.col.collective._group(self.group)
+        return g.p2p_for(np.zeros(nbytes, np.uint8))
+
+
+def join_collective(pkg, name, world):
+    import importlib
+    return importlib.import_module(pkg + ".util.collective").join_group(
+        name, world)
+
+
+def internal_kv_from_worker(pkg):
+    import importlib
+    kv = importlib.import_module(pkg + ".experimental.internal_kv")
+    kv._internal_kv_put(b"wk:x", b"99")
+    return kv._internal_kv_get(b"wk:x"), sorted(kv._internal_kv_list(b"wk:"))
+
+
+class TorchRows:
+    """A torch map-style dataset over numpy rows: item i is row i as a
+    tensor (with `pair`, a (tensor, label) tuple)."""
+
+    def __init__(self, rows, pair=False):
+        self.rows = rows
+        self.pair = pair
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        import torch
+        t = torch.from_numpy(self.rows[i].copy())
+        return (t, torch.tensor(i % 3)) if self.pair else t
+
+
+def numpy_half_scenario(root):
+    """The data library's numpy half and a compiled DAG over tensor
+    channels, on the port's runtime (the caller's), with files under
+    `root`: what each gives, as JSON-able lists."""
+    import io
+    import os
+    import tarfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import kill, remote
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.data import preprocessors as pp
+    os.makedirs(root, exist_ok=True)
+    rows = [{"idx": i, "name": f"r{i % 3}", "x": i * 0.25} for i in range(12)]
+    ds = rd.from_items(rows, override_num_blocks=2)
+    ds.write_tfrecord(os.path.join(root, "tfr"))
+    ds.write_avro(os.path.join(root, "avro"))
+    with tarfile.open(os.path.join(root, "s.tar"), "w") as tf:
+        for i in range(3):
+            info = tarfile.TarInfo(name=f"k{i}.a")
+            info.size = 2
+            tf.addfile(info, io.BytesIO(b"a%d" % i))
+    Image.fromarray(np.full((4, 3, 3), 9, np.uint8)).save(
+        os.path.join(root, "p.png"))
+    chain = pp.Chain(pp.StandardScaler(["x"]), pp.OneHotEncoder(["name"]),
+                     pp.Concatenator(["x", "name_r0", "name_r1", "name_r2"],
+                                     "f"))
+    feats = chain.fit(ds).transform(ds).take_batch(12)["f"]
+    a = remote(DagStage).remote(1.5)
+    b = remote(DagStage).remote(-4.0)
+    with InputNode() as inp:
+        dag = b.torch_step.bind(a.torch_step.bind(inp))
+    compiled = dag.experimental_compile(buffer_size_bytes=1 << 20)
+    try:
+        out = compiled.execute({
+            "f": torch.arange(8, dtype=torch.float32),
+            "b": torch.arange(8, dtype=torch.float32).to(torch.bfloat16),
+            "n": torch.arange(3), "tag": "z"}).get(timeout=60)
+    finally:
+        compiled.teardown()
+    for h in (a, b):
+        kill(h)
+    img = rd.read_images(os.path.join(root, "p.png")).take_all()[0]
+    return dict(
+        tfrecord=sorted([r["idx"], r["name"].decode(), r["x"]] for r in
+                        rd.read_tfrecord(os.path.join(root, "tfr"))
+                        .take_all()),
+        avro=sorted([r["idx"], r["name"], r["x"]] for r in
+                    rd.read_avro(os.path.join(root, "avro")).take_all()),
+        webdataset=[[r["__key__"], r["a"].decode()] for r in
+                    rd.read_webdataset(os.path.join(root, "s.tar"))
+                    .take_all()],
+        image=rd.decode_image(img).tolist(),
+        chain=feats.tolist(),
+        from_torch=rd.from_torch(TorchRows(np.arange(24, dtype=np.int32)
+                                           .reshape(6, 4)))
+        .take_batch(6)["item"].tolist(),
+        dag=[out["f"].tolist(), out["b"].float().tolist(),
+             out["n"].tolist(), out["tag"], str(out["b"].dtype)])

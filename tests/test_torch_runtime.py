@@ -162,6 +162,13 @@ def _run_script(code: str, env_extra=None, timeout=180):
     return out.stdout
 
 
+# A get on the JAX package's runtime that waits for its workers to boot
+# (each imports jax): 7.4 s after its init and 13.9 s for the four after
+# its re-init in a whole tier-1 run at -n 6, 18.8 s under twelve CPU
+# hogs, where a 60 s limit once ran out under the whole run's load.
+REF_BOOT_GET_S = 240
+
+
 def test_port_and_reference_runtimes_side_by_side():
     """The JAX package's runtime and the port's in one process: each runs
     tasks on its own arena ("ray_tpu_<pid>_..." and ARENA_PREFIX
@@ -187,9 +194,9 @@ def test_port_and_reference_runtimes_side_by_side():
         port_add = ray_tpu_torch.remote(W.add_one)
         ray_tpu.init(num_cpus=2, object_store_memory=32 << 20)
         ray_tpu_torch.init(num_cpus=2, object_store_memory=32 << 20)
-        pid_of = lambda mod: mod.get(mod.remote(W.worker_pid).remote(),
-                                     timeout=60)
-        assert ray_tpu.get(ref_add.remote(1), timeout=60) == 2
+        pid_of = lambda mod, t=60: mod.get(mod.remote(W.worker_pid).remote(),
+                                           timeout=t)
+        assert ray_tpu.get(ref_add.remote(1), timeout={REF_BOOT_GET_S}) == 2
         assert ray_tpu_torch.get(port_add.remote(2), timeout=60) == 3
         port_arena = arenas({ARENA_PREFIX!r})
         ref_arena = arenas("ray_tpu_")
@@ -204,7 +211,7 @@ def test_port_and_reference_runtimes_side_by_side():
         assert arenas({ARENA_PREFIX!r}) == port_arena and alive(port_pids)
         assert ray_tpu_torch.get(port_add.remote(4), timeout=60) == 5
         ref_arena = arenas("ray_tpu_")
-        ref_pids = {{pid_of(ray_tpu) for _ in range(4)}}
+        ref_pids = {{pid_of(ray_tpu, {REF_BOOT_GET_S}) for _ in range(4)}}
 
         ray_tpu_torch.shutdown()
         assert arenas("ray_tpu_") == ref_arena and alive(ref_pids)
@@ -217,7 +224,8 @@ def test_port_and_reference_runtimes_side_by_side():
         ray_tpu.shutdown()
         assert not arenas({ARENA_PREFIX!r}) and not arenas("ray_tpu_")
         print("ok")
-        """, env_extra={"JAX_PLATFORMS": "cpu"}, timeout=240)
+        """, env_extra={"JAX_PLATFORMS": "cpu"},
+        timeout=2 * REF_BOOT_GET_S + 240)
     assert out.strip().endswith("ok")
 
 
