@@ -237,6 +237,28 @@ no result line):
               forwards), a barrier; (d) phase 21's fp32 ingest fed by
               `from_torch` (losses == this process's) and the rows
               through `write_tfrecord` / `read_tfrecord`, equal.
+24. rl      — RLlib's on-policy half (`ray_tpu_torch.rllib`), within
+              120 s, each part under its own limit: (a) PPO on
+              MinAtarBreakout-v0 at bench_rl_ppo's shape (one local runner
+              of 16 envs acting on the CPU, fragments of 64, batch 1024,
+              minibatch 256, 2 epochs, lr 3e-4), the learner on the card:
+              env-steps/s, train_iter_ms, sample_ms, learner_update_ms,
+              the learner's peak; learner params on CUDA, the acting copy
+              on the CPU, losses finite; (b) PPO with the env on the card
+              (JaxAtariClassBreakout-v0, the nature CNN over 84x84x4, 16
+              envs, T 64): env-steps/s, ms an iteration, peak, the
+              trajectory on CUDA, at most one synchronizing call (the
+              metrics read) in an iteration; (c) IMPALA on the card at
+              bench_rl_impala's shape, 6 iterations; (d) the on-card PPO
+              iteration learns JaxMinAtarBreakout-v0 in 120 iterations
+              (the last window's return per episode > 0.4); (e) one PPO
+              and one IMPALA update of the nature CNN on the card against
+              the CPU with TF32 switched on globally (losses 1e-5, params
+              2e-4 with the entries past it counted and none past 2 lr);
+              (f) IMPALA and APPO over two runner actors on the port's
+              runtime with the learner on the card, a runner SIGKILLed
+              and replaced, then two learner actors at 0.5 GPU == the
+              local learner (1e-4 / 1e-5); no runtime process outlives it.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -5273,6 +5295,424 @@ def dag_phase(torch, results, smi) -> dict:
     return out
 
 
+# ---- phase 24, rl: RLlib's on-policy half ----
+
+RL_BUDGET_S = 120          # the phase's budget, split over its parts:
+RL_PART_S = {"a": 10, "b": 5, "c": 5, "d": 44, "e": 4, "f": 52}
+RL_SYNCS_ALLOWED = 1       # an on-card iteration: its one metrics read
+
+
+class _TimeLimit:
+    """Raise TimeoutError in the main thread when a part runs past its
+    limit (SIGALRM), so a stuck part fails the phase instead of the
+    call."""
+
+    def __init__(self, seconds: int, what: str):
+        self.seconds, self.what = seconds, what
+
+    def _fire(self, *_):
+        raise TimeoutError(f"rl ({self.what}) ran past its {self.seconds} s")
+
+    def __enter__(self):
+        import signal
+        self._prev = signal.signal(signal.SIGALRM, self._fire)
+        signal.alarm(self.seconds)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, self._prev)
+        self.s = time.perf_counter() - self.t0
+        return False
+
+
+def _rl_timed(algo, iters: int) -> tuple:
+    """One warm iteration, then `iters` timed: (env-steps/s, ms an
+    iteration, the last result, every result)."""
+    results = [algo.train()]
+    steps0 = algo._timesteps
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        results.append(algo.train())
+    dt = time.perf_counter() - t0
+    return ((algo._timesteps - steps0) / dt, dt / iters * 1e3, results[-1],
+            results)
+
+
+def _finite_losses(results, what: str) -> None:
+    for r in results:
+        for k in ("total_loss", "policy_loss", "vf_loss"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"{what}: non-finite {k} {r[k]}")
+
+
+def _rl_syncs(torch, fn) -> list:
+    """The synchronizing calls fn() makes (CUDA sync debug mode 'warn')."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def _rl_fixed_batch(obs_dim: int, n: int, seed: int) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    return {"obs": rng.random((n, obs_dim), dtype=f32),
+            "actions": rng.integers(0, 4, n).astype(np.int64),
+            "logp": (-np.abs(rng.standard_normal(n)) - 0.5).astype(f32),
+            "advantages": rng.standard_normal(n).astype(f32),
+            "returns": rng.standard_normal(n).astype(f32),
+            "vs": rng.standard_normal(n).astype(f32),
+            "pg_advantages": rng.standard_normal(n).astype(f32)}
+
+
+def _rl_card_vs_cpu(torch, lr: float) -> dict:
+    """(e) one PPO and one IMPALA update of the nature CNN on a fixed batch
+    on the card and on the CPU, the global TF32 switches on (cuDNN's
+    default) so that only the RL path's own scoping holds fp32."""
+    import functools
+
+    import numpy as np
+    from ray_tpu_torch.rllib.algorithms.impala import impala_loss
+    from ray_tpu_torch.rllib.algorithms.ppo import ppo_loss
+    from ray_tpu_torch.rllib.core.learner import Learner
+    from ray_tpu_torch.rllib.core.rl_module import (NATURE_FILTERS,
+                                                    CNNActorCriticModule,
+                                                    tree_leaves)
+    module = CNNActorCriticModule((84, 84, 4), 4, filters=NATURE_FILTERS,
+                                  dense=512)
+    batch = _rl_fixed_batch(84 * 84 * 4, 256, 0)
+    out = {}
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for name, fn, cfg in (
+                ("ppo", ppo_loss, dict(clip=0.2, vf_coef=0.5,
+                                       ent_coef=0.01)),
+                ("impala", impala_loss, dict(vf_coef=0.5, ent_coef=0.01))):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                learner = Learner(module, functools.partial(fn, module=module),
+                                  lr=lr, grad_clip=0.5, seed=0,
+                                  loss_cfg=cfg, device=dev)
+                m = learner.update(batch)
+                runs[dev] = (m, [p.detach().cpu().numpy()
+                                 for p in tree_leaves(learner.params)])
+            (mc, pc), (mh, ph) = runs["cuda"], runs["cpu"]
+            loss_err = max(abs(mc[k] - mh[k]) for k in mc)
+            diffs = np.concatenate([np.abs(a - b).ravel()
+                                    for a, b in zip(pc, ph)])
+            out[name] = dict(loss_err=loss_err, param_err=float(diffs.max()),
+                             past=int((diffs > 2e-4).sum()), n=diffs.size)
+            if loss_err > 1e-5 or float(diffs.max()) > 2 * lr:
+                raise AssertionError(f"(e) {name}: card vs CPU losses "
+                                     f"{loss_err:.3e} (bound 1e-5), params "
+                                     f"{float(diffs.max()):.3e} (bound "
+                                     f"{2 * lr:.1e})")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    return out
+
+
+def _actor_pid(handle) -> int:
+    from ray_tpu_torch.core.runtime import get_runtime
+    return get_runtime().actors[handle._actor_id].worker.proc.pid
+
+
+def _rl_async(cfg_cls, name: str) -> dict:
+    """(f) an async algorithm over two runner actors on the CPU and the
+    learner on the card; runner 0 SIGKILLed after the first iteration."""
+    import signal
+    config = (cfg_cls().environment(env="MinAtarBreakout-v0")
+              .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                           rollout_fragment_length=32)
+              .training(train_batch_size=512, lr=3e-4)
+              .debugging(seed=0))
+    algo = config.build_algo()
+    try:
+        t0 = time.perf_counter()
+        results = [algo.train()]
+        boot_s = time.perf_counter() - t0
+        old = algo.env_runner_group.remotes[0]
+        os.kill(_actor_pid(old), signal.SIGKILL)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            results.append(algo.train())
+        after_s = time.perf_counter() - t0
+        _finite_losses(results, f"(f) {name}")
+        if algo.env_runner_group.remotes[0] is old:
+            raise AssertionError(f"(f) {name}: the killed runner was not "
+                                 f"replaced")
+        if results[-1]["num_env_steps_sampled_lifetime"] < 3 * 512:
+            raise AssertionError(f"(f) {name}: {results[-1]}")
+        on_card = all(p.is_cuda for p in
+                      _leaves(algo.learner_group.local.params))
+        if not on_card:
+            raise AssertionError(f"(f) {name}: the learner is not on CUDA")
+        return dict(boot_s=boot_s, after_s=after_s,
+                    steps=results[-1]["num_env_steps_sampled_lifetime"],
+                    loss=results[-1]["total_loss"])
+    finally:
+        algo.stop()
+
+
+def _leaves(params) -> list:
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+    return tree_leaves(params)
+
+
+def _rl_group(torch) -> dict:
+    """(f) two learner actors at 0.5 GPU each against the local learner on
+    the card, 3 updates on one batch: losses 1e-4, params 1e-4 / 1e-5."""
+    import functools
+
+    import numpy as np
+    from ray_tpu_torch.rllib.algorithms.ppo import ppo_loss
+    from ray_tpu_torch.rllib.core.learner import Learner, LearnerGroup
+    from ray_tpu_torch.rllib.core.rl_module import CNNActorCriticModule
+    module = CNNActorCriticModule((10, 10, 4), 3)
+    loss = functools.partial(ppo_loss, module=module)
+    cfg = dict(lr=3e-4, seed=0, grad_clip=0.5,
+               loss_cfg=dict(clip=0.2, vf_coef=0.5, ent_coef=0.01))
+    batch = _rl_fixed_batch(400, 512, 1)
+    batch["actions"] %= 3
+    local = Learner(module, loss, device="cuda", **cfg)
+    t0 = time.perf_counter()
+    group = LearnerGroup(module, loss, num_learners=2, config=cfg,
+                         device="cuda")
+    boot_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ml = local.update(batch)
+            mg = group.update(batch)
+        update_ms = (time.perf_counter() - t0) / 3 * 1e3
+        loss_err = abs(ml["total_loss"] - mg["total_loss"])
+        worst = 0.0
+        for a, b in zip(_leaves(local.get_weights()),
+                        _leaves(group.get_weights())):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+            worst = max(worst, float(np.abs(a - b).max()))
+        if loss_err > 1e-4 * max(1.0, abs(ml["total_loss"])):
+            raise AssertionError(f"(f) group loss {mg['total_loss']} vs "
+                                 f"local {ml['total_loss']}")
+    finally:
+        group.stop()
+    return dict(boot_s=boot_s, update_ms=update_ms, loss_err=loss_err,
+                param_err=worst)
+
+
+def rl_phase(torch, smi) -> dict:
+    """RLlib's on-policy half (`ray_tpu_torch.rllib`) on the card, within
+    RL_BUDGET_S, each part under its own limit (RL_PART_S). (a) PPO on
+    MinAtarBreakout-v0 at bench_rl_ppo's shape: one local runner of 16 envs
+    acting on the CPU, fragments of 64, train_batch 1024, minibatch 256, 2
+    epochs, lr 3e-4, the learner on the card; 1 warm and 3 timed
+    iterations. (b) PPO on JaxAtariClassBreakout-v0 (the nature CNN over
+    84x84x4 frames, 16 envs, T 64, the same batch) with the env on the
+    card; the synchronizing calls of one iteration counted. (c) IMPALA on
+    card at bench_rl_impala's shape (broadcast_interval 2), 6 timed
+    iterations. (d) the on-card PPO iteration learns JaxMinAtarBreakout
+    (test_fused_ppo_learns_on_device's setting, 120 iterations, the last
+    window's return per episode > 0.4). (e) one PPO and one IMPALA update
+    of the nature CNN on the card against the CPU (losses 1e-5; params
+    2e-4, entries past it counted, none past 2 lr), TF32 switched on
+    globally. (f) IMPALA and APPO over two runner actors with the learner
+    on the card, a runner SIGKILLed and replaced; two learner actors at 0.5
+    GPU against the local learner; no runtime process outlives it."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig
+    from ray_tpu_torch.rllib.algorithms.appo import APPOConfig
+    from ray_tpu_torch.rllib.core.learner import Learner, read_metrics
+    from ray_tpu_torch.rllib.core.ondevice import (OnDeviceSamplerGroup,
+                                                   build_ppo_train_iter)
+    from ray_tpu_torch.rllib.core.rl_module import CNNActorCriticModule
+    from ray_tpu_torch.rllib.env.device_env import (build_rollout,
+                                                    make_device_env)
+    out: dict = {}
+    t_phase = time.perf_counter()
+
+    def shape(env, **training):
+        return (PPOConfig().environment(env=env)
+                .env_runners(num_env_runners=0, num_envs_per_env_runner=16,
+                             rollout_fragment_length=64)
+                .training(train_batch_size=1024, minibatch_size=256,
+                          num_epochs=2, lr=3e-4, **training)
+                .debugging(seed=0))
+
+    # (a) host runner, learner on the card
+    with _TimeLimit(RL_PART_S["a"], "a") as tl:
+        algo = shape("MinAtarBreakout-v0").build_algo()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sps, iter_ms, last, results = _rl_timed(algo, 3)
+            peak = torch.cuda.max_memory_allocated()
+            _finite_losses(results, "(a)")
+            learner = algo.learner_group.local
+            acting = algo.env_runner_group.local.acting_params
+            if not all(p.is_cuda for p in _leaves(learner.params)):
+                raise AssertionError("(a) learner params are not on CUDA")
+            if not all(p.device.type == "cpu" for p in _leaves(acting)):
+                raise AssertionError("(a) the acting copy is not on the CPU")
+        finally:
+            algo.stop()
+    out["a"] = dict(sps=sps, iter_ms=iter_ms, sample_ms=last["sample_ms"],
+                    learner_ms=last["learner_update_ms"], peak=peak,
+                    s=tl.s)
+    log(f"  (a) PPO MinAtarBreakout-v0, 16 envs on one local runner (CPU "
+        f"acting), batch 1024, mb 256, 2 epochs: {sps:.1f} env-steps/s, "
+        f"train_iter_ms {iter_ms:.1f}, sample_ms {last['sample_ms']}, "
+        f"learner_update_ms {last['learner_update_ms']}, learner peak "
+        f"{peak / 2**20:.1f} MiB; learner params on CUDA, acting copy on "
+        f"the CPU, losses finite; {tl.s:.1f} s [{smi}]")
+
+    # (b) PPO with the env on the card
+    with _TimeLimit(RL_PART_S["b"], "b") as tl:
+        algo = shape("JaxAtariClassBreakout-v0").build_algo()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sps, iter_ms, last, results = _rl_timed(algo, 3)
+            peak = torch.cuda.max_memory_allocated()
+            _finite_losses(results, "(b)")
+            learner = algo.learner_group.local
+            _vs, traj = build_rollout(algo._device_vec_env, algo.module, 2)(
+                learner.params, algo._ondev_vs, algo._ondev_gen)
+            if not all(v.is_cuda for v in traj.values()):
+                raise AssertionError("(b) trajectory tensors off the card")
+            state = {}
+
+            def one_iter():
+                vs, m = algo._ondev_iter(algo._ondev_vs, algo._ondev_gen)
+                state["m"] = read_metrics(m)
+            syncs = _rl_syncs(torch, one_iter)
+            if len(syncs) > RL_SYNCS_ALLOWED:
+                # where the first one is: the iteration alone (no metrics
+                # read) under sync debug mode "error", its traceback
+                import traceback
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    algo._ondev_iter(algo._ondev_vs, algo._ondev_gen)
+                    where = "none without the read"
+                except RuntimeError:
+                    where = traceback.format_exc(limit=-6)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                raise AssertionError(f"(b) {len(syncs)} synchronizing calls "
+                                     f"in one iteration; the first:\n{where}")
+        finally:
+            algo.stop()
+    out["b"] = dict(sps=sps, iter_ms=iter_ms, peak=peak, syncs=len(syncs),
+                    s=tl.s)
+    log(f"  (b) PPO JaxAtariClassBreakout-v0 on the card (nature CNN, "
+        f"84x84x4, 16 envs, T 64): {sps:.1f} env-steps/s, {iter_ms:.1f} ms "
+        f"an iteration, peak {peak / 2**20:.1f} MiB; trajectory on CUDA; "
+        f"{len(syncs)} synchronizing call(s) in one iteration"
+        + (f" ({syncs[0][:90]})" if syncs else "") + f"; {tl.s:.1f} s")
+
+    # (c) IMPALA on the card (Anakin)
+    with _TimeLimit(RL_PART_S["c"], "c") as tl:
+        config = (IMPALAConfig().environment(env="JaxAtariClassBreakout-v0")
+                  .env_runners(num_env_runners=0, num_envs_per_env_runner=16)
+                  .training(train_batch_size=1024, minibatch_size=256,
+                            lr=3e-4, broadcast_interval=2)
+                  .debugging(seed=0))
+        algo = config.build_algo()
+        try:
+            sps, iter_ms, last, results = _rl_timed(algo, 6)
+            _finite_losses(results, "(c)")
+        finally:
+            algo.stop()
+    out["c"] = dict(sps=sps, iter_ms=iter_ms, s=tl.s)
+    log(f"  (c) IMPALA JaxAtariClassBreakout-v0 on the card, batch 1024, mb "
+        f"256, broadcast_interval 2: {sps:.1f} env-steps/s, {iter_ms:.1f} ms "
+        f"an iteration, V-trace policy loss {last['policy_loss']:.4f}; "
+        f"{tl.s:.1f} s")
+
+    # (d) it learns on the card
+    with _TimeLimit(RL_PART_S["d"], "d") as tl:
+        env = make_device_env("JaxMinAtarBreakout-v0", 16)
+        mod = CNNActorCriticModule((10, 10, 4), 3)
+        learner = Learner(mod, None, lr=1e-3, grad_clip=0.5, seed=0)
+        ti = build_ppo_train_iter(env, mod, T=64, num_epochs=2,
+                                  minibatch_size=256, gamma=0.99, lam=0.95,
+                                  clip=0.2, vf_coef=0.5, ent_coef=0.01,
+                                  learner=learner)
+        vs = env.reset(torch.Generator(device="cuda").manual_seed(1))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        grp = OnDeviceSamplerGroup()
+        for i in range(120):
+            vs, m = ti(vs, gen)
+            if i in (89, 119):
+                m = read_metrics(m)
+                grp.record(m["ep_ret_sum"], m["ep_len_sum"], m["ep_count"])
+        window = grp._window[-1][0]
+        if not window > 0.4:
+            raise AssertionError(f"(d) the last window's return per episode "
+                                 f"{window:.3f} <= 0.4: {grp._window}")
+    out["d"] = dict(window=window, first=grp._window[0][0], s=tl.s)
+    log(f"  (d) on-card PPO on JaxMinAtarBreakout-v0, 120 iterations: return "
+        f"per episode {grp._window[0][0]:.3f} over iterations 1-90, "
+        f"{window:.3f} over 91-120 (gate > 0.4; random play ~0.12); "
+        f"{tl.s:.1f} s")
+
+    # (e) fp32 on the card against the CPU
+    with _TimeLimit(RL_PART_S["e"], "e") as tl:
+        ex = _rl_card_vs_cpu(torch, 3e-4)
+    out["e"] = ex
+    log("  (e) nature CNN, one update on a fixed 256-row batch, card vs CPU "
+        "with TF32 switched on globally: " + "; ".join(
+            f"{k} losses {v['loss_err']:.2e} (1e-5), params "
+            f"{v['param_err']:.2e} ({v['past']} of {v['n']} past 2e-4, "
+            f"none past 6e-4)"
+            for k, v in ex.items()) + f"; {tl.s:.1f} s")
+
+    # (f) through the port's runtime
+    with _TimeLimit(RL_PART_S["f"], "f") as tl:
+        rt.init(num_cpus=8, object_store_memory=256 << 20)
+        try:
+            imp = _rl_async(IMPALAConfig, "IMPALA")
+            app = _rl_async(APPOConfig, "APPO")
+            grp_out = _rl_group(torch)
+        finally:
+            rt.shutdown()
+        deadline = time.monotonic() + 15
+        while _runtime_processes() and time.monotonic() < deadline:
+            time.sleep(0.5)
+        left = _runtime_processes()
+        if left:
+            raise AssertionError(f"(f) runtime processes outlived shutdown: "
+                                 f"{left}")
+    out["f"] = dict(impala=imp, appo=app, group=grp_out, s=tl.s)
+    log(f"  (f) runtime: IMPALA over two runner actors, the learner on the "
+        f"card: first iteration (runners booting) {imp['boot_s']:.2f} s, "
+        f"runner 0 SIGKILLed, 2 more in {imp['after_s']:.2f} s with its "
+        f"replacement; APPO {app['boot_s']:.2f} s, {app['after_s']:.2f} s; "
+        f"two learner actors at 0.5 GPU up in {grp_out['boot_s']:.2f} s, "
+        f"{grp_out['update_ms']:.1f} ms an update pair, == the local "
+        f"learner (loss {grp_out['loss_err']:.2e}, params "
+        f"{grp_out['param_err']:.2e}); no runtime process left; {tl.s:.1f} s")
+    out["s"] = time.perf_counter() - t_phase
+    if out["s"] > RL_BUDGET_S:
+        raise AssertionError(f"rl phase took {out['s']:.1f} s, past its "
+                             f"{RL_BUDGET_S} s budget")
+    return out
+
+
 def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
     """What a padded-width call costs, by torch.profiler's device trace:
     each kernel's device time a call (the pads, the kernel, the cut), and
@@ -5550,13 +5990,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/23] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/24] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/23] build: {len(build_logs)} kernels in "
+    log(f"[2/24] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -5593,7 +6033,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/23] kernels against their plain versions")
+    log("[3/24] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -5602,7 +6042,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/23] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/24] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -5615,7 +6055,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/23] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/24] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -5625,18 +6065,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/23] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/24] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/23] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/24] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/23] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/24] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -5645,19 +6085,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/23] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/24] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/23] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/24] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/23] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/24] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -5667,7 +6107,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/23] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/24] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -5677,7 +6117,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/23] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/24] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -5688,7 +6128,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/23] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/24] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -5698,7 +6138,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/23] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/24] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -5708,7 +6148,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/23] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/24] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -5716,7 +6156,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/23] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/24] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -5728,7 +6168,7 @@ def main() -> int:
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     t0 = time.perf_counter()
-    log("[18/23] serve-runtime: serve.run(build_openai_app(...)) on the "
+    log("[18/24] serve-runtime: serve.run(build_openai_app(...)) on the "
         "port's runtime, a replica holding the card, HTTP on a free port; "
         "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
     sr = serve_runtime_phase(torch, results, smi, serve)
@@ -5739,7 +6179,7 @@ def main() -> int:
         f"peak {sr['peak'] / 2**30:.3f} GiB")
 
     t0 = time.perf_counter()
-    log("[19/23] disagg: serve.run(build_disagg_openai_app(...)) on the "
+    log("[19/24] disagg: serve.run(build_disagg_openai_app(...)) on the "
         "port's runtime, a prefill worker and two decode replicas sharing "
         "the card, HTTP on a free port; llama-125m bf16 timed, fp32 exact "
         "with a handoff check, a decode replica killed mid-stream and a "
@@ -5754,7 +6194,7 @@ def main() -> int:
         f"{dg['handoff_bytes']} B a request")
 
     t0 = time.perf_counter()
-    log("[20/23] tp-gang: tensor_parallelism=2 replicas as gangs of two "
+    log("[20/24] tp-gang: tensor_parallelism=2 replicas as gangs of two "
         "processes through the port's runtime: build_openai_app (bf16 "
         "timed, fp32 and a LoRA adapter exact, a follower killed and the "
         "gang replaced) and both disaggregated pools (a bf16 burst, fp32 "
@@ -5768,7 +6208,7 @@ def main() -> int:
         f" the pools at tp=2 {tg['disagg_tokens_per_s']:.1f} tokens/s")
 
     t0 = time.perf_counter()
-    log("[21/23] data: the data library on the port's runtime: "
+    log("[21/24] data: the data library on the port's runtime: "
         "build_llm_processor over 256 prompts (llama-125m bf16, an engine "
         "actor holding the card; fp32 exact through two actors at 0.5 "
         "GPU) and the Trainer fed by iter_torch_batches(device='cuda')")
@@ -5780,7 +6220,7 @@ def main() -> int:
         f"{tr['step_ms']:.2f} through phase 17's trainer")
 
     t0 = time.perf_counter()
-    log("[22/23] parallel: sequence, expert and pipeline parallelism: the "
+    log("[22/24] parallel: sequence, expert and pipeline parallelism: the "
         "kernel ring at bench_sp_ring's 32768 tokens on one process; sp = 2, "
         "ep = 2 and pp = 2 as two processes over gloo on the one card "
         "(ring and Ulysses attention, the llama-125m ring train step at "
@@ -5793,7 +6233,7 @@ def main() -> int:
         f"over two")
 
     t0 = time.perf_counter()
-    log("[23/23] dag: compiled graphs, channels and collectives through the "
+    log("[23/24] dag: compiled graphs, channels and collectives through the "
         "port's runtime, two stage actors at 0.5 GPU: a CUDA tensor hop, "
         "the compiled two-stage llama-125m forward over a tensor channel, "
         "allreduce, broadcast and barrier of CUDA tensors; the Trainer fed "
@@ -5803,6 +6243,18 @@ def main() -> int:
         f"{dg23['dag_ms']:.2f} ms per execute vs plain .remote() chains "
         f"{dg23['plain_ms']:.2f} and one process {dg23['inproc_ms']:.2f}; "
         f"hop {dg23['hop_ms']:.2f} ms ({dg23['hop_gbps']:.2f} GB/s)")
+
+    t0 = time.perf_counter()
+    log("[24/24] rl: RLlib's on-policy half, the learner on the card: PPO "
+        "over a host runner (MinAtarBreakout-v0) and with the env on the "
+        "card (JaxAtariClassBreakout-v0), IMPALA on the card, on-card "
+        "learning, fp32 card vs CPU, IMPALA and APPO over runner actors "
+        "with one SIGKILLed, two learner actors at 0.5 GPU")
+    rl = rl_phase(torch, smi)
+    log(f"  rl phase {time.perf_counter() - t0:.1f} s (budget {RL_BUDGET_S} "
+        f"s); PPO {rl['a']['sps']:.1f} env-steps/s over a host runner, "
+        f"{rl['b']['sps']:.1f} with the env on the card; IMPALA on the card "
+        f"{rl['c']['sps']:.1f}; learned {rl['d']['window']:.3f} a episode")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

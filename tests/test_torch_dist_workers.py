@@ -1036,3 +1036,15 @@ def numpy_half_scenario(root):
         .take_batch(6)["item"].tolist(),
         dag=[out["f"].tolist(), out["b"].float().tolist(),
              out["n"].tolist(), out["tag"], str(out["b"].dtype)])
+
+
+# ---- RLlib (tests/test_torch_rllib.py): the learner group's loss ----
+
+def rl_regression_loss(params, batch, *, module):
+    """A loss of both heads (test_rllib.py's two-learner case), module
+    level so that learner actors unpickle it by name."""
+    import torch
+    logits, value = module.forward_train(params, batch["obs"])
+    loss = (torch.square(value - batch["y"]).mean()
+            + torch.square(logits).mean())
+    return loss, {"dummy": loss}
