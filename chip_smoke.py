@@ -156,8 +156,9 @@ no result line):
               processes in lockstep through the port's runtime (rank 0
               the replica actor, the follower in its placement group,
               gloo on the one card). `build_openai_app` at
-              num_gpus_per_replica=1.0 (two ranks at 0.5 GPU): phase
-              18's traffic, tokens/s beside phases 16 and 18, the boot,
+              num_gpus_per_replica=1.0 (two ranks at 0.5 GPU): 12 of
+              phase 18's requests (8 of its 127-token prompts and the 4
+              sharing a page), tokens/s beside phases 16 and 18, the boot,
               each rank's decode steps (equal) and peak, K1 12 launches
               a step on each rank and no plain run; fp32 tokens through
               HTTP == the tp = 1 engine's == a forward argmax, a LoRA
@@ -165,7 +166,8 @@ no result line):
               params, a follower SIGKILLed and the whole gang replaced
               on the card, the next requests exact. Then both
               disaggregated pools as gangs (four processes at 0.25
-              GPU): a bf16 burst of 12 requests timed, K1 on both
+              GPU): a bf16 burst of those 12 requests at 16 tokens
+              each timed, K1 on both
               decode ranks, each one-page handoff as many bytes as
               phase 19's; fp32 tokens of a 300-token prompt == the
               monolithic engine's, its sealed handoff full width and
@@ -206,7 +208,7 @@ no result line):
               gradients, K2-K4 launches per rank (causal: rank r r + 1;
               full: 2), and (a)'s shape split over the two; (c) the
               llama-125m bf16 train step with attn_impl="ring" at sp = 2
-              on 1 x 32768 tokens (2 warm-up, 5 timed steps): ms/step,
+              on 1 x 32768 tokens (1 warm-up, 2 timed steps): ms/step,
               tokens/s, MFU, each rank's peak, K2-K4 12 and 24 a step on
               ranks 0 and 1 and no plain run, beside the same tokens on
               one process (a ring of one); fp32 2 x 512, 3 AdamW steps,
@@ -259,6 +261,28 @@ no result line):
               runtime with the learner on the card, a runner SIGKILLed
               and replaced, then two learner actors at 0.5 GPU == the
               local learner (1e-4 / 1e-5); no runtime process outlives it.
+25. rl-offpolicy — RLlib's off-policy, offline, multi-agent and
+              model-based half, within 150 s, each part under its own
+              limit: (a) DQN on MinAtarBreakout-v0 at the config's
+              defaults, one local runner of 8 envs: env-steps/s, ms an
+              update, the learner's peak; one update card vs CPU with
+              TF32 switched on globally (loss 1e-5, gradients 1e-5 of
+              each leaf's largest, params 2 lr); (b) SAC on a numpy twin
+              of Pendulum-v1 (`PendulumTwin`; the card's machine has no
+              gymnasium) at the JAX test's config: the best mean of the
+              last 10 returns > -900 within 220 iterations, ms a fused
+              update, one fused update card vs CPU on fed normals; (c)
+              offline: both policies recorded to JSON lines, CQL from the
+              twin's file (a BC warm-up iteration, then critic_loss >
+              bellman_loss), BC and MARWIL from the MinAtar file (BC's
+              greedy actions match the recorded ones on >= 0.9 of the
+              rows); (d) MultiAgentPPO on the cooperative env
+              (`TargetMatchEnv`) over two runner actors, the learners on
+              the card: return > 9 after 25 iterations, no runtime
+              process left; (e) DreamerV3 on MinAtarFreeway-v0: the late
+              return above max(1.25 x random, random + 0.3) within 90
+              iterations, then one update at the default width timed and
+              its synchronizing calls counted.
 It prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then the result line
 {"ok": true, "device": {"platform": "gpu", ...}} last.
@@ -3612,6 +3636,10 @@ def _replaced(handle, old: set, timeout: float = 120.0) -> list:
                          f"in {timeout} s")
 
 
+TP_GANG_REQUESTS = 8       # (a)'s bf16 prompts besides the 4 sharing a page
+TP_GANG_BURST_TOKENS = 16  # (b)'s greedy tokens a request
+
+
 def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
                   disagg) -> dict:
     """tp = 2 replicas as gangs of two processes through the port's
@@ -3619,7 +3647,9 @@ def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
     tensor_parallelism=2 and num_gpus_per_replica=1.0: two ranks at 0.5
     GPU over gloo in one placement group (the replica's class the probe
     `ProbeServer`). llama-125m bf16 at the serve phase's engine shape,
-    phase 18's traffic from 36 client threads: both ranks take the same
+    TP_GANG_REQUESTS of phase 18's 127-token prompts and its 4 sharing a
+    page, 64 tokens each, from as many client threads: both ranks take the
+    same
     decode steps, K1 n_layers launches a step on each and no plain run.
     fp32: tokens through HTTP == the tp = 1 in-process engine's == a
     forward argmax; a LoRA adapter registered through the handle == an
@@ -3627,7 +3657,8 @@ def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
     replaced on the card and the next request exact. (b) the
     disaggregated pools as gangs (`DisaggConfig(prefill_replicas=1,
     decode_replicas=1)`, num_gpus_per_replica=0.5: four processes on the
-    card): a bf16 burst of 12 requests timed, K1 on both decode ranks,
+    card): a bf16 burst of those 12 requests (TP_GANG_BURST_TOKENS
+    tokens each) timed, K1 on both decode ranks,
     each one-page handoff as many bytes as phase 19's; fp32 tokens of the
     300-token prompt through HTTP == the monolithic engine's, its sealed
     handoff full width and within 1e-4 of the tp = 1 export. No runtime
@@ -3675,7 +3706,7 @@ def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
         boot_s = time.perf_counter() - t0
         if first["usage"]["completion_tokens"] != 4:
             raise AssertionError(f"first answer: {first}")
-        prompts = [text(126) for _ in range(32)]   # 127 tokens with BOS
+        prompts = [text(126) for _ in range(TP_GANG_REQUESTS)]  # 127 tokens
         shared = text(127)                         # BOS + 127: a page
         prompts += [shared + text(16) for _ in range(4)]
         before = _gang_reads(h, reset=True)
@@ -3795,13 +3826,14 @@ def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
         _post(url + "/v1/completions", {"prompt": "hello", "max_tokens": 4,
                                         "temperature": 0.0})
         boot_d = time.perf_counter() - t0
-        burst = prompts[:8] + prompts[32:]
+        burst = prompts
         before = _gang_reads(dec, reset=True)
         pre_before = _gang_reads(pre, reset=True)
         dec.probe.remote(reset=True).result(timeout_s=60)
         t0 = time.perf_counter()
         answers = _concurrently(lambda p: _post(url + "/v1/completions", {
-            "prompt": p, "max_tokens": 32, "temperature": 0.0}), burst)
+            "prompt": p, "max_tokens": TP_GANG_BURST_TOKENS,
+            "temperature": 0.0}), burst)
         wall_d = time.perf_counter() - t0
         dreads, preads = _gang_reads(dec), _gang_reads(pre)
         hand = dec.probe.remote().result(timeout_s=60)["handoff_bytes"]
@@ -3815,8 +3847,10 @@ def tp_gang_phase(torch, results, smi, serve_inproc, tp_inproc, http_phase,
             f"19: {disagg['handoff_bytes']} B a page); peak device memory "
             f"{[round(r['peak'] / 2**30, 3) for r in preads + dreads]} GiB "
             f"[{smi}]")
-        if any(a["usage"]["completion_tokens"] != 32 for a in answers):
-            raise AssertionError("a request did not finish with 32 tokens")
+        if any(a["usage"]["completion_tokens"] != TP_GANG_BURST_TOKENS
+               for a in answers):
+            raise AssertionError(f"a request did not finish with "
+                                 f"{TP_GANG_BURST_TOKENS} tokens")
         _check_gang_k1(dreads, before, model.n_layers, "tp=2 decode pool")
         if any(r[k]["plain"] for r in preads for k in
                ("k1", "verify", "verify_insert")) or any(
@@ -4254,6 +4288,7 @@ SP_EXACT_SEQ = 4096             # (a)'s check against the plain ring
 SP_TRAIN_SEQ = 32768            # (c): 1 x 32768 tokens a step
 SP_EXACT = (2, 512)             # (c) fp32: 2 x 512, 3 AdamW steps
 EP_TOKENS = (2, 1024)           # (d) mixtral_8x7b at depth 2, 3 steps
+SP_STEPS = (1, 2)               # (c) warm-up and timed steps a run
 PP_MICRO = (8, 2, 1024)         # (e) bf16: 8 microbatches of 2 x 1024
 PP_EXACT = (8, 16, 768)         # (e) fp32: 8 microbatches of 16 x 768
 SP_WORLD = 2
@@ -4416,7 +4451,7 @@ def _sp_attention(torch, res: dict, world: int) -> None:
 
 def _sp_train(torch, res: dict, world: int) -> None:
     """(c): the llama-125m ring train step at sp = world on 1 x
-    SP_TRAIN_SEQ tokens (2 warm-up, 5 timed steps, K2-K4 launches,
+    SP_TRAIN_SEQ tokens (SP_STEPS: 1 warm-up, 2 timed steps, K2-K4 launches,
     peak)."""
     import numpy as np
     import torch.distributed as dist
@@ -4435,11 +4470,11 @@ def _sp_train(torch, res: dict, world: int) -> None:
         np.random.default_rng(0).integers(0, cfg.vocab,
                                           (1, SP_TRAIN_SEQ + 1)),
         dtype=torch.int32, device="cuda")}
-    state, first, _ = _steps(torch, step, state, batch, 2)
+    state, first, _ = _steps(torch, step, state, batch, SP_STEPS[0])
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    state, losses, ms = _steps(torch, step, state, batch, 5)
+    state, losses, ms = _steps(torch, step, state, batch, SP_STEPS[1])
     res.update(train_losses=first + losses, train_ms=ms,
                train_counts=bwd_counts(),
                train_peak=torch.cuda.max_memory_allocated())
@@ -4709,12 +4744,14 @@ def parallel_phase(torch, results, smi) -> dict:
     batch = {"tokens": torch.tensor(
         np.random.default_rng(0).integers(0, cfg.vocab, (1, SP_TRAIN_SEQ + 1)),
         dtype=torch.int32, device="cuda")}
-    state, first, _ = _steps(torch, step, state, batch, 2)
+    state, first, _ = _steps(torch, step, state, batch, SP_STEPS[0])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    state, losses, ms = _steps(torch, step, state, batch, 5)
-    _expect_counts(bwd_counts(), cfg.n_layers * 5, "(c) one process")
-    out.update(one_ms=sorted(ms)[2], one_peak=torch.cuda.max_memory_allocated(),
+    state, losses, ms = _steps(torch, step, state, batch, SP_STEPS[1])
+    _expect_counts(bwd_counts(), cfg.n_layers * SP_STEPS[1],
+                   "(c) one process")
+    out.update(one_ms=sorted(ms)[SP_STEPS[1] // 2],
+               one_peak=torch.cuda.max_memory_allocated(),
                one_losses=first + losses)
     del state
     torch.cuda.empty_cache()
@@ -4779,14 +4816,15 @@ def parallel_phase(torch, results, smi) -> dict:
     fpt = flops_per_token(cfg, seq)
     for r in range(SP_WORLD):
         g_r = got[r]
-        _expect_counts(g_r["train_counts"], 5 * cfg.n_layers * (r + 1),
-                       f"(c) rank {r} over 5 steps")
+        _expect_counts(g_r["train_counts"],
+                       SP_STEPS[1] * cfg.n_layers * (r + 1),
+                       f"(c) rank {r} over {SP_STEPS[1]} steps")
         if not all(math.isfinite(x) for x in g_r["train_losses"]):
             raise AssertionError(f"(c) rank {r} losses {g_r['train_losses']}")
-    step_ms = sorted(got[0]["train_ms"])[2]
+    step_ms = sorted(got[0]["train_ms"])[SP_STEPS[1] // 2]
     tps, one_tps = seq / step_ms * 1e3, seq / out["one_ms"] * 1e3
     log(f"  (c) llama-125m bf16 attn_impl='ring', 1 x {seq} tokens a step, "
-        f"sp = 2: {step_ms:.1f} ms/step (median of 5; "
+        f"sp = 2: {step_ms:.1f} ms/step (upper median of {SP_STEPS[1]}; "
         f"{', '.join(f'{x:.1f}' for x in got[0]['train_ms'])}), "
         f"{tps:.1f} tokens/s, MFU {100 * fpt * tps / PEAK_FLOPS['bfloat16']:.2f}"
         f" % ({fpt / 1e9:.3f} GFLOP/token at {seq}); peaks "
@@ -5713,6 +5751,571 @@ def rl_phase(torch, smi) -> dict:
     return out
 
 
+# ---- phase 25, rl-offpolicy: RLlib's off-policy, offline, multi-agent
+# and model-based half ----
+
+RL2_BUDGET_S = 150         # the phase's budget; each part's own limit
+# guards against a stuck part with room for the slowest hosts seen (the
+# same code ran 1.3-1.5x slower on some), so the limits sum past the
+# budget, which the phase's total is held to
+RL2_PART_S = {"a": 10, "b": 65, "c": 10, "d": 35, "e": 60}
+PENDULUM_TWIN = "PendulumTwin-v1"
+
+
+class PendulumTwin:
+    """A numpy copy of gymnasium's Pendulum-v1 (g 10, m 1, l 1, max speed
+    8, max torque 2, dt 0.05, reward -(theta^2 + 0.1 thetadot^2 + 0.001
+    u^2) with theta wrapped to [-pi, pi), truncated after 200 steps), for
+    the card's machine, which has no gymnasium. Test equipment for phase
+    25, registered as PENDULUM_TWIN in the port's env registry; `reset`
+    seeds numpy's PCG64 as gymnasium's `np_random` does."""
+
+    MAX_SPEED, MAX_TORQUE, DT, G, M, L = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0
+
+    def __init__(self, max_episode_steps: int = 200):
+        import numpy as np
+        from ray_tpu_torch.rllib.env.base import Box
+        high = np.array([1.0, 1.0, self.MAX_SPEED], dtype=np.float32)
+        self.observation_space = Box(-high, high, (3,), np.float32)
+        self.action_space = Box(-self.MAX_TORQUE, self.MAX_TORQUE, (1,),
+                                np.float32)
+        self.max_episode_steps = max_episode_steps
+        self._rng = np.random.default_rng()
+        self.state = None
+        self._t = 0
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self._t = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        import numpy as np
+        th, thdot = self.state
+        return np.array([np.cos(th), np.sin(th), thdot], dtype=np.float32)
+
+    def step(self, u):
+        import numpy as np
+        th, thdot = self.state
+        g, m, l, dt = self.G, self.M, self.L, self.DT
+        u = np.clip(u, -self.MAX_TORQUE, self.MAX_TORQUE)[0]
+        costs = ((((th + np.pi) % (2 * np.pi)) - np.pi) ** 2
+                 + 0.1 * thdot ** 2 + 0.001 * (u ** 2))
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l ** 2) * u) * dt
+        newthdot = np.clip(newthdot, -self.MAX_SPEED, self.MAX_SPEED)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._t += 1
+        return (self._obs(), -costs, False, self._t >= self.max_episode_steps,
+                {})
+
+    def close(self):
+        pass
+
+
+class TargetMatchEnv:
+    """A copy of the JAX package's cooperative test env
+    (tests/test_rllib.py `_TargetMatchEnv`) on the port's spaces: each of
+    two agents sees a one-hot target and is rewarded 1 for choosing the
+    matching action; episodes of 8 steps. Module-level, so runner actors
+    unpickle it by name."""
+
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self, n: int = 4, seed: int = 0):
+        import numpy as np
+        from ray_tpu_torch.rllib.env.base import Box, Discrete
+        self.n = n
+        self._rng = np.random.default_rng(seed)
+        box = Box(low=0.0, high=1.0, shape=(n,), dtype=np.float32)
+        self.observation_spaces = {a: box for a in self.possible_agents}
+        self.action_spaces = {a: Discrete(n) for a in self.possible_agents}
+        self._t = 0
+
+    def _obs(self):
+        import numpy as np
+        out = {}
+        self._targets = {}
+        for a in self.possible_agents:
+            tgt = int(self._rng.integers(self.n))
+            self._targets[a] = tgt
+            v = np.zeros(self.n, np.float32)
+            v[tgt] = 1.0
+            out[a] = v
+        return out
+
+    def reset(self, *, seed=None, options=None):
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action_dict):
+        rew = {a: float(action_dict[a] == self._targets[a])
+               for a in self.possible_agents}
+        self._t += 1
+        done = self._t >= 8
+        obs = self._obs()
+        terms = {a: done for a in self.possible_agents}
+        terms["__all__"] = done
+        truncs = {a: False for a in self.possible_agents}
+        truncs["__all__"] = False
+        return obs, rew, terms, truncs, {}
+
+    def close(self):
+        pass
+
+
+def _rl2_max_err(a_list, b_list) -> float:
+    return max(float(abs(a - b).max()) for a, b in zip(a_list, b_list))
+
+
+def _dqn_card_vs_cpu(torch, algo) -> dict:
+    """(a) one DQN update (double Q, the target tree in the batch) from
+    the same weights and batch on the card and on the CPU, TF32 switched
+    on globally so that only the learner's own fp32 scoping holds it:
+    the loss (1e-5 relative), each gradient leaf (1e-5 of its largest
+    entry) and the params after the Adam step (2 lr: Adam's first step
+    moves an entry by about lr whatever its gradient's size)."""
+    from ray_tpu_torch.rllib.core.learner import Learner, to_device
+    from ray_tpu_torch.rllib.core.rl_module import params_to_numpy
+    c = algo.config
+    batch = algo.buffer.sample(c.train_batch_size)
+    weights = algo.get_weights()
+    target = params_to_numpy(algo.target_params)
+    runs = []
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev in ("cuda", "cpu"):
+            ln = Learner(algo.module, algo._loss_fn(), lr=c.lr,
+                         grad_clip=c.grad_clip, loss_cfg=algo._loss_cfg(),
+                         device=dev)
+            ln.set_weights(weights)
+            loss, _aux, grads = ln.grads(to_device(
+                {**batch, "target_params": target}, ln.device))
+            ln.apply(grads)
+            runs.append((float(loss), [g.cpu().numpy() for g in grads],
+                         [p.detach().cpu().numpy() for p in ln._leaves]))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    (lc, gc, pc), (lh, gh, ph) = runs
+    loss_err = abs(lc - lh) / max(1.0, abs(lh))
+    grad_err = max(float(abs(a - b).max()) / max(1e-12, float(abs(b).max()))
+                   for a, b in zip(gc, gh))
+    param_err = _rl2_max_err(pc, ph)
+    if loss_err > 1e-5 or grad_err > 1e-5 or param_err > 2 * c.lr:
+        raise AssertionError(f"(a) DQN card vs CPU: loss {loss_err:.3e} "
+                             f"(1e-5), grads {grad_err:.3e} (1e-5 of each "
+                             f"leaf's largest), params {param_err:.3e} "
+                             f"(2 lr)")
+    return dict(loss_err=loss_err, grad_err=grad_err, param_err=param_err)
+
+
+def _sac_card_vs_cpu(torch, algo) -> dict:
+    """(b) one fused SAC update (critic, actor, alpha, polyak) of the
+    trained state on the card and on the CPU, the same batch and the same
+    normals fed: metrics 1e-5 relative, params and targets within 2 lr."""
+    import numpy as np
+    from ray_tpu_torch.rllib import SACConfig
+    from ray_tpu_torch.rllib.core.learner import read_metrics, to_device
+    from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+    c = algo.config
+    cpu = (SACConfig().environment(env=PENDULUM_TWIN)
+           .training(lr=c.lr, train_batch_size=c.train_batch_size)
+           .learners(device="cpu").debugging(seed=0)).build_algo()
+    try:
+        cpu.learner_group.set_weights(algo.get_weights())
+        cpu._load_extra_state(algo._extra_state(), None)
+        batch = algo.buffer.sample(c.train_batch_size)
+        gen = torch.Generator().manual_seed(3)
+        noise = {k: torch.randn((c.train_batch_size, 1), generator=gen)
+                 for k in ("next", "actor")}
+        out = []
+        for a in (algo, cpu):
+            m = read_metrics(a._update(
+                to_device(batch, a.device),
+                {k: v.to(a.device) for k, v in noise.items()}))
+            out.append((m, [p.detach().cpu().numpy() for p in
+                            tree_leaves(a.params)
+                            + tree_leaves(a.target_params)]))
+    finally:
+        cpu.stop()
+    (mc, pc), (mh, ph) = out
+    metric_err = max(abs(mc[k] - mh[k]) / max(1.0, abs(mh[k])) for k in mh)
+    param_err = _rl2_max_err(pc, ph)
+    if metric_err > 1e-5 or param_err > 2 * c.lr or not np.isfinite(
+            param_err):
+        raise AssertionError(f"(b) SAC card vs CPU: metrics "
+                             f"{metric_err:.3e} (1e-5), params and targets "
+                             f"{param_err:.3e} (2 lr)")
+    return dict(metric_err=metric_err, param_err=param_err)
+
+
+def _returns_to_go(rows, gamma: float = 0.99) -> None:
+    """Each row's discounted return to the end of its episode, in place
+    (rows in time order, one env)."""
+    acc = 0.0
+    for r in reversed(rows):
+        acc = r["rewards"] + gamma * (1.0 - r["dones"]) * acc
+        r["returns"] = acc
+
+
+def _write_jsonl(rows, path: str) -> None:
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+
+def _freeway_random(episodes: int = 12, max_steps: int = 150) -> float:
+    """The random policy's mean return on MinAtarFreeway-v0 (the JAX
+    score-gate test's baseline: numpy's default_rng(0), episodes seeded
+    0..11)."""
+    import numpy as np
+    from ray_tpu_torch.rllib.env.base import make
+    env = make("MinAtarFreeway-v0", max_steps=max_steps)
+    rng = np.random.default_rng(0)
+    rets = []
+    for ep in range(episodes):
+        env.reset(seed=ep)
+        total = 0.0
+        for _ in range(max_steps):
+            _o, r, term, trunc, _ = env.step(int(rng.integers(0, 3)))
+            total += r
+            if term or trunc:
+                break
+        rets.append(total)
+    return float(np.mean(rets))
+
+
+def rl_offpolicy_phase(torch, smi) -> dict:
+    """RLlib's off-policy, offline, multi-agent and model-based half
+    (`ray_tpu_torch.rllib`) on the card, within RL2_BUDGET_S, each part
+    under its own limit (RL2_PART_S). (a) DQN on MinAtarBreakout-v0 at the
+    config's defaults (hidden 64, 64, batch 32, 32 updates an iteration,
+    learning after 1000 steps), one local runner of 8 envs acting on the
+    CPU: env-steps/s, ms an update, the learner's peak; one update card
+    vs CPU. (b) SAC on the Pendulum twin at the JAX test's config (64
+    steps and 64 updates of 128 rows an iteration, learning after 500
+    steps): the best mean of the last 10 returns > -900 within 220
+    iterations; ms an update; one fused update card vs CPU. (c) offline:
+    (b)'s policy and (a)'s greedy policy recorded to JSON lines; CQL from
+    the twin's file (a BC warm-up iteration, then two conservative ones:
+    finite losses, critic_loss > bellman_loss), BC and MARWIL from the
+    MinAtar file (BC's greedy actions match the recorded ones on >= 0.9
+    of the rows). (d) MultiAgentPPO on the cooperative
+    env over two runner actors, the learners on the card: the JAX test's
+    bar (return > 9 after 25 iterations); no runtime process outlives it.
+    (e) DreamerV3 on MinAtarFreeway-v0 (max_steps 150) at the score-gate
+    test's config: the late mean return above max(1.25 x random, random
+    + 0.3) within 90 iterations; then one update at the default width
+    (deter 256, hidden 256, 16 x 16 latents, B 8, T 32, H 10) timed, its
+    synchronizing calls counted."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, DQNConfig,
+                                     DreamerV3Config, MARWILConfig,
+                                     MultiAgentPPOConfig, SACConfig)
+    from ray_tpu_torch.rllib.core.learner import to_device
+    from ray_tpu_torch.rllib.env.base import register
+    from ray_tpu_torch.rllib.offline import record_transitions
+    me = importlib.import_module("chip_smoke")
+    register(PENDULUM_TWIN, me.PendulumTwin)
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="offline-", dir=os.path.join(ROOT, "tmp"))
+    out: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        # (a) DQN over a host runner, the learner on the card
+        with _TimeLimit(RL2_PART_S["a"], "25 a") as tl:
+            dqn = (DQNConfig().environment(env="MinAtarBreakout-v0")
+                   .env_runners(num_env_runners=0, num_envs_per_env_runner=8,
+                                rollout_fragment_length=32)
+                   .debugging(seed=0)).build_algo()
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(4):        # 1024 steps: learning starts
+                    dqn.train()
+                sps, iter_ms, last, results = _rl_timed(dqn, 3)
+                peak = torch.cuda.max_memory_allocated()
+                if not all(math.isfinite(x["total_loss"]) for x in results):
+                    raise AssertionError(f"(a) DQN losses: {results}")
+                if not all(p.is_cuda for p in
+                           _leaves(dqn.learner_group.local.params)):
+                    raise AssertionError("(a) DQN learner params off CUDA")
+                batch = dqn.buffer.sample(dqn.config.train_batch_size)
+                batch["target_params"] = dqn.target_params
+                t0 = time.perf_counter()
+                for _ in range(32):
+                    dqn.learner_group.update(batch)
+                update_ms = (time.perf_counter() - t0) / 32 * 1e3
+                ex_a = _dqn_card_vs_cpu(torch, dqn)
+                dqn_weights, dqn_module = dqn.get_weights(), dqn.module
+            finally:
+                dqn.stop()
+        out["a"] = dict(sps=sps, iter_ms=iter_ms, update_ms=update_ms,
+                        peak=peak, s=tl.s, **ex_a)
+        log(f"  (a) DQN MinAtarBreakout-v0, 8 envs on one local runner (CPU "
+            f"acting), 32 updates of 32 rows an iteration: {sps:.1f} "
+            f"env-steps/s, {iter_ms:.1f} ms an iteration, "
+            f"{update_ms:.3f} ms an update (its host read included), "
+            f"learner peak {peak / 2**20:.1f} MiB, td_error_mean "
+            f"{last['td_error_mean']:.4f}; card vs CPU (TF32 on globally): "
+            f"loss {ex_a['loss_err']:.2e} (1e-5), grads "
+            f"{ex_a['grad_err']:.2e} (1e-5 of each leaf's largest), params "
+            f"{ex_a['param_err']:.2e} (2 lr); {tl.s:.1f} s [{smi}]")
+
+        # (b) SAC on the Pendulum twin
+        with _TimeLimit(RL2_PART_S["b"], "25 b") as tl:
+            sac = (SACConfig().environment(env=PENDULUM_TWIN)
+                   .env_runners(num_env_runners=0, num_envs_per_env_runner=1,
+                                rollout_fragment_length=64)
+                   .training(lr=3e-4, train_batch_size=128,
+                             num_updates_per_iter=64,
+                             num_steps_sampled_before_learning_starts=500)
+                   .debugging(seed=0)).build_algo()
+            try:
+                runner = sac.env_runner_group.local
+                best, iters = -1e9, 0
+                t0 = time.perf_counter()
+                for i in range(220):
+                    r = sac.train()
+                    iters = i + 1
+                    if i >= 80 and runner.completed_returns:
+                        best = max(best, float(np.mean(
+                            runner.completed_returns[-10:])))
+                        if best > -900.0:
+                            break
+                train_s = time.perf_counter() - t0
+                if not best > -900.0:
+                    raise AssertionError(f"(b) SAC on the Pendulum twin: "
+                                         f"best mean of the last 10 returns "
+                                         f"{best:.1f} <= -900 after {iters} "
+                                         f"iterations")
+                batch = to_device(sac.buffer.sample(128), sac.device)
+                sac._update(batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(64):
+                    sac._update(batch)
+                torch.cuda.synchronize()
+                sac_update_ms = (time.perf_counter() - t0) / 64 * 1e3
+                ex_b = _sac_card_vs_cpu(torch, sac)
+                sac_weights, sac_module = sac.get_weights(), sac.module
+                alpha = r.get("alpha", float("nan"))
+            finally:
+                sac.stop()
+        out["b"] = dict(best=best, iters=iters, train_s=train_s,
+                        update_ms=sac_update_ms, s=tl.s, **ex_b)
+        log(f"  (b) SAC on the Pendulum twin (64 steps and 64 updates of 128 "
+            f"rows an iteration): best mean of the last 10 returns "
+            f"{best:.1f} (gate > -900) after {iters} iterations, "
+            f"{iters * 64} env steps, in {train_s:.1f} s; alpha {alpha:.4f};"
+            f" {sac_update_ms:.3f} ms a fused update (critic, actor, alpha, "
+            f"polyak; no host read); card vs CPU on fed normals: metrics "
+            f"{ex_b['metric_err']:.2e} (1e-5), params and targets "
+            f"{ex_b['param_err']:.2e} (2 lr); {tl.s:.1f} s")
+
+        # (c) offline: record, then CQL, BC and MARWIL from files
+        with _TimeLimit(RL2_PART_S["c"], "25 c") as tl:
+            twin_path = os.path.join(tmp, "pendulum.json")
+            twin_rows = record_transitions(
+                PENDULUM_TWIN, sac_module, sac_weights, num_steps=1000,
+                path=twin_path, fmt="json", seed=1)
+            atari_rows = record_transitions(
+                "MinAtarBreakout-v0", dqn_module, dqn_weights,
+                num_steps=2000, seed=1, explore=False)
+            _returns_to_go(atari_rows)
+            atari_path = os.path.join(tmp, "breakout.json")
+            _write_jsonl(atari_rows, atari_path)
+            cql = (CQLConfig().environment(env=PENDULUM_TWIN)
+                   .offline_data(input_=twin_path)
+                   .training(lr=3e-4, train_batch_size=64,
+                             num_updates_per_iter=8, cql_alpha=1.0,
+                             num_ood_actions=3, bc_iters=1)
+                   .debugging(seed=0)).build_algo()
+            try:
+                cql_res = [cql.train() for _ in range(3)]
+                cql_eval = cql.evaluate(200)["episode_return_mean"]
+            finally:
+                cql.stop()
+            for k in ("critic_loss", "actor_loss", "bellman_loss"):
+                if not all(math.isfinite(x[k]) for x in cql_res):
+                    raise AssertionError(f"(c) CQL {k}: {cql_res}")
+            gap = cql_res[-1]["critic_loss"] - cql_res[-1]["bellman_loss"]
+            if not gap > 0:
+                raise AssertionError(f"(c) CQL: critic_loss <= bellman_loss "
+                                     f"({cql_res[-1]})")
+            offline = {}
+            for name, cls in (("BC", BCConfig), ("MARWIL", MARWILConfig)):
+                algo = (cls().environment(env="MinAtarBreakout-v0")
+                        .offline_data(input_=atari_path)
+                        .training(lr=1e-3, minibatch_size=128, num_epochs=2)
+                        .debugging(seed=0)).build_algo()
+                try:
+                    res = [algo.train() for _ in range(3)]
+                    with torch.no_grad():
+                        logits, _ = algo.module.forward(
+                            algo.learner_group.local.params,
+                            torch.as_tensor(algo._obs, device="cuda"))
+                    agree = float((logits.argmax(-1).cpu().numpy()
+                                   == algo._actions).mean())
+                finally:
+                    algo.stop()
+                if not all(math.isfinite(x["total_loss"]) for x in res):
+                    raise AssertionError(f"(c) {name} losses: {res}")
+                offline[name] = ([x["total_loss"] for x in res], agree)
+            bc, bc_agree = offline["BC"]
+            if not bc_agree >= 0.9:
+                raise AssertionError(f"(c) BC's greedy actions match the "
+                                     f"recorded ones on {bc_agree:.3f} of "
+                                     f"the rows (< 0.9)")
+        out["c"] = dict(gap=gap, cql_eval=cql_eval, offline=offline, s=tl.s)
+        log(f"  (c) offline: {len(twin_rows)} twin rows (SAC's policy) and "
+            f"{len(atari_rows)} MinAtarBreakout rows (DQN's greedy policy, "
+            f"returns to go added) as JSON lines; CQL from the twin's file, "
+            f"a BC warm-up iteration then two conservative (3 OOD actions): "
+            f"critic_loss {cql_res[-1]['critic_loss']:.3f} > bellman_loss "
+            f"{cql_res[-1]['bellman_loss']:.3f}, actor_loss "
+            f"{cql_res[-1]['actor_loss']:.3f}, an evaluation return "
+            f"{cql_eval:.1f}; from the MinAtar file BC's loss "
+            f"{[round(x, 4) for x in bc]}, its greedy actions == the "
+            f"recorded ones on {bc_agree:.3f} of the rows (gate >= 0.9); "
+            f"MARWIL's loss {[round(x, 4) for x in offline['MARWIL'][0]]}, "
+            f"agreement {offline['MARWIL'][1]:.3f}; {tl.s:.1f} s")
+
+        # (d) multi-agent PPO over two runner actors
+        with _TimeLimit(RL2_PART_S["d"], "25 d") as tl:
+            rt.init(num_cpus=8, object_store_memory=256 << 20)
+            try:
+                mappo = (MultiAgentPPOConfig().environment(
+                            env=me.TargetMatchEnv)
+                         .env_runners(num_env_runners=2,
+                                      rollout_fragment_length=128)
+                         .training(lr=3e-3, minibatch_size=64, num_epochs=4)
+                         .debugging(seed=0)).build_algo()
+                try:
+                    t0 = time.perf_counter()
+                    last = mappo.train()
+                    boot_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    for _ in range(24):
+                        last = mappo.train()
+                    iter_ms = (time.perf_counter() - t0) / 24 * 1e3
+                    on_card = all(p.is_cuda for ln in mappo.learners.values()
+                                  for p in ln._leaves)
+                finally:
+                    mappo.stop()
+            finally:
+                rt.shutdown()
+            deadline = time.monotonic() + 15
+            while _runtime_processes() and time.monotonic() < deadline:
+                time.sleep(0.5)
+            left = _runtime_processes()
+            if left:
+                raise AssertionError(f"(d) runtime processes outlived "
+                                     f"shutdown: {left}")
+            if not on_card:
+                raise AssertionError("(d) a policy's learner is off CUDA")
+            if not (last["episode_return_mean"] > 9.0
+                    and "a0/total_loss" in last and "a1/total_loss" in last):
+                raise AssertionError(f"(d) MultiAgentPPO: {last}")
+        out["d"] = dict(ret=last["episode_return_mean"], boot_s=boot_s,
+                        iter_ms=iter_ms, s=tl.s)
+        log(f"  (d) MultiAgentPPO on the cooperative env, two runner actors, "
+            f"a learner a policy on the card: episode return "
+            f"{last['episode_return_mean']:.2f} after 25 iterations (bar > "
+            f"9; random play ~4); first iteration (runners booting) "
+            f"{boot_s:.2f} s, then {iter_ms:.1f} ms an iteration; no "
+            f"runtime process left; {tl.s:.1f} s")
+
+        # (e) DreamerV3
+        with _TimeLimit(RL2_PART_S["e"], "25 e") as tl:
+            rand = _freeway_random()
+            gate = max(1.25 * rand, rand + 0.3)
+            config = (DreamerV3Config()
+                      .environment(env="MinAtarFreeway-v0",
+                                   env_config={"max_steps": 150})
+                      .training(batch_size_B=16, batch_length_T=16,
+                                num_updates_per_iter=16, horizon_H=15,
+                                entropy_scale=1e-3, actor_critic_lr=1e-3,
+                                model_size={"deter": 64, "hidden": 64,
+                                            "classes": 8, "groups": 8})
+                      .debugging(seed=0))
+            config.num_envs = 8
+            algo = config.build_algo()
+            try:
+                scores = []
+                t0 = time.perf_counter()
+                for it in range(90):
+                    r = algo.train()
+                    if "episode_return_mean" in r:
+                        scores.append(r["episode_return_mean"])
+                    if len(scores) >= 3 and float(np.mean(scores[-3:])) > gate:
+                        break
+                score_s = time.perf_counter() - t0
+                late = float(np.mean(scores[-3:])) if scores else float("nan")
+                if not all(math.isfinite(r[k]) for k in
+                           ("world_model_loss", "actor_loss", "critic_loss")):
+                    raise AssertionError(f"(e) DreamerV3 losses: {r}")
+                if not late > gate:
+                    raise AssertionError(
+                        f"(e) DreamerV3 late return {late:.3f} <= "
+                        f"{gate:.3f} (random {rand:.3f}): {scores}")
+            finally:
+                algo.stop()
+            wide = (DreamerV3Config()
+                    .environment(env="MinAtarFreeway-v0",
+                                 env_config={"max_steps": 150})
+                    .debugging(seed=0)).build_algo()
+            try:
+                wide._collect(wide.config.batch_length_T)
+                batch = wide._replay_batch(np.arange(wide.config.batch_size_B))
+                wide._update(batch)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    m = wide._update(batch)
+                torch.cuda.synchronize()
+                wide_ms = (time.perf_counter() - t0) / 3 * 1e3
+                wide_peak = torch.cuda.max_memory_allocated()
+                syncs = _rl_syncs(torch, lambda: wide._update(batch))
+                if not math.isfinite(float(m["world_model_loss"])):
+                    raise AssertionError(f"(e) default width: {m}")
+            finally:
+                wide.stop()
+        out["e"] = dict(late=late, rand=rand, iters=it + 1, score_s=score_s,
+                        wide_ms=wide_ms, wide_peak=wide_peak,
+                        syncs=len(syncs), s=tl.s)
+        log(f"  (e) DreamerV3 MinAtarFreeway-v0 (max_steps 150, B 16, T 16, "
+            f"H 15, 16 updates an iteration, deter 64): late mean return "
+            f"{late:.3f} (gate > {gate:.3f}; random {rand:.3f}) after "
+            f"{it + 1} iterations in {score_s:.1f} s; default width (deter "
+            f"256, hidden 256, 16 x 16 latents, B 8, T 32, H 10): "
+            f"{wide_ms:.1f} ms an update, peak {wide_peak / 2**20:.1f} MiB, "
+            f"{len(syncs)} synchronizing call(s) in an update"
+            + (f" ({syncs[0][:90]})" if syncs else "")
+            + f"; {tl.s:.1f} s [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["s"] = time.perf_counter() - t_phase
+    if out["s"] > RL2_BUDGET_S:
+        raise AssertionError(f"rl-offpolicy phase took {out['s']:.1f} s, "
+                             f"past its {RL2_BUDGET_S} s budget")
+    return out
+
+
 def trace_padded_call(torch, what: str, fn, iters: int, smi: str) -> None:
     """What a padded-width call costs, by torch.profiler's device trace:
     each kernel's device time a call (the pads, the kernel, the cut), and
@@ -5990,13 +6593,13 @@ def main() -> int:
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/24] device: {name}; nvidia-smi: {smi}; torch "
+    log(f"[1/25] device: {name}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build_logs = _build.build_all()
-    log(f"[2/24] build: {len(build_logs)} kernels in "
+    log(f"[2/25] build: {len(build_logs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
         # ptxas -v reports, per kernel instantiation, an entry line, a
@@ -6033,7 +6636,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    log("[3/24] kernels against their plain versions")
+    log("[3/25] kernels against their plain versions")
     check_k1(torch, results)
     check_verify(torch, results)
     check_k2(torch, results)
@@ -6042,7 +6645,7 @@ def main() -> int:
     log(f"  kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[4/24] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
+    log("[4/25] serve: llama-125m bf16, 36 requests x 64 greedy tokens")
     serve, eng, prompts = serve_phase(torch, results, smi)
     log(f"  serve phase {time.perf_counter() - t0:.1f} s; decode "
         f"{serve['tokens_per_s']:.1f} tokens/s, wall {serve['wall_s']:.3f} s,"
@@ -6055,7 +6658,7 @@ def main() -> int:
     log(f"  profile phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[5/24] spec-serve: llama-125m bf16, the same 36 requests, ngram "
+    log("[5/25] spec-serve: llama-125m bf16, the same 36 requests, ngram "
         "speculation, spec_k 4")
     spec = spec_serve_phase(torch, results, smi, eng.params, serve)
     log(f"  spec-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -6065,18 +6668,18 @@ def main() -> int:
     serve_params = eng.params
     del eng
     t0 = time.perf_counter()
-    log("[6/24] exact: llama-125m fp32, engine vs forward (flash kernel)")
+    log("[6/25] exact: llama-125m fp32, engine vs forward (flash kernel)")
     exact_phase(torch, results)
     log(f"  exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[7/24] spec-exact: llama-125m fp32, speculative vs plain engine vs "
+    log("[7/25] spec-exact: llama-125m fp32, speculative vs plain engine vs "
         "forward")
     spec_exact_phase(torch)
     log(f"  spec-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log(f"[8/24] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+    log(f"[8/25] train: llama-125m bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"adamw(3e-4)")
     torch.cuda.empty_cache()
     train = train_phase(torch, results, smi)
@@ -6085,19 +6688,19 @@ def main() -> int:
         f"tokens/s, MFU {100 * train['mfu']:.2f} %")
 
     t0 = time.perf_counter()
-    log("[9/24] train-exact: llama-125m fp32, kernels vs plain attention")
+    log("[9/25] train-exact: llama-125m fp32, kernels vs plain attention")
     torch.cuda.empty_cache()
     train_exact_phase(torch)
     log(f"  train-exact phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[10/24] tiny: configs.tiny() (head_dim 16) through the engine, the "
+    log("[10/25] tiny: configs.tiny() (head_dim 16) through the engine, the "
         "speculative engine and the train step")
     tiny_phase(torch)
     log(f"  tiny phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[11/24] guided: llama-125m bf16, the serve phase's 32 prompts, half "
+    log("[11/25] guided: llama-125m bf16, the serve phase's 32 prompts, half "
         "under a JSON-schema guide; fp32 against masked forward argmax")
     guide = guided_phase(torch, smi, serve_params, serve)
     log(f"  guided phase {time.perf_counter() - t0:.1f} s; "
@@ -6107,7 +6710,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[12/24] handoff: prefill engine -> import_kv + resume_token, "
+    log("[12/25] handoff: prefill engine -> import_kv + resume_token, "
         "llama-125m, 300-token prompts")
     hand = handoff_phase(torch, smi)
     log(f"  handoff phase {time.perf_counter() - t0:.1f} s; "
@@ -6117,7 +6720,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[13/24] dense: kv_layout='dense', llama-125m, fp32 against the "
+    log("[13/25] dense: kv_layout='dense', llama-125m, fp32 against the "
         "paged engine, bf16 timed")
     dense = dense_phase(torch, smi, serve)
     log(f"  dense phase {time.perf_counter() - t0:.1f} s; "
@@ -6128,7 +6731,7 @@ def main() -> int:
     from ray_tpu_torch.parallel import MeshConfig, make_mesh
     t0 = time.perf_counter()
     mesh = make_mesh(MeshConfig(fsdp=1))
-    log(f"[14/24] sharded-train: llama-125m over {mesh} (a process group "
+    log(f"[14/25] sharded-train: llama-125m over {mesh} (a process group "
         f"of one), bf16 {TRAIN_BATCH} x {TRAIN_SEQ} timed, fp32 2 x 256 "
         f"against the unsharded step")
     sharded = sharded_train_phase(torch, smi, train, mesh)
@@ -6138,7 +6741,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[15/24] checkpoint: the sharded bf16 state after step 5 through "
+    log("[15/25] checkpoint: the sharded bf16 state after step 5 through "
         "the manifest path, restored into a fresh state")
     ck = checkpoint_phase(torch, smi, mesh)
     log(f"  checkpoint phase {time.perf_counter() - t0:.1f} s; save "
@@ -6148,7 +6751,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("[16/24] tp-serve: tp=2 as two processes on the one card over gloo, "
+    log("[16/25] tp-serve: tp=2 as two processes on the one card over gloo, "
         "llama-125m")
     tps = tp_serve_phase(torch, smi, serve)
     log(f"  tp-serve phase {time.perf_counter() - t0:.1f} s; "
@@ -6156,7 +6759,7 @@ def main() -> int:
         f"at tp=1")
 
     t0 = time.perf_counter()
-    log("[17/24] trainer: the port's runtime and Trainer, llama-125m on a "
+    log("[17/25] trainer: the port's runtime and Trainer, llama-125m on a "
         "worker holding the card")
     tr = trainer_phase(torch, smi, train)
     log(f"  trainer phase {time.perf_counter() - t0:.1f} s; "
@@ -6168,7 +6771,7 @@ def main() -> int:
         results[kernel]["trainer_launches"] = tr["counts"][key]["cuda"]
 
     t0 = time.perf_counter()
-    log("[18/24] serve-runtime: serve.run(build_openai_app(...)) on the "
+    log("[18/25] serve-runtime: serve.run(build_openai_app(...)) on the "
         "port's runtime, a replica holding the card, HTTP on a free port; "
         "llama-125m bf16 timed, fp32 and a LoRA adapter exact")
     sr = serve_runtime_phase(torch, results, smi, serve)
@@ -6179,7 +6782,7 @@ def main() -> int:
         f"peak {sr['peak'] / 2**30:.3f} GiB")
 
     t0 = time.perf_counter()
-    log("[19/24] disagg: serve.run(build_disagg_openai_app(...)) on the "
+    log("[19/25] disagg: serve.run(build_disagg_openai_app(...)) on the "
         "port's runtime, a prefill worker and two decode replicas sharing "
         "the card, HTTP on a free port; llama-125m bf16 timed, fp32 exact "
         "with a handoff check, a decode replica killed mid-stream and a "
@@ -6194,7 +6797,7 @@ def main() -> int:
         f"{dg['handoff_bytes']} B a request")
 
     t0 = time.perf_counter()
-    log("[20/24] tp-gang: tensor_parallelism=2 replicas as gangs of two "
+    log("[20/25] tp-gang: tensor_parallelism=2 replicas as gangs of two "
         "processes through the port's runtime: build_openai_app (bf16 "
         "timed, fp32 and a LoRA adapter exact, a follower killed and the "
         "gang replaced) and both disaggregated pools (a bf16 burst, fp32 "
@@ -6208,7 +6811,7 @@ def main() -> int:
         f" the pools at tp=2 {tg['disagg_tokens_per_s']:.1f} tokens/s")
 
     t0 = time.perf_counter()
-    log("[21/24] data: the data library on the port's runtime: "
+    log("[21/25] data: the data library on the port's runtime: "
         "build_llm_processor over 256 prompts (llama-125m bf16, an engine "
         "actor holding the card; fp32 exact through two actors at 0.5 "
         "GPU) and the Trainer fed by iter_torch_batches(device='cuda')")
@@ -6220,7 +6823,7 @@ def main() -> int:
         f"{tr['step_ms']:.2f} through phase 17's trainer")
 
     t0 = time.perf_counter()
-    log("[22/24] parallel: sequence, expert and pipeline parallelism: the "
+    log("[22/25] parallel: sequence, expert and pipeline parallelism: the "
         "kernel ring at bench_sp_ring's 32768 tokens on one process; sp = 2, "
         "ep = 2 and pp = 2 as two processes over gloo on the one card "
         "(ring and Ulysses attention, the llama-125m ring train step at "
@@ -6233,7 +6836,7 @@ def main() -> int:
         f"over two")
 
     t0 = time.perf_counter()
-    log("[23/24] dag: compiled graphs, channels and collectives through the "
+    log("[23/25] dag: compiled graphs, channels and collectives through the "
         "port's runtime, two stage actors at 0.5 GPU: a CUDA tensor hop, "
         "the compiled two-stage llama-125m forward over a tensor channel, "
         "allreduce, broadcast and barrier of CUDA tensors; the Trainer fed "
@@ -6245,7 +6848,7 @@ def main() -> int:
         f"hop {dg23['hop_ms']:.2f} ms ({dg23['hop_gbps']:.2f} GB/s)")
 
     t0 = time.perf_counter()
-    log("[24/24] rl: RLlib's on-policy half, the learner on the card: PPO "
+    log("[24/25] rl: RLlib's on-policy half, the learner on the card: PPO "
         "over a host runner (MinAtarBreakout-v0) and with the env on the "
         "card (JaxAtariClassBreakout-v0), IMPALA on the card, on-card "
         "learning, fp32 card vs CPU, IMPALA and APPO over runner actors "
@@ -6255,6 +6858,18 @@ def main() -> int:
         f"s); PPO {rl['a']['sps']:.1f} env-steps/s over a host runner, "
         f"{rl['b']['sps']:.1f} with the env on the card; IMPALA on the card "
         f"{rl['c']['sps']:.1f}; learned {rl['d']['window']:.3f} a episode")
+
+    t0 = time.perf_counter()
+    log("[25/25] rl-offpolicy: RLlib's off-policy, offline, multi-agent and "
+        "model-based half, the learners on the card: DQN over a host runner "
+        "(MinAtarBreakout-v0), SAC on the Pendulum twin, offline CQL, BC and "
+        "MARWIL from recorded files, MultiAgentPPO over two runner actors, "
+        "DreamerV3 on MinAtarFreeway-v0 and one update at its default width")
+    rl2 = rl_offpolicy_phase(torch, smi)
+    log(f"  rl-offpolicy phase {time.perf_counter() - t0:.1f} s (budget "
+        f"{RL2_BUDGET_S} s); DQN {rl2['a']['update_ms']:.2f} ms an update, "
+        f"SAC {rl2['b']['update_ms']:.2f} ms a fused update, DreamerV3 "
+        f"{rl2['e']['wide_ms']:.1f} ms an update at the default width")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi, flush=True)

@@ -117,22 +117,53 @@ class Algorithm:
     def get_weights(self):
         return self.learner_group.get_weights()
 
+    def _extra_state(self) -> dict:
+        """Algorithm-specific checkpoint payload, as numpy (SAC: target
+        params, alpha, optimizer and generator states). Base: nothing."""
+        return {}
+
+    def _load_extra_state(self, extra: dict, weights) -> None:
+        pass
+
     def save_to_path(self, path: str):
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "algorithm_state.pkl"), "wb") as f:
             pickle.dump({"weights": self.get_weights(),
                          "iteration": self.iteration,
                          "timesteps": self._timesteps,
-                         "extra": {},   # the off-policy half's state
+                         "extra": self._extra_state(),
                          "config": self.config.to_dict()}, f)
         return path
 
     def restore_from_path(self, path: str):
         with open(os.path.join(path, "algorithm_state.pkl"), "rb") as f:
-            state = pickle.load(f)
+            state = _LenientUnpickler(f).load()
         self.learner_group.set_weights(state["weights"])
+        self._load_extra_state(state.get("extra", {}), state["weights"])
         self.iteration = state["iteration"]
         self._timesteps = state["timesteps"]
+
+    @staticmethod
+    def _replay_rows(f, *, actions_2d: bool) -> dict:
+        """Fragment -> flat replay transitions, bootstrapping through time
+        limits: rows truncated but not terminated are dropped (their
+        next_obs is the auto-reset observation) and dones carry the
+        terminated flags only."""
+        T, B = f["rewards"].shape
+        next_obs = np.concatenate([f["obs"][1:], f["final_obs"][None]],
+                                  axis=0)
+        dones = f["dones"].reshape(-1)
+        terms = f["terminateds"].reshape(-1)
+        keep = ~((dones > 0) & (terms == 0))
+        actions = (f["actions"].reshape(T * B, -1) if actions_2d
+                   else f["actions"].reshape(-1))
+        return {
+            "obs": f["obs"].reshape(T * B, -1)[keep],
+            "actions": actions[keep],
+            "rewards": f["rewards"].reshape(-1).astype(np.float32)[keep],
+            "dones": terms.astype(np.float32)[keep],
+            "next_obs": next_obs.reshape(T * B, -1)[keep],
+        }
 
     def stop(self):
         self.env_runner_group.stop()
@@ -185,3 +216,29 @@ class Algorithm:
             out[k] = np.concatenate(
                 [f[k].reshape(-1, *f[k].shape[2:]) for f in fragments])
         return out
+
+
+class _Unreadable:
+    """Stands in for a pickled object whose class cannot be imported here
+    (a JAX checkpoint's optax states where optax is not installed)."""
+
+    def __new__(cls, *_a, **_k):
+        return object.__new__(cls)
+
+    def __init__(self, *_a, **_k):
+        pass
+
+    def __setstate__(self, _state):
+        pass
+
+
+class _LenientUnpickler(pickle.Unpickler):
+    """Reads a checkpoint whose extra state holds classes this process
+    cannot import: those load as `_Unreadable`, and the algorithm's
+    `_load_extra_state` keeps only what it can read."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return _Unreadable

@@ -54,7 +54,18 @@ def as_tensor(v, device) -> torch.Tensor:
 
 
 def to_device(batch: dict, device) -> dict:
-    return {k: as_tensor(v, device) for k, v in batch.items()}
+    """A batch on `device`: each column, and each leaf of a nested tree
+    (DQN's target params ride the batch as one). A tensor already there
+    is passed as it is, so a tree kept on the card is not copied per
+    update."""
+    return {k: tree_map(lambda v: as_tensor(v, device), v)
+            for k, v in batch.items()}
+
+
+def _rows(v) -> bool:
+    """Whether a batch entry is a column of rows (split across learners)
+    rather than a tree every learner takes whole."""
+    return isinstance(v, (np.ndarray, torch.Tensor))
 
 
 def read_metrics(metrics: dict) -> dict:
@@ -87,11 +98,15 @@ class Learner:
 
     def grads(self, batch: dict, loss_fn=None):
         """-> (loss, aux, grads): the loss of `batch` (tensors on the
-        device) and its gradients, products in full fp32."""
+        device) and its gradients, products in full fp32. A leaf the loss
+        does not read (BC's value head) gets zeros, as jax.grad gives."""
         fn = loss_fn or self._loss_fn
         with fp32_products():
             loss, aux = fn(self.params, batch, **self._loss_cfg)
-            grads = torch.autograd.grad(loss, self._leaves)
+            grads = torch.autograd.grad(loss, self._leaves,
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self._leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
     def apply(self, grads) -> None:
@@ -237,16 +252,16 @@ class LearnerGroup:
         if self.local is not None:
             return self.local.update(batch)
         n = len(self.remotes)
-        batch = {k: _as_numpy(v) for k, v in batch.items()}
-        B = next(iter(batch.values())).shape[0]
+        batch = {k: tree_map(_as_numpy, v) for k, v in batch.items()}
+        B = next(v for v in batch.values() if _rows(v)).shape[0]
         if B < n:
             # Every learner must take part in the allreduce; an empty
             # shard would feed NaN gradients into the whole group.
             raise ValueError(
                 f"batch of {B} rows cannot be sharded across {n} learners")
         bounds = np.linspace(0, B, n + 1, dtype=int)
-        refs = [r.update.remote({k: v[bounds[i]:bounds[i + 1]]
-                                 for k, v in batch.items()})
+        refs = [r.update.remote({k: v[bounds[i]:bounds[i + 1]] if _rows(v)
+                                 else v for k, v in batch.items()})
                 for i, r in enumerate(self.remotes)]
         results = rt.get(refs, timeout=300)
         return {k: float(np.mean([m[k] for m in results]))

@@ -233,10 +233,21 @@ class SquashedGaussianModule:
     LOG_STD_MAX = 2.0
 
     def _scale(self, like):
-        low = torch.tensor(self.low, dtype=torch.float32, device=like.device)
-        high = torch.tensor(self.high, dtype=torch.float32,
-                            device=like.device)
-        return (high - low) / 2.0, (high + low) / 2.0
+        """(scale, shift) of the action box on `like`'s device, made once
+        a device: a tensor built from a list is a copy from pageable host
+        memory, which waits for the device's queue at every call."""
+        cache = self.__dict__.setdefault("_box", {})
+        if like.device not in cache:
+            low = torch.tensor(self.low, dtype=torch.float32,
+                               device=like.device)
+            high = torch.tensor(self.high, dtype=torch.float32,
+                                device=like.device)
+            cache[like.device] = ((high - low) / 2.0, (high + low) / 2.0)
+        return cache[like.device]
+
+    def __getstate__(self):
+        # the module travels to runner actors: without its device tensors
+        return {k: v for k, v in self.__dict__.items() if k != "_box"}
 
     def init(self, seed=0, device="cuda") -> dict:
         def build(gen):
@@ -268,12 +279,15 @@ class SquashedGaussianModule:
         return (2 * (math.log(2.0) - pre_tanh
                      - F.softplus(-2 * pre_tanh))).sum(-1)
 
-    def sample(self, params, obs, generator):
-        """Reparameterized sample -> (action in env bounds, logp)."""
+    def sample(self, params, obs, generator=None, *, eps=None):
+        """Reparameterized sample -> (action in env bounds, logp). The
+        standard normals come from `generator`, or are `eps` when given
+        (a test feeds the JAX package's draws)."""
         mean, log_std = self.pi(params, obs)
         std = torch.exp(log_std)
-        eps = torch.randn(mean.shape, generator=generator,
-                          device=mean.device)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator,
+                              device=mean.device)
         pre_tanh = mean + std * eps
         logp = (-0.5 * eps ** 2 - log_std
                 - 0.5 * math.log(2 * math.pi)).sum(-1)

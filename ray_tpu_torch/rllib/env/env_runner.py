@@ -55,10 +55,11 @@ class SingleAgentEnvRunner:
         self.completed_lengths: list[int] = []
 
     @torch.no_grad()
-    def sample(self, params, num_steps: int) -> dict:
+    def sample(self, params, num_steps: int, explore: bool = True) -> dict:
         """Collect a [T, B, ...] fragment as numpy arrays (they ride the
         object plane zero-copy), acting with a CPU copy of `params` (kept as
-        `acting_params`)."""
+        `acting_params`): sampled actions, or with `explore=False` the
+        greedy ones (logp and values zero)."""
         params = self.acting_params = _cpu_params(params)
         T, B = num_steps, self.num_envs
         obs_buf = np.empty((T, B, self.obs.shape[-1]), np.float32)
@@ -72,10 +73,15 @@ class SingleAgentEnvRunner:
         done_buf = np.empty((T, B), np.float32)
         term_buf = np.empty((T, B), np.float32)
         for t in range(T):
-            action, logp, value = self.module.forward_exploration(
-                params, torch.from_numpy(self.obs), self._gen)
-            logp_buf[t] = logp.numpy()
-            val_buf[t] = value.numpy()
+            if explore:
+                action, logp, value = self.module.forward_exploration(
+                    params, torch.from_numpy(self.obs), self._gen)
+                logp_buf[t] = logp.numpy()
+                val_buf[t] = value.numpy()
+            else:
+                action = self.module.forward_inference(
+                    params, torch.from_numpy(self.obs))
+                logp_buf[t] = val_buf[t] = 0.0
             action = action.numpy()
             obs_buf[t] = self.obs
             act_buf[t] = action
